@@ -1,0 +1,105 @@
+"""Operator base class for the graph-builder.
+
+Counterpart of ``dlrm_flexflow_tpu/ops/base.py``.  An op is a graph node:
+it declares its parameters (``ParameterSpec``) and computes ``forward``
+as a plain function of a parameter dictionary and input tensors.  The
+port runs forward only; the training slice adds the backward.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence
+
+import torch
+
+from ..tensor import ParameterSpec, Tensor
+
+# A float32 matmul on the card (the fused interaction's plain version)
+# must run in full f32, as XLA runs it: TF32 keeps about three decimal
+# digits.  Off is PyTorch's default; the port states it here so that
+# nothing relies on the default.
+torch.backends.cuda.matmul.allow_tf32 = False
+
+
+class Op:
+    """One graph node.  Subclasses set ``self.outputs`` in ``__init__``
+    and implement ``forward``; ``params`` is the dict param_name ->
+    tensor stored under ``self.name`` in the model's params."""
+
+    op_type: str = "op"
+
+    def __init__(self, name: str, inputs: Sequence[Tensor]):
+        self.name = name
+        self.inputs: List[Tensor] = list(inputs)
+        self.outputs: List[Tensor] = []
+
+    def _make_output(self, shape, dtype=torch.float32, idx: int = 0
+                     ) -> Tensor:
+        return Tensor(shape=shape, dtype=dtype, owner_op=self,
+                      owner_idx=idx, name=f"{self.name}:out{idx}")
+
+    def param_specs(self) -> List[ParameterSpec]:
+        return []
+
+    def init_params(self, generator: torch.Generator
+                    ) -> Dict[str, torch.Tensor]:
+        return {spec.param_name: spec.initializer(generator, spec.shape,
+                                                  spec.dtype)
+                for spec in self.param_specs()}
+
+    def forward(self, params: Dict[str, torch.Tensor],
+                xs: List[torch.Tensor]) -> List[torch.Tensor]:
+        raise NotImplementedError
+
+    def __repr__(self):
+        return f"{type(self).__name__}({self.name})"
+
+
+def _identity(x):
+    return x
+
+
+_ACTIVATIONS = {
+    "relu": torch.relu,
+    "sigmoid": torch.sigmoid,
+    "tanh": torch.tanh,
+    "elu": torch.nn.functional.elu,
+    # jax.nn.gelu defaults to the tanh approximation
+    "gelu": lambda x: torch.nn.functional.gelu(x, approximate="tanh"),
+    "exp": torch.exp,
+    "softmax": lambda x: torch.softmax(x, dim=-1),
+    "identity": _identity,
+}
+
+
+def activation_fn(name: Optional[str]):
+    if name is None or name in ("none", "linear"):
+        return _identity
+    if name not in _ACTIVATIONS:
+        raise ValueError(f"unknown activation {name!r}")
+    return _ACTIVATIONS[name]
+
+
+def matmul(x, w, compute_dtype=None):
+    """``x @ w`` over the last dim of ``x``, with an f32 result.
+
+    ``compute_dtype='bfloat16'`` means what the JAX package's
+    ``preferred_element_type=float32`` means: bf16 operands, at least f32
+    accumulation, f32 output.  Each operand is rounded to bf16 first.
+    (``torch.matmul`` on two bf16 tensors would round the result to
+    bf16.)
+
+    The product accumulates in f64 and rounds once to f32.  BLAS
+    libraries (MKL on the CPU, cuBLAS on the card) pick their kernel,
+    blocking and K split by the row count and alignment, so an f32 sum
+    over the same row changes its last bits with the batch it rides in,
+    and the serving engine's padding contract (the first n rows of a
+    padded bucket equal the unpadded forward bit for bit) would break.  A
+    product of two f32 values is exact in f64, and the f64 sums of one
+    row in any order lie within a few f64 ulps of each other, far below
+    the f32 rounding step, so every order rounds to the same f32 value
+    (short of a sum landing within those few ulps of an f32 midpoint)."""
+    if compute_dtype in ("bfloat16", torch.bfloat16):
+        x = x.to(torch.bfloat16)
+        w = w.to(torch.bfloat16)
+    return torch.matmul(x.double(), w.double()).float()
