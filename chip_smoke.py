@@ -6,12 +6,22 @@
 Phases, each of which fails the run (non-zero exit, no result line):
   1. the card: nvidia-smi name and power limit, torch and CUDA versions;
   2. build every kernel in dlrm_flexflow_tpu_torch/csrc with nvcc;
-  3. hold each kernel against its plain PyTorch version on the card;
+  3. hold the fused forward kernel against its plain version on the card;
   4. serve the full-width run_random.sh DLRM (fused interaction) through
      InferenceEngine + DynamicBatcher and check the answers and that the
      kernel ran on that path;
-  5. time each kernel at the path's shapes beside its bound, its plain
-     version and a library call.
+  5. time the fused forward at the serving buckets beside its bound, its
+     plain version and a library call;
+  6. hold the row-update kernel against its plain version, bit for bit;
+  7. hold the fused backward kernel against its plain version;
+  8. train the full-width run_random.sh DLRM: the classic graph through
+     train_epoch and fit (row-update kernel), the fused graph on the
+     row-sparse path, and the fused graph on the dense table gradient
+     (forward and backward kernels), with launch counts, finite losses
+     and one step of each held against the same step on the plain
+     versions;
+  9. time the row-update and backward kernels at the path's shapes, and
+     the training steps (information, not a claim).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it exits with code 2 and prints no result.
@@ -19,6 +29,7 @@ Without a CUDA device it exits with code 2 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -28,11 +39,19 @@ import time
 import numpy as np
 import torch
 
-from dlrm_flexflow_tpu_torch import FFConfig, _cuda
+from dlrm_flexflow_tpu_torch import (FFConfig, SGDOptimizer,
+                                     SyntheticDLRMLoader, ZipfDLRMLoader,
+                                     _cuda)
 from dlrm_flexflow_tpu_torch.apps.dlrm import DLRMConfig, build_dlrm
+from dlrm_flexflow_tpu_torch.data.loader import zipf_ids
 from dlrm_flexflow_tpu_torch.ops import FusedEmbedInteract
+from dlrm_flexflow_tpu_torch.ops import embedding as emb_module
+from dlrm_flexflow_tpu_torch.ops import fused_interact as fused_module
 from dlrm_flexflow_tpu_torch.ops.fused_interact_kernel import (
-    fused_interact_cuda, fused_interact_ref, interact_width, mask_local_ids)
+    fused_interact_bwd_cuda, fused_interact_bwd_ref, fused_interact_cuda,
+    fused_interact_ref, interact_width, mask_local_ids)
+from dlrm_flexflow_tpu_torch.ops.row_update_kernel import (
+    launch_row_update, prepare_row_update, row_update_cuda, row_update_ref)
 from dlrm_flexflow_tpu_torch.serving import DynamicBatcher, InferenceEngine
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and the
@@ -41,11 +60,34 @@ from dlrm_flexflow_tpu_torch.serving import DynamicBatcher, InferenceEngine
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 
-# the run_random.sh serving model (bench.py::bench_serving)
+# the run_random.sh model (bench.py): serving buckets and training batch
 TABLES, ROWS, DIM, BOT = 8, 1_000_000, 64, 64
 BUCKETS = (1, 8, 64, 256)
-SOURCE = "dlrm_flexflow_tpu_torch/csrc/fused_interact.cu"
-REPLACES = "dlrm_flexflow_tpu/ops/pallas_fused_interact.py:146"
+BATCH = 256
+KERNELS = {
+    "fused_interact_fwd": (
+        "dlrm_flexflow_tpu_torch/csrc/fused_interact.cu",
+        "dlrm_flexflow_tpu/ops/pallas_fused_interact.py:146",
+        fused_interact_cuda),
+    "fused_interact_bwd": (
+        "dlrm_flexflow_tpu_torch/csrc/fused_interact_bwd.cu",
+        "dlrm_flexflow_tpu/ops/pallas_fused_interact.py:312",
+        fused_interact_bwd_cuda),
+    "row_update": (
+        "dlrm_flexflow_tpu_torch/csrc/row_update.cu",
+        "dlrm_flexflow_tpu/ops/pallas_scatter.py:67",
+        row_update_cuda),
+}
+
+
+def reset_counts() -> None:
+    for _, _, wrapper in KERNELS.values():
+        wrapper.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: wrapper.launches
+            for name, (_, _, wrapper) in KERNELS.items()}
 
 
 def log(obj) -> None:
@@ -223,7 +265,7 @@ def serve(model, state):
         except BaseException as e:  # re-raised below, after the join
             errors.append(e)
 
-    fused_interact_cuda.launches = 0  # the main path starts here
+    reset_counts()  # the main path starts here
     t_start = time.perf_counter()
     batcher = DynamicBatcher(engine)
     threads = [threading.Thread(target=client, args=(c,))
@@ -238,7 +280,7 @@ def serve(model, state):
     summary = batcher.close()
     answers["big", 300] = engine.predict(big[300])  # two top-bucket chunks
     wall_s = time.perf_counter() - t_start
-    launches = fused_interact_cuda.launches  # the main path ends here
+    launches = read_counts()["fused_interact_fwd"]  # the main path ends
     if alive or errors:
         raise RuntimeError(f"client threads failed: alive={len(alive)} "
                            f"errors={errors[:1]!r}")
@@ -323,12 +365,13 @@ def profile_dispatch(engine, req, n: int, reps: int = 20) -> None:
 
 
 # --------------------------------------------------------------- phase 5
-def _graph_ms(fn, arg_sets, reps: int = 5) -> float:
+def _graph_ms(fn, arg_sets, reps: int = 5, windows: int = 3) -> float:
     """Device time of one call of ``fn``: the calls over every argument
     set are captured once in a CUDA graph (no host launch cost between
-    them), the graph is replayed ``reps`` times between CUDA events, and
-    the total is divided by the calls.  Cycling many id sets touches more
-    table rows than the 50 MB L2 holds at the large buckets."""
+    them), the graph is replayed ``reps`` times between CUDA events in
+    each of ``windows`` windows, and the median window's total is divided
+    by the calls.  Cycling many id sets touches more table rows than the
+    50 MB L2 holds at the large buckets."""
     for args in arg_sets[:3]:
         fn(*args)  # warm the allocator and the library
     torch.cuda.synchronize()
@@ -338,14 +381,17 @@ def _graph_ms(fn, arg_sets, reps: int = 5) -> float:
             fn(*args)
     graph.replay()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / (reps * len(arg_sets))
+    times = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / (reps * len(arg_sets)))
+    return sorted(times)[len(times) // 2]
 
 
 def _eager_ms(fn, arg_sets) -> float:
@@ -404,6 +450,437 @@ def time_kernel(table, sets: int = 256):
     return rows
 
 
+# --------------------------------------------------------------- phase 6
+def _rows_tensor(gen, rows, dim):
+    return torch.rand((rows, dim), generator=gen, device="cuda") - 0.5
+
+
+def _row_ids(kind, n, rows, gen, rng):
+    """int64 ids of one phase-6 case on the card."""
+    if kind == "uniform":
+        return torch.randint(0, rows, (n,), generator=gen, device="cuda")
+    if kind == "one_id":
+        return torch.full((n,), rows // 3, dtype=torch.int64, device="cuda")
+    if kind == "zipf":
+        return torch.from_numpy(zipf_ids(rng, rows, (n,), a=1.05)).cuda()
+    # wrapped and dropped, a fixed mix by slot: a quarter in [-R, 0)
+    # (wraps), a quarter in [R, 2R) and a quarter in [-2R, -R) (dropped),
+    # the rest in range.  The in-range and wrapped ids come from one pool
+    # of 64 rows, so runs repeat a row under both spellings.
+    pool = torch.randint(0, rows, (64,), generator=gen, device="cuda")
+    pick = pool[torch.randint(0, 64, (n,), generator=gen, device="cuda")]
+    far = torch.randint(0, rows, (n,), generator=gen, device="cuda")
+    slot = torch.arange(n, device="cuda") % 4
+    ids = torch.where(slot == 0, pick - rows,
+                      torch.where(slot == 1, far + rows,
+                                  torch.where(slot == 2, -rows - 1 - far,
+                                              pick)))
+    return ids[torch.randperm(n, generator=gen, device="cuda")]
+
+
+def check_row_update(table) -> float:
+    """Kernel A against ``row_update_ref`` on the same GPU tensors, bit
+    for bit, on clones of ``table`` (the headline's 8M x 64 flat table)
+    and on 1M-row tables of d = 16 and 128."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rng = np.random.default_rng(3)
+    cases = [(k, n, DIM) for k in ("uniform", "one_id", "zipf", "wrap_drop")
+             for n in (0, 1, 2048, 65_536)]
+    cases += [(k, 2048, d) for k in ("uniform", "zipf", "wrap_drop")
+              for d in (16, 128)]
+    others = {d: _rows_tensor(gen, ROWS, d) for d in (16, 128)}
+    failed, worst = [], 0.0
+    for kind, n, d in cases:
+        base = table if d == DIM else others[d]
+        rows = base.shape[0]
+        ids = _row_ids(kind, n, rows, gen, rng)
+        upd = torch.randn((n, d), generator=gen, device="cuda")
+        scale = torch.tensor(-0.01, device="cuda")
+        got = row_update_cuda(base.clone(), ids, upd, scale)
+        want = row_update_ref(base.clone(), ids, upd, scale)
+        torch.cuda.synchronize()
+        ok = torch.equal(got, want)
+        err = float((got - want).abs().max())
+        worst = max(worst, err)
+        wrapped = int(((ids < 0) & (ids >= -rows)).sum())
+        dropped = int(((ids < -rows) | (ids >= rows)).sum())
+        live = torch.where(ids < 0, ids + rows, ids)
+        live = live[(live >= 0) & (live < rows)]
+        longest = int(torch.bincount(live).max()) if live.numel() else 0
+        if kind == "wrap_drop" and n >= 2 and not (wrapped and dropped):
+            ok = False  # the case must hold both branches
+        case = {"phase": "kernel_vs_plain", "kernel": "row_update",
+                "ids": kind, "n": n, "rows": rows, "d": d,
+                "wrapped": wrapped, "dropped": dropped,
+                "longest_run": longest, "max_abs_err": err,
+                "tolerance": "exact", "ok": bool(ok)}
+        log(case)
+        if not ok:
+            failed.append(case)
+        del got, want
+    if failed:
+        raise AssertionError(f"{len(failed)} row_update case(s) disagree "
+                             f"with the plain version")
+    return worst
+
+
+# --------------------------------------------------------------- phase 7
+def _cotangent(gen, bsz, interact):
+    width = interact_width(interact, TABLES, DIM, BOT)
+    return torch.randn((bsz, width), generator=gen, device="cuda")
+
+
+def check_fused_bwd(table) -> float:
+    """Kernel B against ``fused_interact_bwd_ref``: cat bit-exact (slices,
+    a division by the bag and masks), dot within rtol 1e-5 and atol 1e-6
+    (its f32 matmuls sum in another order)."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    failed, worst = [], 0.0
+    for bsz in (1, 7, 256):
+        for bag in (0, 1, 3):
+            gids = _gids(gen, bsz, bag, drop=True)
+            bottom = _bottom(gen, bsz)
+            for interact in ("cat", "dot"):
+                g = _cotangent(gen, bsz, interact)
+                for aggr in ("sum", "avg"):
+                    kw = dict(interact=interact, aggr=aggr)
+                    k = fused_interact_bwd_cuda(table, gids, bottom, g, **kw)
+                    r = fused_interact_bwd_ref(table, gids, bottom, g, **kw)
+                    torch.cuda.synchronize()
+                    if interact == "cat":
+                        ok, tol = all(map(torch.equal, k, r)), "exact"
+                    else:
+                        ok = all(torch.allclose(a, b, rtol=1e-5, atol=1e-6)
+                                 for a, b in zip(k, r))
+                        tol = "rtol 1e-5 atol 1e-6"
+                    ok = ok and k[0].shape == (bsz, TABLES, bag, DIM)
+                    err = max((float((a - b).abs().max()) if a.numel()
+                               else 0.0) for a, b in zip(k, r))
+                    worst = max(worst, err)
+                    case = {"phase": "kernel_vs_plain",
+                            "kernel": "fused_interact_bwd", "B": bsz,
+                            "bag": bag, "interact": interact, "aggr": aggr,
+                            "max_abs_err": err, "tolerance": tol,
+                            "ok": bool(ok)}
+                    log(case)
+                    if not ok:
+                        failed.append(case)
+    if failed:
+        raise AssertionError(f"{len(failed)} fused_interact_bwd case(s) "
+                             f"disagree with the plain version")
+    return worst
+
+
+# --------------------------------------------------------------- phase 8
+@contextlib.contextmanager
+def _plain(module, name, fn):
+    """Swap one module-level kernel wrapper for its plain version."""
+    old = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def _train_model(fused, compute_dtype, sparse="auto"):
+    cfg = DLRMConfig(embedding_size=[ROWS] * TABLES,
+                     fused_interaction="on" if fused else "off")
+    ffc = FFConfig(batch_size=BATCH, compute_dtype=compute_dtype,
+                   sparse_embedding_updates=sparse)
+    model = build_dlrm(cfg, ffc).compile(
+        optimizer=SGDOptimizer(lr=0.01), loss_type="mean_squared_error",
+        metrics=("accuracy", "mean_squared_error"))
+    state = model.init(seed=0)
+    torch.cuda.synchronize()
+    return model, state
+
+
+def _epoch_data(batches):
+    """The first ``batches`` batches of SyntheticDLRMLoader(seed=0),
+    stacked as (num_batches, batch, ...) arrays."""
+    loader = SyntheticDLRMLoader(batches * BATCH, BOT, [ROWS] * TABLES, 1,
+                                 BATCH, seed=0)
+    steps = list(loader)
+    return ({k: np.stack([s[0][k] for s in steps]) for k in steps[0][0]},
+            np.stack([s[1] for s in steps]))
+
+
+def _finite(mets) -> bool:
+    return all(bool(torch.isfinite(v).all()) for v in mets.values())
+
+
+def _same_step(model, state, inputs, labels, module, name, plain_fn):
+    """One train_step through the kernels and the same step with one
+    wrapper swapped for its plain version, on clones of ``state``;
+    returns (bit-identical, max abs difference over all parameters)."""
+    a, b = state.clone(), state.clone()
+    a, ma = model.train_step(a, inputs, labels)
+    with _plain(module, name, plain_fn):
+        b, mb = model.train_step(b, inputs, labels)
+    torch.cuda.synchronize()
+    same, err = True, 0.0
+    for op, params in a.params.items():
+        for k, v in params.items():
+            same = same and torch.equal(v, b.params[op][k])
+            err = max(err, float((v - b.params[op][k]).abs().max()))
+    same = same and torch.equal(ma["loss"], mb["loss"])
+    return same, err
+
+
+def profile_steps(model, state, inputs, labels, config: str, reps: int = 5):
+    """Where a training step's time goes (information, not a check): the
+    host wall per step, the device kernel time per step from the
+    profiler's CUDA activity, the device's idle share of the profiled
+    wall, the share of f64 GEMM kernels (the Linear layers' f64
+    accumulation), and the kernels that took the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+    batches = [({k: v[i] for k, v in inputs.items()}, labels[i])
+               for i in range(reps)]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for x, y in batches:
+            state, _ = model.train_step(state, x, y)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6 / reps
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+    busy_us = sum(e.self_device_time_total for e in kernels) / reps
+    f64_us = sum(e.self_device_time_total for e in kernels
+                 if "f64" in e.key or "dgemm" in e.key.lower()) / reps
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    log({"phase": "profile", "config": config, "steps": reps,
+         "profiled_step_wall_us": wall_us,
+         "device_busy_us": busy_us if kernels else "not measured",
+         "device_idle_share": (1 - busy_us / wall_us) if kernels
+         else "not measured",
+         "f64_gemm_us": f64_us if kernels else "not measured",
+         "kernels_per_step": sum(e.count for e in kernels) / reps,
+         "top_kernels": [{"name": e.key[:80],
+                          "us": e.self_device_time_total / reps,
+                          "calls": e.count / reps} for e in top]})
+    return state
+
+
+def train_headline(inputs, labels):
+    """(i) The run_random.sh classic graph (8 x 1M x 64 stacked tables,
+    cat, bf16 compute, SGD lr 0.01, MSE): train_epoch over 64 batches,
+    then a short fit over ZipfDLRMLoader data."""
+    model, state = _train_model(False, "bfloat16")
+    op = model.get_op("emb")
+    flat = state.params["emb"]["embedding"].view(-1, DIM)
+    step0 = ({k: v[0] for k, v in inputs.items()}, labels[0])
+    same, err = _same_step(model, state, *step0, emb_module,
+                           "row_update_cuda", row_update_ref)
+    log({"phase": "train_vs_plain", "config": "headline",
+         "plain": "row_update_ref", "bit_identical": same,
+         "max_abs_err": err})
+    if not same:
+        raise AssertionError("headline step through the row-update kernel "
+                             "!= the same step on row_update_ref")
+    touched = np.unique(op.flat_ids(torch.from_numpy(inputs["sparse"])
+                                    ).numpy().reshape(-1))
+    rng = np.random.default_rng(6)
+    sample = rng.choice(flat.shape[0], 8192, replace=False)
+    cold = torch.from_numpy(np.setdiff1d(sample, touched)).cuda()
+    hot = torch.from_numpy(rng.choice(touched, 2048, replace=False)).cuda()
+    cold_before, hot_before = flat[cold].clone(), flat[hot].clone()
+    nb = labels.shape[0]
+    reset_counts()  # the main path starts here
+    t0 = time.perf_counter()
+    state, folded = model.train_epoch(state, inputs, labels)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    epoch_counts = read_counts()  # ... and ends here
+    flat = state.params["emb"]["embedding"].view(-1, DIM)
+    changed = float((flat[hot] != hot_before).any(dim=1).float().mean())
+    cold_same = bool(torch.equal(flat[cold], cold_before))
+    state = profile_steps(model, state, inputs, labels, "headline")
+    zipf = ZipfDLRMLoader(8 * BATCH, BOT, [ROWS] * TABLES, 1, BATCH, seed=0)
+    reset_counts()
+    state, fit_thpt = model.fit(state, zipf, epochs=1, verbose=False)
+    fit_counts = read_counts()
+    fit_means = model.get_perf_metrics().finalized_means()
+    row = {"phase": "train", "config": "headline", "graph": "classic cat",
+           "compute_dtype": "bfloat16", "steps": nb,
+           "launches": epoch_counts, "fit_launches": fit_counts,
+           "loss": float(folded["loss"]),
+           "accuracy": float(folded["train_correct"] / folded["train_all"]),
+           "untouched_sampled_rows": int(cold.numel()),
+           "untouched_rows_bit_identical": cold_same,
+           "touched_sampled_rows_changed": changed,
+           "fit_metrics": fit_means, "fit_samples_per_s": fit_thpt,
+           "step_wall_ms": wall * 1e3 / nb,
+           "samples_per_s": nb * BATCH / wall,
+           "note": "walls are information, not a claim"}
+    log(row)
+    if not (_finite(folded) and np.isfinite(list(fit_means.values())).all()):
+        raise AssertionError("headline training gave a non-finite metric")
+    if epoch_counts["row_update"] != nb or fit_counts["row_update"] != 9:
+        raise AssertionError(f"row_update launched {epoch_counts} times in "
+                             f"{nb} steps and {fit_counts} in fit's 9")
+    if not cold_same or changed < 0.99:
+        raise AssertionError(f"rows: untouched identical {cold_same}, "
+                             f"touched changed {changed}")
+    del model, state
+    torch.cuda.empty_cache()
+    return row, epoch_counts["row_update"] + fit_counts["row_update"]
+
+
+def train_fused_sparse(inputs, labels):
+    """(ii) The fused graph on the row-sparse path: rows injected, pooled
+    and interacted in PyTorch, the row-update kernel on every step."""
+    model, state = _train_model(True, "bfloat16")
+    nb = 4
+    part = ({k: v[:nb] for k, v in inputs.items()}, labels[:nb])
+    reset_counts()  # the main path starts here
+    state, folded = model.train_epoch(state, *part)
+    torch.cuda.synchronize()
+    counts = read_counts()  # ... and ends here
+    log({"phase": "train", "config": "fused_sparse", "steps": nb,
+         "launches": counts, "loss": float(folded["loss"])})
+    if not _finite(folded) or counts["row_update"] != nb:
+        raise AssertionError(f"fused sparse path: launches {counts}, "
+                             f"finite {_finite(folded)}")
+    del model, state
+    torch.cuda.empty_cache()
+    return counts["row_update"]
+
+
+def train_fused_dense(inputs, labels):
+    """(iii) The fused graph on the dense table gradient at f32: the
+    forward kernel, the backward kernel and the row-update kernel's
+    scatter into the 2.05 GB table gradient on every step."""
+    model, state = _train_model(True, "float32", sparse="off")
+    step0 = ({k: v[0] for k, v in inputs.items()}, labels[0])
+    same, err = _same_step(model, state, *step0, fused_module,
+                           "fused_interact_bwd_cuda", fused_interact_bwd_ref)
+    log({"phase": "train_vs_plain", "config": "fused_dense",
+         "plain": "fused_interact_bwd_ref", "bit_identical": same,
+         "max_abs_err": err, "tolerance": "exact (cat)"})
+    if not same:
+        raise AssertionError("fused dense step through the backward kernel "
+                             "!= the same step on fused_interact_bwd_ref")
+    state, _ = model.train_step(state, *step0)  # warm
+    torch.cuda.synchronize()
+    nb = 4
+    part = ({k: v[1:1 + nb] for k, v in inputs.items()}, labels[1:1 + nb])
+    reset_counts()  # the main path starts here
+    t0 = time.perf_counter()
+    state, folded = model.train_epoch(state, *part)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()  # ... and ends here
+    row = {"phase": "train", "config": "fused_dense", "graph": "fused cat",
+           "compute_dtype": "float32", "steps": nb, "launches": counts,
+           "loss": float(folded["loss"]), "step_wall_ms": wall * 1e3 / nb,
+           "samples_per_s": nb * BATCH / wall,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "note": "walls are information, not a claim"}
+    log(row)
+    if not _finite(folded) or min(counts.values()) < nb:
+        raise AssertionError(f"fused dense path: launches {counts}, "
+                             f"finite {_finite(folded)}")
+    profile_steps(model, state, inputs, labels, "fused_dense", reps=3)
+    del model, state
+    torch.cuda.empty_cache()
+    return row, counts
+
+
+# --------------------------------------------------------------- phase 9
+def _bound(nbytes, flops):
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / F32_FLOPS_PER_S * 1e3
+    return (max(bytes_ms, ops_ms),
+            "bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def time_row_update(table, sets: int = 64):
+    """Kernel A at the training step's shape (n = 256 * 8 updates of
+    d = 64 on the 8M-row table), uniform and zipf ids: the kernel alone on
+    prepared (sorted) inputs and the whole wrapper from CUDA graphs, the
+    plain version (host-synchronising, so timed eagerly) and
+    ``index_add_`` (the same sum in an atomic order) as the library
+    call."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rng = np.random.default_rng(7)
+    rows, n = table.shape[0], BATCH * TABLES
+    out = {}
+    for kind in ("uniform", "zipf"):
+        arg_sets = [(table, _row_ids(kind, n, rows, gen, rng),
+                     torch.randn((n, DIM), generator=gen, device="cuda"),
+                     torch.tensor(-0.01, device="cuda"))
+                    for _ in range(sets)]
+        prepared = [(t,) + prepare_row_update(t, i, u, s)
+                    for t, i, u, s in arg_sets]
+        uniq = sum(int(torch.unique(a[1]).numel()) for a in arg_sets) / sets
+        nbytes = 2 * uniq * DIM * 4 + n * DIM * 4 + n * 8
+        bound_ms, bound_by = _bound(nbytes, n * DIM)
+        row = {"phase": "timing", "kernel": "row_update", "ids": kind,
+               "n": n, "d": DIM, "rows": rows, "distinct_rows": uniq,
+               "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
+               "ms": _graph_ms(launch_row_update, prepared),
+               "wrapper_ms": _graph_ms(row_update_cuda, arg_sets),
+               "plain_ms": _eager_ms(row_update_ref, arg_sets[:16]),
+               "library_ms": _graph_ms(
+                   lambda t, i, u, s: t.index_add_(0, i, u, alpha=-0.01),
+                   arg_sets),
+               "call_ms": _eager_ms(row_update_cuda, arg_sets)}
+        row["share_of_bound"] = bound_ms / row["ms"]
+        log(row)
+        out[kind] = row
+    return out
+
+
+def time_fused_bwd(table, sets: int = 64):
+    """Kernel B at B in 1, 8, 64, 256 for cat and dot: its time, its
+    bound and its plain version's time; no single PyTorch call computes
+    it, so there is no library time."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    out = {}
+    for interact in ("cat", "dot"):
+        for bsz in BUCKETS:
+            arg_sets = [(table, _gids(gen, bsz, 1, drop=False),
+                         _bottom(gen, bsz), _cotangent(gen, bsz, interact))
+                        for _ in range(sets)]
+
+            def kern(t, gi, b, g):
+                return fused_interact_bwd_cuda(t, gi, b, g, interact=interact)
+
+            def plain(t, gi, b, g):
+                return fused_interact_bwd_ref(t, gi, b, g, interact=interact)
+
+            width = interact_width(interact, TABLES, DIM, BOT)
+            slots = bsz * TABLES
+            nbytes = 4 * (bsz * width + slots + slots * DIM + bsz * BOT)
+            flops = 0
+            if interact == "dot":
+                f = TABLES + 1
+                nbytes += 4 * (slots * DIM + bsz * BOT)  # re-read rows
+                flops = slots * DIM + 4 * bsz * f * f * DIM
+            bound_ms, bound_by = _bound(nbytes, flops)
+            row = {"phase": "timing", "kernel": "fused_interact_bwd",
+                   "interact": interact, "B": bsz, "T": TABLES, "bag": 1,
+                   "d": DIM, "bytes": nbytes, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "ms": _graph_ms(kern, arg_sets),
+                   "plain_ms": _graph_ms(plain, arg_sets),
+                   "library_ms": None, "call_ms": _eager_ms(kern, arg_sets)}
+            row["share_of_bound"] = bound_ms / row["ms"]
+            log(row)
+            out[interact, bsz] = row
+    return out
+
+
+def _entry(name, launches, err, timing):
+    source, replaces, _ = KERNELS[name]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": timing["ms"], "plain_ms": timing["plain_ms"],
+            "bound_ms": timing["bound_ms"], "bound_by": timing["bound_by"],
+            "library_ms": timing["library_ms"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs one GPU",
@@ -412,18 +889,39 @@ def main() -> int:
     t0 = time.perf_counter()
     card_info()
     build_kernels()
+    # phases 3-5: the serving path
     model, state = build_model()
     table = state.params["emb"]["embedding"]
-    worst = check_kernel_cases(table)
-    launches, path_err = serve(model, state)
-    head = time_kernel(table)[-1]  # the top serving bucket, B=256
-    log({"phase": "done", "wall_s": round(time.perf_counter() - t0, 3)})
-    log({"kernels": [{
-        "name": "fused_interact_fwd", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES, "launches": launches,
-        "max_abs_err": max(worst, path_err), "ms": head["ms"],
-        "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"], "library_ms": head["library_ms"]}]})
+    fwd_err = check_kernel_cases(table)
+    serve_launches, path_err = serve(model, state)
+    fwd_time = time_kernel(table)[-1]  # the top serving bucket, B=256
+    # phases 6-7: the training kernels against their plain versions
+    row_err = check_row_update(table)
+    bwd_err = check_fused_bwd(table)
+    del model, state
+    torch.cuda.empty_cache()
+    # phase 8: the training paths
+    inputs, labels = _epoch_data(64)
+    headline, headline_rows = train_headline(inputs, labels)
+    sparse_rows = train_fused_sparse(inputs, labels)
+    dense, dense_counts = train_fused_dense(inputs, labels)
+    # phase 9: timings at the path's shapes
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    table = _rows_tensor(gen, TABLES * ROWS, DIM)
+    row_time = time_row_update(table)["uniform"]
+    bwd_time = time_fused_bwd(table)["cat", BATCH]
+    log({"phase": "done", "wall_s": round(time.perf_counter() - t0, 3),
+         "train_step_wall_ms": {"headline": headline["step_wall_ms"],
+                                "fused_dense": dense["step_wall_ms"]}})
+    log({"kernels": [
+        _entry("fused_interact_fwd",
+               serve_launches + dense_counts["fused_interact_fwd"],
+               max(fwd_err, path_err), fwd_time),
+        _entry("fused_interact_bwd", dense_counts["fused_interact_bwd"],
+               bwd_err, bwd_time),
+        _entry("row_update",
+               headline_rows + sparse_rows + dense_counts["row_update"],
+               row_err, row_time)]})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

@@ -9,11 +9,17 @@ at first use.  Entry points run on the card unless the caller passes
 """
 
 from .config import FFConfig
+from .data import ArrayDataLoader, SyntheticDLRMLoader, ZipfDLRMLoader
+from .losses import get_loss
+from .metrics import MetricsAccumulator, compute_metrics
 from .model import FFModel, TrainState
+from .optim import AdamOptimizer, SGDOptimizer
 from .serving import (DynamicBatcher, InferenceEngine, LatencyStats,
                       parse_buckets)
 from .tensor import ParameterSpec, Tensor
 
-__all__ = ["FFConfig", "FFModel", "TrainState", "DynamicBatcher",
-           "InferenceEngine", "LatencyStats", "parse_buckets",
-           "ParameterSpec", "Tensor"]
+__all__ = ["FFConfig", "FFModel", "TrainState", "SGDOptimizer",
+           "AdamOptimizer", "get_loss", "compute_metrics",
+           "MetricsAccumulator", "ArrayDataLoader", "SyntheticDLRMLoader",
+           "ZipfDLRMLoader", "DynamicBatcher", "InferenceEngine",
+           "LatencyStats", "parse_buckets", "ParameterSpec", "Tensor"]

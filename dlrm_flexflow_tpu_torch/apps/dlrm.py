@@ -3,12 +3,15 @@
 
 Bottom MLP over the dense features, one embedding bag per sparse feature,
 the feature interaction (``cat`` or ``dot``), top MLP with a sigmoid.
-This slice builds the fused graph (``fused_interaction`` "on" or
-"auto"): the embedding bags and the interaction are ONE
-``FusedEmbedInteract`` op, whose forward is the hand-written Hopper
-kernel on the card.  The classic graph (stacked embedding -> reshape ->
-concat/batch_matmul) needs the shape ops and comes with slice 2 in
-ROADMAP.md.
+Two graph shapes: the fused graph (``fused_interaction="on"``), whose
+embedding bags and interaction are ONE ``FusedEmbedInteract`` op run by
+the hand-written Hopper kernels on the card, and the classic graph
+(stacked, ragged or per-table embeddings -> reshape -> concat or
+batch_matmul).
+
+    python -m dlrm_flexflow_tpu_torch.apps.dlrm -b 256 -e 1 --wd 0
+
+trains the run_random.sh model on the CUDA card.
 """
 
 from __future__ import annotations
@@ -17,7 +20,9 @@ from dataclasses import dataclass, field
 from typing import List, Optional, Sequence
 
 from ..config import FFConfig
+from ..data.loader import SyntheticDLRMLoader
 from ..model import FFModel
+from ..optim import SGDOptimizer
 
 
 @dataclass
@@ -98,23 +103,55 @@ def _create_mlp(model: FFModel, x, layer_sizes, sigmoid_layer: int,
     return t
 
 
+def _interact_features(model: FFModel, bottom_out, emb_out,
+                       cfg: DLRMConfig):
+    """The classic graph's interaction: ``cat`` concatenates the bottom
+    output and the embeddings; ``dot`` forms z = [bottom; embeddings]
+    (B, F, d), the pairwise dots z z^T by one batch_matmul, and
+    concatenates the bottom output with their flat form."""
+    if cfg.arch_interaction_op == "cat":
+        return model.concat([bottom_out] + emb_out, axis=1)
+    if cfg.arch_interaction_op == "dot":
+        d = cfg.sparse_feature_size
+        feats = [model.reshape(bottom_out, (bottom_out.shape[0], 1, d))]
+        for e in emb_out:
+            # 2-D (B, T*d) -> (B, T, d); 3-D already (B, T, d)
+            feats.append(model.reshape(e, (e.shape[0], e.shape[1] // d, d))
+                         if e.ndim == 2 else e)
+        z = model.concat(feats, axis=1)                 # (B, F, d)
+        zz = model.batch_matmul(z, model.transpose(z))  # (B, F, F)
+        return model.concat([bottom_out, model.flat(zz)], axis=1)
+    raise ValueError(f"unknown interaction op {cfg.arch_interaction_op!r}")
+
+
 def build_dlrm(cfg: DLRMConfig, ffconfig: Optional[FFConfig] = None,
                stacked_embeddings: Optional[bool] = None,
                table_parallel: bool = False) -> FFModel:
-    """Build the fused DLRM graph: ``bot_0..`` Linear ops, ``emb``
-    (FusedEmbedInteract over the (B, T, bag) ``sparse`` ids and the
-    bottom output), ``top_0..`` Linear ops — the same op names and
-    parameter shapes as the JAX package's fused graph."""
+    """Build the DLRM graph with the JAX package's op names and parameter
+    shapes.
+
+    ``fused_interaction`` "on" builds ``bot_*`` Linear ops, ``emb`` (one
+    FusedEmbedInteract over the (B, T, bag) ``sparse`` ids and the bottom
+    output) and ``top_*``.  "off" (and "auto", which engages only on a
+    single TPU in the JAX package) builds the classic graph: with
+    ``stacked_embeddings`` (the default) one ``emb`` op, a
+    StackedEmbedding for same-size tables or a RaggedStackedEmbedding
+    otherwise, reshaped to (B, T*d); without it one Embedding
+    ``emb_<i>`` per table over its own ``sparse_<i>`` ids; then the
+    ``cat`` or ``dot`` interaction.  The table-parallel and
+    overlapped-exchange graphs come with the scale-out slice."""
     ffconfig = ffconfig or FFConfig()
     fmode = getattr(cfg, "fused_interaction", "off")
     if fmode not in ("off", "auto", "on"):
         raise ValueError(
             f"fused_interaction must be 'off'|'auto'|'on', got {fmode!r}")
-    if fmode == "off" or stacked_embeddings is False:
-        raise NotImplementedError(
-            "the classic DLRM graph (per-table or stacked embeddings, then "
-            "reshape and concat/batch_matmul) needs the shape ops: it comes "
-            "with slice 2 in ROADMAP.md; build with fused_interaction='on'")
+    if stacked_embeddings is None:
+        stacked_embeddings = True
+    if fmode == "on" and not stacked_embeddings:
+        raise ValueError(
+            "fused_interaction='on' needs the stacked input convention "
+            "(one (B, T, bag) ids tensor); per-table inputs "
+            "(stacked_embeddings=False) cannot feed the fused op")
     if table_parallel or getattr(cfg, "exchange_overlap", "off") == "on":
         raise NotImplementedError(
             "table-parallel and overlapped-exchange graphs come with the "
@@ -122,16 +159,69 @@ def build_dlrm(cfg: DLRMConfig, ffconfig: Optional[FFConfig] = None,
     model = FFModel(ffconfig)
     b = ffconfig.batch_size
     t = len(cfg.embedding_size)
+    d = cfg.sparse_feature_size
     dense_in = model.create_tensor((b, cfg.mlp_bot[0]), "float32", name="dense")
     bottom = _create_mlp(model, dense_in, cfg.mlp_bot, cfg.sigmoid_bot, "bot")
-    ids = model.create_tensor((b, t, cfg.embedding_bag_size), "int64",
-                              name="sparse")
-    z = model.fused_embed_interact(
-        ids, bottom, list(cfg.embedding_size), cfg.sparse_feature_size,
-        interact=cfg.arch_interaction_op, aggr="sum", name="emb")
+    if fmode == "on":
+        ids = model.create_tensor((b, t, cfg.embedding_bag_size), "int64",
+                                  name="sparse")
+        z = model.fused_embed_interact(
+            ids, bottom, list(cfg.embedding_size), d,
+            interact=cfg.arch_interaction_op, aggr="sum", name="emb")
+    elif stacked_embeddings:
+        ids = model.create_tensor((b, t, cfg.embedding_bag_size), "int64",
+                                  name="sparse")
+        if len(set(cfg.embedding_size)) == 1:
+            stacked = model.stacked_embedding(ids, t, cfg.embedding_size[0],
+                                              d, aggr="sum", name="emb")
+        else:
+            stacked = model.ragged_stacked_embedding(
+                ids, cfg.embedding_size, d, aggr="sum", name="emb")
+        flat = model.reshape(stacked, (b, t * d), name="emb_flat")
+        z = _interact_features(model, bottom, [flat], cfg)
+    else:
+        emb_out = []
+        for i, rows in enumerate(cfg.embedding_size):
+            ids = model.create_tensor((b, cfg.embedding_bag_size), "int64",
+                                      name=f"sparse_{i}")
+            emb_out.append(model.embedding(ids, rows, d, aggr="sum",
+                                           name=f"emb_{i}"))
+        z = _interact_features(model, bottom, emb_out, cfg)
     if z.shape[1] != cfg.mlp_top[0]:
         raise ValueError(
             f"interaction width {z.shape[1]} != mlp_top[0] {cfg.mlp_top[0]}")
     sig = cfg.sigmoid_top if cfg.sigmoid_top >= 0 else len(cfg.mlp_top) - 2
     _create_mlp(model, z, cfg.mlp_top, sig, "top")
     return model
+
+
+def run(argv: Sequence[str] = ()) -> float:
+    """The reference app's CLI: MSE loss with accuracy and MSE metrics,
+    SGD at the config's learning rate and weight decay, synthetic data
+    (``--data-size`` samples, default 16 batches), trained by ``fit`` on
+    the CUDA card.  Returns samples/s."""
+    ffconfig = FFConfig.parse_args(argv)
+    cfg = DLRMConfig.parse_args(argv)
+    if cfg.dataset:
+        raise NotImplementedError(
+            "--dataset (Criteo HDF5) needs h5py: load_criteo_h5 comes with "
+            "the optimizer and data slice in ROADMAP.md")
+    model = build_dlrm(cfg, ffconfig)
+    model.compile(optimizer=SGDOptimizer(ffconfig.learning_rate, 0.0, False,
+                                         ffconfig.weight_decay),
+                  loss_type="mean_squared_error",
+                  metrics=("accuracy", "mean_squared_error"))
+    state = model.init()
+    n = cfg.data_size if cfg.data_size > 0 else 16 * ffconfig.batch_size
+    loader = SyntheticDLRMLoader(n, cfg.mlp_bot[0], cfg.embedding_size,
+                                 cfg.embedding_bag_size, ffconfig.batch_size,
+                                 stacked=True,
+                                 seed=ffconfig.seed)
+    _, thpt = model.fit(state, loader, epochs=ffconfig.epochs)
+    return thpt
+
+
+if __name__ == "__main__":
+    import sys
+
+    run(sys.argv[1:])

@@ -1,8 +1,8 @@
 """Runtime configuration and CLI flag parsing.
 
 Counterpart of ``dlrm_flexflow_tpu/config.py``: the same field names,
-defaults and flags for the fields the serving slice reads.  The other
-fields arrive with the slices that read them.
+defaults and flags for the fields the serving and training slices read.
+The other fields arrive with the slices that read them.
 """
 
 from __future__ import annotations
@@ -13,12 +13,21 @@ from typing import Sequence
 
 @dataclasses.dataclass
 class FFConfig:
+    epochs: int = 1
     batch_size: int = 64
+    learning_rate: float = 0.01
+    weight_decay: float = 0.0001
     # per-op matmul precision: "bfloat16" = bf16 operands, f32 accumulation
     compute_dtype: str = "float32"
-    # embedding-table storage dtype (the fused kernel serves float32)
+    # embedding-table storage dtype (the port's tables are float32)
     embedding_dtype: str = "float32"
-    # inter-op activation storage dtype (float32 only in this slice)
+    # Row-sparse embedding updates under plain SGD ("auto"|"on"|"off"):
+    # gather the looked-up rows outside autograd, differentiate with
+    # respect to those rows, and add -lr * row_grad back into the table
+    # in place (the row-update kernel).  "off" trains through the dense
+    # table gradient.
+    sparse_embedding_updates: str = "auto"
+    # inter-op activation storage dtype (float32 only in the port)
     activation_dtype: str = "float32"
     # --- online serving (serving/) ---------------------------------------
     # batch-size buckets the InferenceEngine warms up; requests pad up to
@@ -32,9 +41,9 @@ class FFConfig:
     serve_max_wait_us: float = 2000.0
     serve_queue_depth: int = 256
     serve_timeout_us: float = 0.0
-    # "off" only in this slice (quantized tables come later)
+    # "off" only in the port so far (quantized tables come later)
     serve_quantize: str = "off"
-    # "resident" only in this slice (tiered storage comes later)
+    # "resident" only in the port so far (tiered storage comes later)
     serve_storage: str = "resident"
     seed: int = 0
 
@@ -44,7 +53,10 @@ class FFConfig:
         flags are ignored."""
         cfg = FFConfig()
         flags = {
+            ("-e", "--epochs"): ("epochs", int),
             ("-b", "--batch-size"): ("batch_size", int),
+            ("--lr", "--learning-rate"): ("learning_rate", float),
+            ("--wd", "--weight-decay"): ("weight_decay", float),
             ("--seed",): ("seed", int),
             ("--compute-dtype",): ("compute_dtype", str),
             ("--embedding-dtype",): ("embedding_dtype", str),

@@ -2,8 +2,9 @@
 
 Counterpart of ``dlrm_flexflow_tpu/ops/base.py``.  An op is a graph node:
 it declares its parameters (``ParameterSpec``) and computes ``forward``
-as a plain function of a parameter dictionary and input tensors.  The
-port runs forward only; the training slice adds the backward.
+as a plain function of a parameter dictionary and input tensors;
+autograd differentiates it, except where an op brings its own backward
+(``ops/fused_interact.py``).
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import torch
 
 from ..tensor import ParameterSpec, Tensor
 
-# A float32 matmul on the card (the fused interaction's plain version)
+# A float32 matmul on the card (the fused interaction's plain versions)
 # must run in full f32, as XLA runs it: TF32 keeps about three decimal
 # digits.  Off is PyTorch's default; the port states it here so that
 # nothing relies on the default.

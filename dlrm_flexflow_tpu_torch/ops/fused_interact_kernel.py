@@ -1,20 +1,24 @@
-"""Fused embedding-bag -> feature-interaction: the plain PyTorch version
-and the wrapper of its hand-written Hopper kernel.
+"""Fused embedding-bag -> feature-interaction, forward and backward: the
+plain PyTorch versions and the wrappers of their hand-written Hopper
+kernels.
 
 Counterpart of ``dlrm_flexflow_tpu/ops/pallas_fused_interact.py``.  The
 DLRM hot path gathers per-table embedding rows, pools each bag, and meets
 the pooled vectors with the bottom-MLP output in the interaction: ``cat``
-(concat) or ``dot`` (pairwise dots).  The kernel
+(concat) or ``dot`` (pairwise dots).  The forward kernel
 (``csrc/fused_interact.cu``) does all three in one pass without writing
-the pooled intermediate to device memory.
+the pooled intermediate to device memory; the backward kernel
+(``csrc/fused_interact_bwd.cu``) turns the output cotangent into
+``dbottom`` and per-slot row grads at f32.
 
 Dropped-id rule: ``mask_local_ids`` maps every local id that is negative
 or beyond its table's row count to -1; a -1 slot reads nothing and pools
 as exact 0.0.  The kernel and the plain version share that encoding.
 
-``fused_interact_cuda`` launches the kernel for tensors on a CUDA device
-and runs ``fused_interact_ref`` only for tensors on the CPU; a CUDA tensor
-never reaches the plain version through it.
+``fused_interact_cuda`` and ``fused_interact_bwd_cuda`` launch their
+kernels for tensors on a CUDA device and run ``fused_interact_ref`` and
+``fused_interact_bwd_ref`` only for tensors on the CPU; a CUDA tensor
+never reaches a plain version through them.
 """
 
 from __future__ import annotations
@@ -52,6 +56,15 @@ def interact_width(interact: str, num_tables: int, dim: int,
     raise ValueError(f"unknown interaction op {interact!r}")
 
 
+def divide(x, n: int):
+    """``x / n`` as a true division on every device.  ATen divides a CUDA
+    tensor by a Python number as a multiply by its reciprocal, which can
+    round one ulp away from the division that the kernels, the CPU and
+    the JAX package's emitter path do; a 0-dim tensor on the same device
+    as ``x`` is divided elementwise."""
+    return x / torch.full((), n, dtype=x.dtype, device=x.device)
+
+
 def pool_rows(rows, aggr: str, out_dtype):
     """Bag-pool gathered rows ``(B, T, bag, d)`` -> ``(B, T, d)``: the sum
     over the bag, divided by the bag for ``avg``.  An empty bag pools to
@@ -61,7 +74,7 @@ def pool_rows(rows, aggr: str, out_dtype):
         return torch.zeros((b, t, d), dtype=out_dtype, device=rows.device)
     pooled = rows.sum(dim=2)
     if aggr == "avg":
-        pooled = pooled / bag
+        pooled = divide(pooled, bag)
     return pooled.to(out_dtype)
 
 
@@ -192,3 +205,131 @@ def fused_interact_cuda(table, gids, bottom, *, interact: str = "cat",
 
 
 fused_interact_cuda.launches = 0
+
+
+# ---------------------------------------------------------------- backward
+def interact_backward(g, bottom, pooled, interact: str):
+    """The VJP of ``interact_features`` at f32, formed as the JAX
+    package's ``interact_backward`` forms it: ``cat`` is a slice of
+    ``g``; ``dot``'s ``z z^T`` gives ``dz = G z + (z^T G)^T``.  Returns
+    ``(dbottom, dpooled)``; ``pooled`` may be None for ``cat``."""
+    if interact == "cat":
+        bot_dim = bottom.shape[1]
+        return g[:, :bot_dim], g[:, bot_dim:]  # dpooled (B, T*d) flat
+    if interact != "dot":
+        raise ValueError(f"unknown interaction op {interact!r}")
+    b, dim, t = g.shape[0], bottom.shape[1], pooled.shape[1]
+    f = t + 1
+    gm = g[:, dim:].reshape(b, f, f)
+    z = torch.cat([bottom[:, None, :], pooled], dim=1)  # (B, F, d)
+    dz = (torch.matmul(gm, z)
+          + torch.matmul(z.transpose(-1, -2), gm).transpose(-1, -2))
+    return g[:, :dim] + dz[:, 0], dz[:, 1:]
+
+
+def fused_interact_bwd_ref(table, gids, bottom, g, *, interact: str = "cat",
+                           aggr: str = "sum"):
+    """The plain backward: ``interact_backward`` on the re-pooled rows,
+    then the pooled grads broadcast over the bag (divided by the bag for
+    ``avg``) and zeroed at dropped slots.  Returns ``(row_grads
+    (B, T, bag, d), dbottom (B, bot))``."""
+    b, t, bag = gids.shape
+    dim = table.shape[1]
+    live = (gids >= 0) & (gids < table.shape[0])
+    pooled = None
+    if interact == "dot":
+        rows = table[torch.where(live, gids, torch.zeros_like(gids)).long()]
+        rows = torch.where(live[..., None], rows,
+                           torch.zeros((), dtype=rows.dtype,
+                                       device=rows.device))
+        pooled = pool_rows(rows, aggr, torch.float32)
+    dbot, dpooled = interact_backward(g, bottom, pooled, interact)
+    dpooled = dpooled.reshape(b, t, dim)
+    if aggr == "avg":
+        dpooled = divide(dpooled, bag)
+    rowg = torch.where(live[..., None], dpooled[:, :, None, :],
+                       torch.zeros((), dtype=dpooled.dtype,
+                                   device=dpooled.device))
+    return rowg.expand(b, t, bag, dim).contiguous(), dbot.contiguous()
+
+
+_BWD_SIGNATURES = {
+    "ff_fused_interact_bwd": (
+        ctypes.c_int,
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_longlong]
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p]),
+    "ff_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+}
+
+
+def fused_interact_bwd_cuda(table, gids, bottom, g, *, interact: str = "cat",
+                            aggr: str = "sum"):
+    """Run the fused backward at f32.  Inputs as ``fused_interact_cuda``
+    plus ``g`` (B, width) f32, the interaction's output cotangent.
+    Returns ``(row_grads (B, T, bag, d), dbottom (B, bot))``.
+
+    On CUDA tensors this launches the Hopper kernel (and adds one to
+    ``fused_interact_bwd_cuda.launches``) or raises; on CPU tensors it
+    runs ``fused_interact_bwd_ref``."""
+    if interact not in ("cat", "dot"):
+        raise ValueError(f"unknown interaction op {interact!r}")
+    if aggr not in ("sum", "avg"):
+        raise ValueError(f"unknown aggregation {aggr!r}")
+    devices = {table.device, gids.device, bottom.device, g.device}
+    if len(devices) != 1:
+        raise ValueError(f"inputs on different devices: {sorted(map(str, devices))}")
+    if table.dim() != 2 or gids.dim() != 3 or bottom.dim() != 2:
+        raise ValueError(
+            f"expected table (R, d), gids (B, T, bag), bottom (B, bot); got "
+            f"{tuple(table.shape)}, {tuple(gids.shape)}, "
+            f"{tuple(bottom.shape)}")
+    rows_n, dim = table.shape
+    bsz, t, bag = gids.shape
+    bot_dim = bottom.shape[1]
+    if interact == "dot" and bot_dim != dim:
+        raise ValueError(
+            f"dot interaction needs bottom width {dim}, got {bot_dim}")
+    width = interact_width(interact, t, dim, bot_dim)
+    if bottom.shape[0] != bsz or tuple(g.shape) != (bsz, width):
+        raise ValueError(f"bottom {tuple(bottom.shape)} and g "
+                         f"{tuple(g.shape)} do not match ids "
+                         f"{tuple(gids.shape)} (width {width})")
+    if table.device.type == "cpu":
+        return fused_interact_bwd_ref(table, gids, bottom, g,
+                                      interact=interact, aggr=aggr)
+    if table.device.type != "cuda":
+        raise ValueError(f"no fused_interact_bwd kernel for {table.device}")
+    if (table.dtype != torch.float32 or bottom.dtype != torch.float32
+            or g.dtype != torch.float32 or gids.dtype != torch.int32):
+        raise TypeError(
+            f"fused_interact_bwd kernel takes f32 table, bottom and g and "
+            f"int32 ids, got {table.dtype}, {bottom.dtype}, {g.dtype}, "
+            f"{gids.dtype}")
+    if not (table.is_contiguous() and gids.is_contiguous()
+            and bottom.is_contiguous() and g.is_contiguous()):
+        raise ValueError("fused_interact_bwd kernel takes contiguous tensors")
+    if rows_n >= 2 ** 31:
+        raise ValueError(f"table of {rows_n} rows overflows int32 ids")
+    rowg = torch.empty((bsz, t, bag, dim), dtype=torch.float32,
+                       device=table.device)
+    dbot = torch.empty((bsz, bot_dim), dtype=torch.float32,
+                       device=table.device)
+    if bsz == 0:
+        return rowg, dbot
+    lib = _cuda.load("fused_interact_bwd", _BWD_SIGNATURES)
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.ff_fused_interact_bwd(
+            table.data_ptr(), gids.data_ptr(), bottom.data_ptr(),
+            g.data_ptr(), rowg.data_ptr(), dbot.data_ptr(), bsz, t, bag, dim,
+            bot_dim, rows_n, int(interact == "dot"), int(aggr == "avg"),
+            stream)
+    if err:
+        msg = lib.ff_cuda_error_string(err).decode()
+        raise RuntimeError(f"fused_interact_bwd kernel launch failed: {msg}")
+    with _count_lock:
+        fused_interact_bwd_cuda.launches += 1
+    return rowg, dbot
+
+
+fused_interact_bwd_cuda.launches = 0

@@ -216,3 +216,121 @@ def test_ragged_row_space_matches_jax(rows, dim):
     np.testing.assert_array_equal(
         pop.flat_ids(torch.from_numpy(local)).numpy(),
         np.asarray(jop.flat_ids(jnp.asarray(local.astype(np.int32)))))
+
+
+# -------------------------------------------------------------- the backward
+# Tolerances of the backward, each with its reason:
+#   * cat: the row grads are slices of g, broadcast over the bag and
+#     divided by it for avg, then masked; dbottom is a slice: bit-exact;
+#   * dot: dz is two f32 matmuls whose sums run in another order,
+#     rtol 1e-5, atol 1e-6.
+_BWD_CASES = [(i, a, bag) for i in ("cat", "dot") for a in ("sum", "avg")
+              for bag in (1, 3)]
+
+
+def _assert_bwd_agree(port, ref, interact):
+    port, ref = np.asarray(port), np.asarray(ref)
+    assert port.dtype == np.float32 and port.shape == ref.shape
+    if interact == "cat":
+        np.testing.assert_array_equal(port, ref)
+    else:
+        np.testing.assert_allclose(port, ref, rtol=1e-5, atol=1e-6)
+
+
+def _cotangent(seed, interact):
+    width = jk.interact_width(interact, len(ROW_COUNTS), D, D)
+    return np.random.default_rng(seed).standard_normal(
+        (B, width)).astype(np.float32)
+
+
+def _port_dtable(table, gids, rowg):
+    """The dense table gradient as the port's autograd.Function forms it:
+    one deterministic scatter of the row grads at max(gids, 0)."""
+    from dlrm_flexflow_tpu_torch.ops.row_update_kernel import row_update_ref
+    return row_update_ref(torch.zeros_like(table), gids.clamp_min(0), rowg,
+                          1.0)
+
+
+@pytest.mark.parametrize("interact,aggr,bag", _BWD_CASES)
+def test_bwd_plain_matches_jax_kernel_and_vjp(interact, aggr, bag):
+    """The plain backward against the JAX Pallas backward kernel in
+    interpret mode (row grads and dbottom) and against ``jax.vjp`` of the
+    JAX plain forward (dense table gradient and dbottom).  Dropped ids are
+    in every case; they must give exact-zero row grads."""
+    table, bottom, local = _inputs(50 + _BWD_CASES.index(
+        (interact, aggr, bag)), bag)
+    g = _cotangent(7, interact)
+    gids = tk.mask_local_ids(torch.from_numpy(local), OFFSETS, ROW_COUNTS)
+    tt, tb, tg = map(torch.from_numpy, (table, bottom, g))
+    rowg, dbot = tk.fused_interact_bwd_cuda(tt, gids, tb, tg,
+                                            interact=interact, aggr=aggr)
+    assert rowg.shape == (B, len(ROW_COUNTS), bag, D)
+    np.testing.assert_array_equal(rowg.numpy()[gids.numpy() < 0], 0.0)
+    args = (jnp.asarray(table), _jax_gids(local), jnp.asarray(bottom),
+            jnp.asarray(g))
+    krowg, kdbot = jax.jit(functools.partial(
+        jk.fused_interact_bwd_pallas, interact=interact, aggr=aggr,
+        interpret=True))(*args)
+    if interact == "cat" and aggr == "avg" and bag & (bag - 1):
+        # The JAX kernel's ``dpooled / bag`` runs as a multiply by the
+        # reciprocal in interpret mode on the CPU, one ulp off the
+        # division that jax.vjp (bit-exact below), the port and the CUDA
+        # kernel do when the bag is not a power of two (ROADMAP Queue C)
+        np.testing.assert_allclose(rowg.numpy(), np.asarray(krowg),
+                                   rtol=1.2e-7, atol=0)
+    else:
+        _assert_bwd_agree(rowg, krowg, interact)
+    _assert_bwd_agree(dbot, kdbot, interact)
+    _, vjp = jax.vjp(lambda t, b: jk.fused_interact_ref(
+        t, args[1], b, interact=interact, aggr=aggr), args[0], args[2])
+    jdt, jdb = vjp(args[3])
+    _assert_bwd_agree(_port_dtable(tt, gids, rowg), jdt, interact)
+    _assert_bwd_agree(dbot, jdb, interact)
+
+
+@pytest.mark.parametrize("cd", [None, "bfloat16"])
+@pytest.mark.parametrize("interact", ["cat", "dot"])
+def test_autograd_fn_grads_match_jax_custom_vjp(interact, cd):
+    """``FusedEmbedInteractFn``'s gradients on the CPU against the JAX
+    custom VJP ``fused_embed_interact``: with the interpret-mode kernels
+    at f32 (the backward kernel then runs on the JAX side) and through
+    the emitter VJP under bf16 compute, where both packages fall back to
+    autodiff of the plain formulation.  Tolerances as above; bf16 dot
+    rounds its operands at other places in the two frameworks, rtol 1e-3
+    (the repo's bf16 gate)."""
+    from dlrm_flexflow_tpu_torch.ops.fused_interact import \
+        FusedEmbedInteractFn
+    bag = 2
+    table, bottom, local = _inputs(70, bag)
+    g = _cotangent(8, interact)
+    gids = tk.mask_local_ids(torch.from_numpy(local), OFFSETS,
+                             ROW_COUNTS).to(torch.int32)
+    tt = torch.from_numpy(table).requires_grad_()
+    tb = torch.from_numpy(bottom).requires_grad_()
+    out = FusedEmbedInteractFn.apply(tt, tb, gids, interact, "sum", cd)
+    dt, db = torch.autograd.grad(out, (tt, tb), torch.from_numpy(g))
+    jids = _jax_gids(local).astype(jnp.int32)
+    _, vjp = jax.vjp(lambda t, b: jk.fused_embed_interact(
+        t, jids, b, interact, "sum", cd is None, cd is None, cd),
+        jnp.asarray(table), jnp.asarray(bottom))
+    jdt, jdb = vjp(jnp.asarray(g))
+    if cd is None:
+        _assert_bwd_agree(dt, jdt, interact)
+        _assert_bwd_agree(db, jdb, interact)
+    else:
+        np.testing.assert_allclose(dt.numpy(), np.asarray(jdt), rtol=1e-3,
+                                   atol=1e-3)
+        np.testing.assert_allclose(db.numpy(), np.asarray(jdb), rtol=1e-3,
+                                   atol=1e-3)
+
+
+def test_bwd_cpu_tensors_launch_no_kernel():
+    table, bottom, local = _inputs(12, 2)
+    gids = tk.mask_local_ids(torch.from_numpy(local), OFFSETS, ROW_COUNTS)
+    g = torch.from_numpy(_cotangent(9, "dot"))
+    args = (torch.from_numpy(table), gids, torch.from_numpy(bottom), g)
+    got = tk.fused_interact_bwd_cuda(*args, interact="dot", aggr="avg")
+    want = tk.fused_interact_bwd_ref(*args, interact="dot", aggr="avg")
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert tk.fused_interact_bwd_cuda.launches == 0

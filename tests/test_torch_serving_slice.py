@@ -300,12 +300,12 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
 def test_unported_paths_raise_not_implemented():
     pm = _port_model("float32")
     state = pm.init(seed=0, device="cpu")
-    for call in (lambda: pm.train_step(state, {}, None),
-                 lambda: pm.train_epoch(state, {}, None),
-                 lambda: pm.fit(state, None),
-                 lambda: build_dlrm(DLRMConfig(fused_interaction="off")),
+    for call in (lambda: _port_model("float32").compile(mesh=object()),
                  lambda: InferenceEngine(pm, state, quantize="int8",
-                                         device="cpu")):
+                                         device="cpu"),
+                 lambda: fft.AdamOptimizer(lr=0.001),
+                 lambda: fft.SGDOptimizer(lr=0.1, lazy_embeddings=True),
+                 lambda: pm.fit(state, None, checkpoint_manager="ckpt")):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             call()
 
@@ -365,6 +365,11 @@ def _port_modules():
 
 
 def test_port_imports_no_jax_at_runtime():
+    assert {"dlrm_flexflow_tpu_torch.ops.row_update_kernel",
+            "dlrm_flexflow_tpu_torch.ops.shape_ops",
+            "dlrm_flexflow_tpu_torch.optim", "dlrm_flexflow_tpu_torch.losses",
+            "dlrm_flexflow_tpu_torch.metrics",
+            "dlrm_flexflow_tpu_torch.data.loader"} <= set(_port_modules())
     code = (
         "import importlib, sys\n"
         f"for m in {_port_modules() + ['chip_smoke']!r}:\n"
