@@ -21,7 +21,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
      and one step of each held against the same step on the plain
      versions;
   9. time the row-update and backward kernels at the path's shapes, and
-     the training steps (information, not a claim).
+     the training steps (information, not a claim);
+ 10. hold the row-set kernel against its plain version, bit for bit;
+ 11. hold the embedding-bag kernel against its plain version, bit for bit;
+ 12. train the classic graph through fit's staged branch with the epoch
+     row cache (fit(epochs=2) over 64 batches: one train_epochs, the
+     ladder [8], 17 row-set launches), held bit for bit against the same
+     run uncached, on row_set_ref, chunked, and through train_epochs;
+ 13. train a graph of Embedding(use_pallas=True) (the bag kernel forward,
+     its row-update backward) a few steps, its forward and one step held
+     against the plain versions;
+ 14. time the row-set kernel at the epilogue and block shapes, the bag
+     kernel, and profile the cached and uncached staged epochs
+     (information, not a claim).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it exits with code 2 and prints no result.
@@ -39,19 +51,25 @@ import time
 import numpy as np
 import torch
 
-from dlrm_flexflow_tpu_torch import (FFConfig, SGDOptimizer,
+from dlrm_flexflow_tpu_torch import (FFConfig, FFModel, SGDOptimizer,
                                      SyntheticDLRMLoader, ZipfDLRMLoader,
                                      _cuda)
+from dlrm_flexflow_tpu_torch import epoch_cache as cache_module
 from dlrm_flexflow_tpu_torch.apps.dlrm import DLRMConfig, build_dlrm
 from dlrm_flexflow_tpu_torch.data.loader import zipf_ids
-from dlrm_flexflow_tpu_torch.ops import FusedEmbedInteract
+from dlrm_flexflow_tpu_torch.ops import Embedding, FusedEmbedInteract
 from dlrm_flexflow_tpu_torch.ops import embedding as emb_module
 from dlrm_flexflow_tpu_torch.ops import fused_interact as fused_module
+from dlrm_flexflow_tpu_torch.ops.bag_kernel import (embedding_bag_cuda,
+                                                   embedding_bag_ref)
 from dlrm_flexflow_tpu_torch.ops.fused_interact_kernel import (
     fused_interact_bwd_cuda, fused_interact_bwd_ref, fused_interact_cuda,
     fused_interact_ref, interact_width, mask_local_ids)
+from dlrm_flexflow_tpu_torch.ops.row_set_kernel import (
+    launch_row_set, prepare_row_set, row_set_cuda, row_set_ref)
 from dlrm_flexflow_tpu_torch.ops.row_update_kernel import (
     launch_row_update, prepare_row_update, row_update_cuda, row_update_ref)
+from dlrm_flexflow_tpu_torch.ops.slotting import slot_rows
 from dlrm_flexflow_tpu_torch.serving import DynamicBatcher, InferenceEngine
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and the
@@ -77,6 +95,14 @@ KERNELS = {
         "dlrm_flexflow_tpu_torch/csrc/row_update.cu",
         "dlrm_flexflow_tpu/ops/pallas_scatter.py:67",
         row_update_cuda),
+    "row_set": (
+        "dlrm_flexflow_tpu_torch/csrc/row_set.cu",
+        "dlrm_flexflow_tpu/ops/pallas_scatter.py:460",
+        row_set_cuda),
+    "embedding_bag": (
+        "dlrm_flexflow_tpu_torch/csrc/embedding_bag.cu",
+        "dlrm_flexflow_tpu/ops/pallas_embedding.py:40",
+        embedding_bag_cuda),
 }
 
 
@@ -583,11 +609,11 @@ def _plain(module, name, fn):
         setattr(module, name, old)
 
 
-def _train_model(fused, compute_dtype, sparse="auto"):
+def _train_model(fused, compute_dtype, sparse="auto", **config):
     cfg = DLRMConfig(embedding_size=[ROWS] * TABLES,
                      fused_interaction="on" if fused else "off")
     ffc = FFConfig(batch_size=BATCH, compute_dtype=compute_dtype,
-                   sparse_embedding_updates=sparse)
+                   sparse_embedding_updates=sparse, **config)
     model = build_dlrm(cfg, ffc).compile(
         optimizer=SGDOptimizer(lr=0.01), loss_type="mean_squared_error",
         metrics=("accuracy", "mean_squared_error"))
@@ -628,12 +654,32 @@ def _same_step(model, state, inputs, labels, module, name, plain_fn):
     return same, err
 
 
-def profile_steps(model, state, inputs, labels, config: str, reps: int = 5):
-    """Where a training step's time goes (information, not a check): the
-    host wall per step, the device kernel time per step from the
+def _log_profile(prof, config: str, steps: int, wall_us: float) -> None:
+    """Log a profiled window per step: the device kernel time from the
     profiler's CUDA activity, the device's idle share of the profiled
     wall, the share of f64 GEMM kernels (the Linear layers' f64
     accumulation), and the kernels that took the most device time."""
+    kernels = [e for e in prof.key_averages()
+               if str(e.device_type).endswith("CUDA")]
+    busy_us = sum(e.self_device_time_total for e in kernels) / steps
+    f64_us = sum(e.self_device_time_total for e in kernels
+                 if "f64" in e.key or "dgemm" in e.key.lower()) / steps
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    log({"phase": "profile", "config": config, "steps": steps,
+         "profiled_step_wall_us": wall_us,
+         "device_busy_us": busy_us if kernels else "not measured",
+         "device_idle_share": (1 - busy_us / wall_us) if kernels
+         else "not measured",
+         "f64_gemm_us": f64_us if kernels else "not measured",
+         "kernels_per_step": sum(e.count for e in kernels) / steps,
+         "top_kernels": [{"name": e.key[:80],
+                          "us": e.self_device_time_total / steps,
+                          "calls": e.count / steps} for e in top]})
+
+
+def profile_steps(model, state, inputs, labels, config: str, reps: int = 5):
+    """Where a training step's time goes (information, not a check): the
+    host wall per step and ``_log_profile`` over ``reps`` steps."""
     from torch.profiler import ProfilerActivity, profile
     batches = [({k: v[i] for k, v in inputs.items()}, labels[i])
                for i in range(reps)]
@@ -644,22 +690,7 @@ def profile_steps(model, state, inputs, labels, config: str, reps: int = 5):
             state, _ = model.train_step(state, x, y)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6 / reps
-    kernels = [e for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")]
-    busy_us = sum(e.self_device_time_total for e in kernels) / reps
-    f64_us = sum(e.self_device_time_total for e in kernels
-                 if "f64" in e.key or "dgemm" in e.key.lower()) / reps
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
-    log({"phase": "profile", "config": config, "steps": reps,
-         "profiled_step_wall_us": wall_us,
-         "device_busy_us": busy_us if kernels else "not measured",
-         "device_idle_share": (1 - busy_us / wall_us) if kernels
-         else "not measured",
-         "f64_gemm_us": f64_us if kernels else "not measured",
-         "kernels_per_step": sum(e.count for e in kernels) / reps,
-         "top_kernels": [{"name": e.key[:80],
-                          "us": e.self_device_time_total / reps,
-                          "calls": e.count / reps} for e in top]})
+    _log_profile(prof, config, reps, wall_us)
     return state
 
 
@@ -779,7 +810,10 @@ def train_fused_dense(inputs, labels):
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "note": "walls are information, not a claim"}
     log(row)
-    if not _finite(folded) or min(counts.values()) < nb:
+    if (not _finite(folded)
+            or min(counts[k] for k in ("fused_interact_fwd",
+                                       "fused_interact_bwd",
+                                       "row_update")) < nb):
         raise AssertionError(f"fused dense path: launches {counts}, "
                              f"finite {_finite(folded)}")
     profile_steps(model, state, inputs, labels, "fused_dense", reps=3)
@@ -872,6 +906,380 @@ def time_fused_bwd(table, sets: int = 64):
     return out
 
 
+# -------------------------------------------------------------- phase 10
+INT32_MIN = int(np.iinfo(np.int32).min)
+
+
+def _set_ids(gen, n, rows):
+    """int32 ids of one phase-10 case, in a random order: n - n // 4
+    distinct live rows and n // 4 dropped ids, in turn the sentinel R,
+    -1, int32 min and R + 5.  Returns (ids, the live rows)."""
+    n_drop = n // 4
+    live = torch.randperm(rows, generator=gen, device="cuda")[:n - n_drop]
+    bad = torch.tensor([rows, -1, INT32_MIN, rows + 5], device="cuda")
+    ids = torch.cat([live, bad[torch.arange(n_drop, device="cuda") % 4]])
+    perm = torch.randperm(n, generator=gen, device="cuda")
+    return ids.to(torch.int32)[perm], live
+
+
+def check_row_set(table) -> float:
+    """The row-set kernel against ``row_set_ref`` on clones of ``table``
+    (the headline's 8M x 64 flat table) and of 1M-row tables of d = 16
+    and 128, bit for bit; sampled untouched rows must be unchanged and
+    the live rows set."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    others = {d: _rows_tensor(gen, ROWS, d) for d in (16, 128)}
+    failed, worst = [], 0.0
+    for d in (16, DIM, 128):
+        base = table if d == DIM else others[d]
+        rows = base.shape[0]
+        for n in (0, 1, 7, 4096, 16_384, 131_072):
+            ids, live = _set_ids(gen, n, rows)
+            vals = torch.randn((n, d), generator=gen, device="cuda")
+            got = row_set_cuda(base.clone(), ids, vals)
+            want = row_set_ref(base.clone(), ids, vals)
+            torch.cuda.synchronize()
+            ok = torch.equal(got, want)
+            err = float((got - want).abs().max()) if n else 0.0
+            worst = max(worst, err)
+            sample = torch.randint(0, rows, (8192,), generator=gen,
+                                   device="cuda")
+            cold = sample[~torch.isin(sample, live)]
+            untouched = torch.equal(got[cold], base[cold])
+            hit = (ids >= 0) & (ids < rows)
+            set_ok = torch.equal(got[ids[hit].long()], vals[hit])
+            ok = ok and untouched and set_ok
+            case = {"phase": "kernel_vs_plain", "kernel": "row_set", "n": n,
+                    "rows": rows, "d": d, "live": int(hit.sum()),
+                    "dropped_negative": int((ids < 0).sum()),
+                    "dropped_past_end": int((ids >= rows).sum()),
+                    "untouched_sampled_rows": int(cold.numel()),
+                    "untouched_bit_identical": untouched,
+                    "live_rows_set": set_ok, "max_abs_err": err,
+                    "tolerance": "exact", "ok": bool(ok)}
+            log(case)
+            if not ok:
+                failed.append(case)
+            del got, want
+    del others
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError(f"{len(failed)} row_set case(s) disagree with "
+                             f"the plain version")
+    return worst
+
+
+# -------------------------------------------------------------- phase 11
+def check_embedding_bag():
+    """The bag kernel against ``embedding_bag_ref`` on 1M-row tables of
+    d = 128 and 256, bit for bit: sum and avg, bag 1, 3 and 8, B = 1, 8,
+    64 and 256, with a bag of one repeated row and a bag repeating
+    another.  Returns (max abs error, the d = 128 table)."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    tables = {d: _rows_tensor(gen, ROWS, d) for d in (128, 256)}
+    failed, worst = [], 0.0
+    for d, table in tables.items():
+        for bsz in BUCKETS:
+            for bag in (1, 3, 8):
+                ids = torch.randint(0, ROWS, (bsz, bag), generator=gen,
+                                    device="cuda")
+                ids[0] = int(ids[0, 0])
+                if bsz > 1:
+                    ids[-1] = ids[0]
+                for mode in ("sum", "avg"):
+                    k = embedding_bag_cuda(table, ids, mode)
+                    r = embedding_bag_ref(table, ids, mode)
+                    torch.cuda.synchronize()
+                    ok = torch.equal(k, r) and k.shape == (bsz, d)
+                    err = float((k - r).abs().max())
+                    worst = max(worst, err)
+                    case = {"phase": "kernel_vs_plain",
+                            "kernel": "embedding_bag", "B": bsz, "bag": bag,
+                            "d": d, "mode": mode, "max_abs_err": err,
+                            "tolerance": "exact", "ok": bool(ok)}
+                    log(case)
+                    if not ok:
+                        failed.append(case)
+    if failed:
+        raise AssertionError(f"{len(failed)} embedding_bag case(s) disagree "
+                             f"with the plain version")
+    return worst, tables[128]
+
+
+# -------------------------------------------------------------- phase 12
+def _states_equal(a, b) -> bool:
+    return (int(a.step) == int(b.step)
+            and all(torch.equal(v, b.params[op][k])
+                    for op, params in a.params.items()
+                    for k, v in params.items()))
+
+
+def _staged_fit(model, batches, epochs=2):
+    """``fit`` from a fresh seed-0 state over the first ``batches``
+    batches of SyntheticDLRMLoader(seed=0), launch counts reset just
+    before and read just after.  Returns (state, counts, row)."""
+    state = model.init(seed=0)
+    loader = SyntheticDLRMLoader(batches * BATCH, BOT, [ROWS] * TABLES, 1,
+                                 BATCH, seed=0)
+    torch.cuda.synchronize()
+    reset_counts()  # the main path starts here
+    t0 = time.perf_counter()
+    state, thpt = model.fit(state, loader, epochs=epochs, verbose=False)
+    wall = time.perf_counter() - t0
+    counts = read_counts()  # ... and ends here
+    means = model.get_perf_metrics().finalized_means()
+    row = {"batches": batches, "epochs": epochs,
+           "staged": model._last_fit_used_scan,
+           "cache": model._epoch_cache_active,
+           "chunks": model._epoch_chunk_bounds(batches),
+           "launches": counts, "fit_samples_per_s": thpt, "wall_s": wall,
+           "last_epoch_metrics": means}
+    if not np.isfinite(list(means.values())).all():
+        raise AssertionError(f"staged fit gave a non-finite metric: {row}")
+    return state, counts, row
+
+
+def train_staged(inputs, labels):
+    """fit(epochs=2) of the classic headline graph on the staged branch
+    with the epoch row cache.  At 16 batches (ladder [8]: 2 blocks per
+    epoch) against the same fit uncached and on ``row_set_ref``; at 64
+    batches (ladder [8]: 8 blocks of 16,384 rows per epoch inside the
+    131,072-row epoch cache), the main path: 17 row-set launches, then a
+    chunked run (levels off, chunk 16) and ``train_epochs`` cached and
+    uncached over the same batches, all bit for bit."""
+    model, _ = _train_model(False, "bfloat16")
+    off, _ = _train_model(False, "bfloat16", epoch_row_cache="off")
+    chunked, _ = _train_model(False, "bfloat16", epoch_cache_levels="off",
+                              epoch_cache_chunk=16)
+    n_ops = len(model._sparse_ops)
+    cached16, counts16, row16 = _staged_fit(model, 16)
+    uncached16, counts_off, row_off = _staged_fit(off, 16)
+    with _plain(cache_module, "row_set_cuda", row_set_ref):
+        plain16, counts_plain, _ = _staged_fit(model, 16)
+    same_off = _states_equal(cached16, uncached16)
+    same_plain = _states_equal(cached16, plain16)
+    del cached16, uncached16, plain16
+    log({"phase": "train_staged", "config": "headline, 16 batches", **row16,
+         "uncached": row_off, "vs_uncached_bit_identical": same_off,
+         "vs_row_set_ref_bit_identical": same_plain})
+    if not (row16["staged"] and row16["cache"] and not row_off["cache"]
+            and same_off and same_plain
+            and counts16["row_set"] == 5 * n_ops
+            and counts_off["row_set"] == 0 == counts_plain["row_set"]):
+        raise AssertionError("staged fit at 16 batches: cached != uncached "
+                             "or != row_set_ref, or wrong launches")
+    main, counts, row = _staged_fit(model, 64)
+    chunk_state, chunk_counts, chunk_row = _staged_fit(chunked, 64)
+    same_chunked = _states_equal(main, chunk_state)
+    del chunk_state
+    walls, epochs_states, losses = {}, {}, {}
+    for name, m in (("cached", model), ("uncached", off)):
+        st = m.init(seed=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st, stacked = m.train_epochs(st, inputs, labels, 2)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        epochs_states[name] = st
+        losses[name] = stacked["loss"].tolist()
+    same_epochs = _states_equal(epochs_states["cached"],
+                                epochs_states["uncached"])
+    nb = labels.shape[0]
+    row = {"phase": "train_staged", "config": "headline, 64 batches", **row,
+           "chunked": chunk_row, "vs_chunked_bit_identical": same_chunked,
+           "train_epochs_wall_s": walls,
+           "train_epochs_samples_per_s": {
+               k: 2 * nb * BATCH / v for k, v in walls.items()},
+           "train_epochs_losses": losses,
+           "train_epochs_cached_vs_uncached_bit_identical": same_epochs,
+           "note": "walls are information, not a claim"}
+    log(row)
+    finite = all(np.isfinite(v).all() for v in losses.values())
+    if not (row["staged"] and row["cache"] and row["chunks"] is None
+            and counts["row_set"] == 17 * n_ops
+            and counts["row_update"] == 1 + 2 * 64 * n_ops
+            and chunk_row["chunks"] and chunk_counts["row_set"] == 8 * n_ops
+            and same_chunked and same_epochs and finite):
+        raise AssertionError("staged fit at 64 batches: wrong path, "
+                             "launches, or results")
+    for name, m in (("cached", model), ("uncached", off)):
+        profile_epoch(m, epochs_states[name], inputs, labels,
+                      f"staged_{name}")
+    del model, off, chunked, main, epochs_states
+    torch.cuda.empty_cache()
+    return row, counts
+
+
+def profile_epoch(model, state, inputs, labels, config: str):
+    """Where a staged epoch's time goes (information, not a check): one
+    train_epoch under torch.profiler, per step."""
+    from torch.profiler import ProfilerActivity, profile
+    nb = labels.shape[0]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.train_epoch(state, inputs, labels)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6 / nb
+    _log_profile(prof, config, nb, wall_us)
+
+
+# -------------------------------------------------------------- phase 13
+BAG_ROWS, BAG_DIM, BAG = 1_000_000, 128, 8
+
+
+def _bag_graph():
+    """One 1M x 128 Embedding(use_pallas=True), bag 8, B = 256,
+    concatenated with a dense input of width 128, then Linear 256-1, MSE,
+    SGD lr 0.01 (FFModel.embedding never passes the flag, as in the JAX
+    package, so the op is added directly)."""
+    model = FFModel(FFConfig(batch_size=BATCH))
+    ids = model.create_tensor((BATCH, BAG), "int64", name="ids")
+    dense = model.create_tensor((BATCH, BAG_DIM), "float32", name="dense")
+    emb = model._add(Embedding(model._name("embedding"), ids, BAG_ROWS,
+                               BAG_DIM, "sum", use_pallas=True))
+    model.dense(model.concat([emb, dense], axis=1), 1, name="out")
+    model.compile(optimizer=SGDOptimizer(lr=0.01),
+                  loss_type="mean_squared_error",
+                  metrics=("mean_squared_error",))
+    return model, model.init(seed=0)
+
+
+def train_bag_graph():
+    """A few training steps of the use_pallas graph through train_epoch:
+    the bag kernel forward and its backward's row update into a zero
+    table, every step.  Its forward is held against the plain forward
+    and one step against the same step on the plain versions."""
+    model, state = _bag_graph()
+    op = model.get_op("embedding")
+    rng = np.random.default_rng(13)
+    nb = 4
+    inputs = {"ids": rng.integers(0, BAG_ROWS, (nb + 1, BATCH, BAG)),
+              "dense": rng.standard_normal((nb + 1, BATCH, BAG_DIM)).astype(
+                  np.float32)}
+    labels = rng.standard_normal((nb + 1, BATCH, 1)).astype(np.float32)
+    first = ({k: v[0] for k, v in inputs.items()}, labels[0])
+    got = model.predict(state, first[0])
+    with _plain(emb_module, "embedding_bag_cuda", embedding_bag_ref):
+        want = model.predict(state, first[0])
+    fwd_same = torch.equal(got, want)
+    a, b = state.clone(), state.clone()
+    a, ma = model.train_step(a, *first)
+    with _plain(emb_module, "embedding_bag_cuda", embedding_bag_ref), \
+            _plain(emb_module, "row_update_cuda", row_update_ref):
+        b, mb = model.train_step(b, *first)
+    step_same = _states_equal(a, b) and torch.equal(ma["loss"], mb["loss"])
+    del a, b
+    rest = ({k: v[1:] for k, v in inputs.items()}, labels[1:])
+    torch.cuda.synchronize()
+    reset_counts()  # the main path starts here
+    t0 = time.perf_counter()
+    state, folded = model.train_epoch(state, *rest)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()  # ... and ends here
+    row = {"phase": "train_bag", "config": "Embedding(use_pallas=True)",
+           "use_pallas": op.use_pallas,
+           "row_sparse_ops": [o.name for o in model._sparse_ops],
+           "steps": nb, "launches": counts, "loss": float(folded["loss"]),
+           "forward_vs_plain_bit_identical": fwd_same,
+           "step_vs_plain_bit_identical": step_same,
+           "step_wall_ms": wall * 1e3 / nb,
+           "note": "walls are information, not a claim"}
+    log(row)
+    if not (op.use_pallas and not model._sparse_ops and fwd_same
+            and step_same and _finite(folded)
+            and counts["embedding_bag"] == nb
+            and counts["row_update"] == nb):
+        raise AssertionError(f"use_pallas graph: {row}")
+    del model, state
+    torch.cuda.empty_cache()
+    return row, counts
+
+
+# -------------------------------------------------------------- phase 14
+def _epoch_rowofs(sets, gen):
+    """Writeback plans of the main path's shapes from fresh uniform epochs
+    of 64 batches (B = 256, 8 tables, bag 1): the epilogue's (n = 131,072
+    into the 8M-row table) and the first ladder block's (n = 16,384 into
+    the 131,072-row epoch cache)."""
+    offsets = torch.arange(TABLES, device="cuda")[:, None] * ROWS
+    epilogue, block = [], []
+    for _ in range(sets):
+        ids = torch.randint(0, ROWS, (64, BATCH, TABLES, 1), generator=gen,
+                            device="cuda") + offsets
+        rowof, slots = slot_rows(ids, TABLES * ROWS)
+        epilogue.append(rowof)
+        block.append(slot_rows(slots[:8], rowof.numel())[0])
+    return {"epilogue": epilogue, "block": block}
+
+
+def time_row_set(table, sets: int = 4):
+    """The row-set kernel at the epilogue and block shapes: the kernel
+    alone on prepared inputs and the whole wrapper from CUDA graphs, the
+    plain version (host-synchronising, so timed eagerly) and
+    ``index_copy_`` on the live ids (the library call).  The bound counts
+    this run's live rows: each read once from the rows and written once,
+    plus the n int32 ids."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    out = {}
+    for shape, rowofs in _epoch_rowofs(sets, gen).items():
+        parent = (table if shape == "epilogue"
+                  else _rows_tensor(gen, 64 * BATCH * TABLES, DIM))
+        arg_sets = [(parent, r, torch.randn((r.numel(), DIM), generator=gen,
+                                            device="cuda")) for r in rowofs]
+        prepared = [(t,) + prepare_row_set(t, i, v) for t, i, v in arg_sets]
+        lib_sets = []
+        for t, i, v in arg_sets:
+            hit = i < t.shape[0]
+            lib_sets.append((t, i[hit].long(), v[hit].contiguous()))
+        n = rowofs[0].numel()
+        live = sum(int(a[1].numel()) for a in lib_sets) / sets
+        nbytes = 2 * live * DIM * 4 + n * 4
+        bound_ms, bound_by = _bound(nbytes, 0)
+        row = {"phase": "timing", "kernel": "row_set", "shape": shape,
+               "n": n, "d": DIM, "rows": parent.shape[0],
+               "live_rows": live, "bytes": nbytes, "bound_ms": bound_ms,
+               "bound_by": bound_by,
+               "ms": _graph_ms(launch_row_set, prepared),
+               "wrapper_ms": _graph_ms(row_set_cuda, arg_sets),
+               "plain_ms": _eager_ms(row_set_ref, arg_sets),
+               "library_ms": _graph_ms(
+                   lambda t, i, v: t.index_copy_(0, i, v), lib_sets),
+               "call_ms": _eager_ms(row_set_cuda, arg_sets)}
+        row["share_of_bound"] = bound_ms / row["ms"]
+        log(row)
+        out[shape] = row
+        del arg_sets, prepared, lib_sets
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_embedding_bag(table, sets: int = 256):
+    """The bag kernel at the JAX docstring's shape (1M x 128 f32, B = 256,
+    bag 8), its plain version and ``F.embedding_bag`` (mode "sum", the
+    library call), from CUDA graphs cycling many id sets.  The ids are
+    int64, 8 bytes each in the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    arg_sets = [(table, torch.randint(0, BAG_ROWS, (BATCH, BAG),
+                                      generator=gen, device="cuda"))
+                for _ in range(sets)]
+    nbytes = 4 * BATCH * BAG * BAG_DIM + 8 * BATCH * BAG + 4 * BATCH * BAG_DIM
+    bound_ms, bound_by = _bound(nbytes, BATCH * BAG * BAG_DIM)
+    row = {"phase": "timing", "kernel": "embedding_bag", "B": BATCH,
+           "bag": BAG, "d": BAG_DIM, "rows": BAG_ROWS, "mode": "sum",
+           "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
+           "ms": _graph_ms(embedding_bag_cuda, arg_sets),
+           "plain_ms": _graph_ms(embedding_bag_ref, arg_sets),
+           "library_ms": _graph_ms(
+               lambda t, i: torch.nn.functional.embedding_bag(
+                   i, t, mode="sum"), arg_sets),
+           "call_ms": _eager_ms(embedding_bag_cuda, arg_sets)}
+    row["share_of_bound"] = bound_ms / row["ms"]
+    log(row)
+    return row
+
+
 def _entry(name, launches, err, timing):
     source, replaces, _ = KERNELS[name]
     return {"name": name, "route": "cuda", "source": source,
@@ -898,21 +1306,31 @@ def main() -> int:
     # phases 6-7: the training kernels against their plain versions
     row_err = check_row_update(table)
     bwd_err = check_fused_bwd(table)
-    del model, state
+    # phases 10-11: the row-set and bag kernels against their plain versions
+    set_err = check_row_set(table)
+    bag_err, bag_table = check_embedding_bag()
+    del model, state, table
     torch.cuda.empty_cache()
     # phase 8: the training paths
     inputs, labels = _epoch_data(64)
     headline, headline_rows = train_headline(inputs, labels)
     sparse_rows = train_fused_sparse(inputs, labels)
     dense, dense_counts = train_fused_dense(inputs, labels)
-    # phase 9: timings at the path's shapes
+    # phases 12-13: the staged, cached epochs and the use_pallas graph
+    staged, staged_counts = train_staged(inputs, labels)
+    bag_row, bag_counts = train_bag_graph()
+    # phases 9 and 14: timings at the paths' shapes
     gen = torch.Generator(device="cuda").manual_seed(9)
     table = _rows_tensor(gen, TABLES * ROWS, DIM)
     row_time = time_row_update(table)["uniform"]
     bwd_time = time_fused_bwd(table)["cat", BATCH]
+    set_time = time_row_set(table)["epilogue"]
+    bag_time = time_embedding_bag(bag_table)
     log({"phase": "done", "wall_s": round(time.perf_counter() - t0, 3),
          "train_step_wall_ms": {"headline": headline["step_wall_ms"],
-                                "fused_dense": dense["step_wall_ms"]}})
+                                "fused_dense": dense["step_wall_ms"],
+                                "use_pallas": bag_row["step_wall_ms"]},
+         "staged_fit_samples_per_s": staged["fit_samples_per_s"]})
     log({"kernels": [
         _entry("fused_interact_fwd",
                serve_launches + dense_counts["fused_interact_fwd"],
@@ -920,8 +1338,12 @@ def main() -> int:
         _entry("fused_interact_bwd", dense_counts["fused_interact_bwd"],
                bwd_err, bwd_time),
         _entry("row_update",
-               headline_rows + sparse_rows + dense_counts["row_update"],
-               row_err, row_time)]})
+               headline_rows + sparse_rows + dense_counts["row_update"]
+               + staged_counts["row_update"] + bag_counts["row_update"],
+               row_err, row_time),
+        _entry("row_set", staged_counts["row_set"], set_err, set_time),
+        _entry("embedding_bag", bag_counts["embedding_bag"], bag_err,
+               bag_time)]})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

@@ -9,9 +9,11 @@ the hand-written Hopper kernels on the card, and the classic graph
 (stacked, ragged or per-table embeddings -> reshape -> concat or
 batch_matmul).
 
-    python -m dlrm_flexflow_tpu_torch.apps.dlrm -b 256 -e 1 --wd 0
+    python -m dlrm_flexflow_tpu_torch.apps.dlrm -b 256 -e 2 --wd 0 --data-size 16384
 
-trains the run_random.sh model on the CUDA card.
+trains the run_random.sh model on the CUDA card: ``fit`` stages the 64
+batches on the card and runs both epochs as one ``train_epochs`` with the
+epoch row cache.
 """
 
 from __future__ import annotations

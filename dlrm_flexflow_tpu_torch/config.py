@@ -1,7 +1,8 @@
 """Runtime configuration and CLI flag parsing.
 
 Counterpart of ``dlrm_flexflow_tpu/config.py``: the same field names,
-defaults and flags for the fields the serving and training slices read.
+defaults and flags for the fields the serving and training slices (the
+staged epoch and its row cache included) read.
 The other fields arrive with the slices that read them.
 """
 
@@ -27,6 +28,32 @@ class FFConfig:
     # in place (the row-update kernel).  "off" trains through the dense
     # table gradient.
     sparse_embedding_updates: str = "auto"
+    # Epoch row cache ("auto"|"on"|"off"): train_epoch(s) pull the rows
+    # the epoch's ids touch into a small cache, step against the cache
+    # by slot, and write the final rows back once (model.py,
+    # epoch_cache.py).  The same adds hit the same values in the same
+    # order, so the result is bit-identical to the uncached epoch.
+    # "auto" engages for tables on the CUDA card and stays off on the CPU;
+    # "on" forces it on any device; "off" disables it.  Here the port
+    # departs from the JAX package, whose "auto" engages on the TPU only
+    # (its CPU/GPU scatter is already per row): on the card the cache is
+    # the training CLI's path, so the row-set kernel runs on it (PERF.md
+    # section 7 names the workload that must show it paying).
+    epoch_row_cache: str = "auto"
+    # Scan steps per dispatched chunk when the cache is active and no
+    # ladder level divides the epoch (0 disables chunking); with
+    # epoch_cache_inner <= 1 it also sizes a single ladder level.
+    epoch_cache_chunk: int = 256
+    # The innermost ladder level: every epoch_cache_inner steps pull their
+    # rows from the parent cache into a block cache (0 disables).
+    epoch_cache_inner: int = 8
+    # Ladder shape: "auto", "off" (no in-graph levels) or explicit block
+    # sizes, outermost first ("16,8").
+    epoch_cache_levels: str = "auto"
+    # fit() stages an array-backed, unshuffled, drop_last dataset of at
+    # most this many bytes on the device and trains it by whole epochs
+    # (0 keeps every fit on the per-batch loop)
+    fit_scan_max_bytes: int = 2 * 1024 * 1024 * 1024
     # inter-op activation storage dtype (float32 only in the port)
     activation_dtype: str = "float32"
     # --- online serving (serving/) ---------------------------------------
@@ -67,6 +94,8 @@ class FFConfig:
             ("--serve-timeout-us",): ("serve_timeout_us", float),
             ("--serve-quantize",): ("serve_quantize", str),
             ("--serve-storage",): ("serve_storage", str),
+            ("--epoch-row-cache",): ("epoch_row_cache", str),
+            ("--fit-scan-max-bytes",): ("fit_scan_max_bytes", int),
         }
         by_flag = {f: v for names, v in flags.items() for f in names}
         argv = list(argv)

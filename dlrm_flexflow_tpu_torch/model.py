@@ -14,8 +14,16 @@ are gathered outside autograd, the loss is differentiated with respect to
 those rows, the dense parameters take the SGD step, and
 ``scatter_apply(-lr)`` adds the row grads back into the table in place
 (the row-update kernel on the card).  Otherwise every parameter, tables
-included, takes the dense gradient.  A mesh comes with the scale-out
-slice; checkpoints and resilient training with the durability slice.
+included, takes the dense gradient.
+
+``train_epoch``, ``train_epochs`` and ``fit``'s staged branch follow the
+JAX package's scanned epoch (``model.py:1891-1928``, ``:2115-2254``,
+``:2314-2566``): a Python loop takes the place of ``lax.scan``, and with
+the epoch row cache active (``epoch_cache.py``) the row-sparse ops step
+against a small cache of the epoch's rows, nested in the cache ladder,
+with every writeback through the row-set kernel on the card.  A mesh
+comes with the scale-out slice; checkpoints and resilient training with
+the durability slice.
 """
 
 from __future__ import annotations
@@ -27,14 +35,19 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from . import _cuda
 from .config import FFConfig
 from .device import resolve_device
+from .epoch_cache import (build_cache, cache_fetch, cache_writeback,
+                          ladder_arrays, ladder_meta, named_levels)
 from .initializers import derive_seed
 from .losses import get_loss
 from .metrics import MetricsAccumulator, compute_metrics
 from .ops import (BatchMatmul, Concat, Embedding, Flat, FusedEmbedInteract,
                   Linear, Op, RaggedStackedEmbedding, Reshape,
                   StackedEmbedding, Transpose)
+from .ops.embedding import lane_pack
+from .ops.row_update_kernel import row_update_cuda
 from .optim import Optimizer, SGDOptimizer
 from .tensor import Tensor, as_dtype, numpy_dtype
 
@@ -44,6 +57,7 @@ _CCE = ("sparse_categorical_crossentropy", "sparse_crossentropy",
 _DURABILITY = ("checkpointed and resilient training (checkpoint_manager, "
                "checkpoint cadences, resume, sentinel) is not ported yet: "
                "it comes with the durability slice in ROADMAP.md")
+_MODES = ("auto", "on", "off")
 
 
 @dataclass
@@ -93,6 +107,10 @@ class FFModel:
         self.metrics: Tuple[str, ...] = ()
         self._loss_fn = None
         self._sparse_ops: List[Op] = []
+        # whether train_epoch(s) run the epoch row cache: resolved from
+        # the tables' device by each epoch entry point (_resolve_cache)
+        self._epoch_cache_active = False
+        self._last_fit_used_scan = False
         self._last_metrics = MetricsAccumulator(())
 
     # ------------------------------------------------------------------ utils
@@ -243,10 +261,11 @@ class FFModel:
         if act != "float32":
             raise NotImplementedError(
                 f"activation_dtype={act!r} is not ported yet (float32 only)")
-        mode = getattr(self.config, "sparse_embedding_updates", "auto")
-        if mode not in ("auto", "on", "off"):
-            raise ValueError(f"sparse_embedding_updates must be "
-                             f"'auto'|'on'|'off', got {mode!r}")
+        for name in ("sparse_embedding_updates", "epoch_row_cache"):
+            mode = getattr(self.config, name)
+            if mode not in _MODES:
+                raise ValueError(f"{name} must be 'auto'|'on'|'off', "
+                                 f"got {mode!r}")
         self.optimizer = optimizer or SGDOptimizer(
             lr=self.config.learning_rate,
             weight_decay=self.config.weight_decay)
@@ -270,8 +289,11 @@ class FFModel:
         input_uids = {t.uid for t in self._inputs}
         sparse_ok = (self.config.sparse_embedding_updates != "off"
                      and plain_sgd)
+        # the bag-kernel ops (use_pallas) keep the dense gradient, as the
+        # JAX package's _device_table_op leaves them out
         self._sparse_ops = [op for op in self.layers
                             if sparse_ok and isinstance(op, EMBEDDING_OPS)
+                            and not getattr(op, "use_pallas", False)
                             and op.inputs[0].uid in input_uids]
 
         def forward(params, inputs):
@@ -408,7 +430,8 @@ class FFModel:
         preds = values[final.uid].to(final.dtype)
         return self._loss_fn(preds, labels), preds
 
-    def train_step(self, state: TrainState, inputs, labels):
+    def train_step(self, state: TrainState, inputs, labels,
+                   slot_override=None):
         """One forward, backward and SGD step; returns ``(new_state,
         metrics)`` with the batch's metric sums and ``loss`` as 0-dim
         tensors on the device (no host sync).
@@ -416,12 +439,18 @@ class FFModel:
         Consumes ``state`` like the JAX package's donated step: the dense
         parameters and the tables are updated in place, and the returned
         state holds the same tensors.  Clone a state that must survive
-        (``TrainState.clone``)."""
+        (``TrainState.clone``).
+
+        ``slot_override`` (the epoch row cache) maps an op name to this
+        batch's cache slots: the op's "embedding" then holds its cache,
+        the rows are gathered from it by slot, and the row-sparse step
+        lands in it through the row-update kernel."""
         self._require_compiled()
         params = state.params
         dev = params_device(params)
         inputs = self._place_inputs(inputs, dev)
         labels = self._place_labels(labels, dev)
+        slot_override = slot_override or {}
         sparse_names = {op.name for op in self._sparse_ops}
         leaves = {op: {k: v.detach().requires_grad_() for k, v in d.items()}
                   for op, d in params.items() if op not in sparse_names}
@@ -429,9 +458,11 @@ class FFModel:
         rows = {}
         for op in self._sparse_ops:
             table = params[op.name]["embedding"]
+            slots = slot_override.get(op.name)
             with torch.no_grad():
-                rows[op.name] = op.gather_rows(
-                    table, inputs[op.inputs[0].name]).requires_grad_()
+                r = (op.gather_rows(table, inputs[op.inputs[0].name])
+                     if slots is None else table[slots.long()])
+            rows[op.name] = r.requires_grad_()
             run[op.name] = {"embedding": table, "rows__": rows[op.name]}
         flat = [(op, k) for op, d in leaves.items() for k in d]
         with torch.enable_grad():
@@ -450,8 +481,13 @@ class FFModel:
                                                  state.opt_state)
             neg_lr = -state.opt_state.get("lr", self.optimizer.lr)
             for op, g in zip(self._sparse_ops, grads[len(flat):]):
-                op.scatter_apply(params[op.name]["embedding"],
-                                 inputs[op.inputs[0].name], g, neg_lr)
+                table = params[op.name]["embedding"]
+                slots = slot_override.get(op.name)
+                if slots is None:
+                    op.scatter_apply(table, inputs[op.inputs[0].name], g,
+                                     neg_lr)
+                else:
+                    row_update_cuda(table, slots, g, neg_lr)
             mets = compute_metrics(preds.detach(), labels, self.metrics,
                                    self.loss_type)
             mets["loss"] = loss.detach()
@@ -473,38 +509,267 @@ class FFModel:
             mets["loss"] = loss
         return mets
 
+    # ------------------------------------------------- the epoch row cache
+    def _resolve_cache(self, dev: torch.device) -> None:
+        """Set ``_epoch_cache_active`` for tables on ``dev``: "on" anywhere,
+        "auto" on the CUDA card (config.py says why the port departs from
+        the JAX package's TPU-only rule), "off" never; always with at
+        least one row-sparse op."""
+        mode = self.config.epoch_row_cache
+        self._epoch_cache_active = bool(self._sparse_ops) and (
+            mode == "on" or (mode == "auto" and dev.type == "cuda"))
+
+    def cache_prologue(self, state: TrainState, inputs):
+        """Per row-sparse op, map the epoch's ids to unique cache slots and
+        pull the touched rows in (JAX ``cache_prologue``, shared slots).
+        Returns ``(state with the caches, slots, writebacks, originals)``;
+        an op whose cache would not be smaller than its table stays on
+        the per-step path."""
+        params = dict(state.params)
+        slots_ep, writebacks, originals = {}, [], {}
+        cache_ops = self._sparse_ops if self._epoch_cache_active else ()
+        for op in cache_ops:
+            ids = inputs[op.inputs[0].name].to(torch.int32)
+            tb = params[op.name]["embedding"]
+            flat = tb.view(-1, tb.shape[-1])
+            built = build_cache(flat, op.flat_ids(ids), lane_pack(op.out_dim))
+            if built is None:
+                continue
+            cache, slots, rowof = built
+            originals[op.name] = tb
+            params[op.name] = {"embedding": cache}
+            slots_ep[op.name] = slots
+            writebacks.append((op.name, rowof))
+        return (TrainState(params, state.opt_state, state.step), slots_ep,
+                writebacks, originals)
+
+    def ladder_plan(self, state: TrainState, slots_ep, nb: int):
+        """``(meta, arrays)`` of the ladder (JAX ``ladder_plan``), or
+        ``([], None)``."""
+        if not slots_ep:
+            return [], None
+        rows0 = {name: state.params[name]["embedding"].shape[0]
+                 for name in slots_ep}
+        op_pack = {op.name: lane_pack(op.out_dim) for op in self._sparse_ops}
+        meta = ladder_meta(self.config, nb, slots_ep, rows0, op_pack)
+        if not meta:
+            return [], None
+        return meta, ladder_arrays(slots_ep, meta, rows0)
+
+    def ladder_scan(self, state: TrainState, inputs, labels, meta, arrs,
+                    mets: List[Dict[str, torch.Tensor]]) -> TrainState:
+        """The steps of ``labels.shape[0]`` batches down the ladder (JAX
+        ``ladder_scan``): each level pulls its block's rows from the parent
+        cache, recurses against the block cache and sets the final rows
+        back, in place; the innermost level runs ``train_step`` by slot.
+        Appends each step's metrics to ``mets``."""
+        if not meta:
+            slots = arrs["slots"]
+            for i in range(labels.shape[0]):
+                state, m = self.train_step(
+                    state, {k: v[i] for k, v in inputs.items()}, labels[i],
+                    slot_override={n: s[i] for n, s in slots.items()})
+                mets.append(m)
+            return state
+        (size, part), rest = meta[0], meta[1:]
+        for k, blk in enumerate(arrs["blocks"]):
+            lo, hi = k * size, (k + 1) * size
+            params = dict(state.params)
+            parents = {}
+            for name in part:
+                parents[name] = params[name]["embedding"]
+                params[name] = {"embedding": cache_fetch(
+                    parents[name], blk["rowof"][name])}
+            state = self.ladder_scan(
+                TrainState(params, state.opt_state, state.step),
+                {n: v[lo:hi] for n, v in inputs.items()}, labels[lo:hi],
+                rest, blk["next"], mets)
+            params = dict(state.params)
+            for name, parent in parents.items():
+                cache_writeback(parent, blk["rowof"][name],
+                                params[name]["embedding"])
+                params[name] = {"embedding": parent}
+            state = TrainState(params, state.opt_state, state.step)
+        return state
+
+    def epoch_scan(self, state: TrainState, inputs, labels, slots_ep, meta,
+                   arrs):
+        """One epoch's steps against the (cached) tables (JAX
+        ``epoch_scan``); returns ``(state, folded)``: the metric sums over
+        the epoch and the mean ``loss``."""
+        mets: List[Dict[str, torch.Tensor]] = []
+        if not meta:
+            arrs = {"slots": slots_ep}
+        state = self.ladder_scan(state, inputs, labels, meta, arrs, mets)
+        folded = {}
+        for k in (mets[0] if mets else ()):
+            vals = torch.stack([m[k] for m in mets])
+            folded[k] = vals.mean() if k == "loss" else vals.sum()
+        return state, folded
+
+    def cache_epilogue(self, state: TrainState, writebacks, originals
+                       ) -> TrainState:
+        """Set each op's final cache rows back into its table, every live
+        slot once (JAX ``cache_epilogue``), and put the tables back in
+        the state."""
+        if not writebacks:
+            return state
+        params = dict(state.params)
+        for name, rowof in writebacks:
+            cache_writeback(originals[name], rowof,
+                            params[name]["embedding"])
+            params[name] = {"embedding": originals[name]}
+        return TrainState(params, state.opt_state, state.step)
+
+    # ------------------------------------------------------------- epochs
+    def _train_epoch(self, state: TrainState, inputs, labels):
+        """One epoch over placed ``(num_batches, batch, ...)`` tensors:
+        the JAX package's scanned ``train_epoch`` program."""
+        state, slots_ep, writebacks, orig = self.cache_prologue(state, inputs)
+        meta, arrs = self.ladder_plan(state, slots_ep, labels.shape[0])
+        state, folded = self.epoch_scan(state, inputs, labels, slots_ep,
+                                        meta, arrs)
+        return self.cache_epilogue(state, writebacks, orig), folded
+
+    def _train_epochs(self, state: TrainState, inputs, labels,
+                      n_epochs: int):
+        """``n_epochs`` passes with the cache live across all of them: one
+        prologue, one ladder plan and one epilogue (the JAX package's
+        ``train_epochs`` program).  Bit-identical to repeated
+        ``_train_epoch``, whose writeback and re-fetch between epochs are
+        the identity on the cached rows."""
+        state, slots_ep, writebacks, orig = self.cache_prologue(state, inputs)
+        meta, arrs = self.ladder_plan(state, slots_ep, labels.shape[0])
+        mets = []
+        for _ in range(int(n_epochs)):
+            state, m = self.epoch_scan(state, inputs, labels, slots_ep, meta,
+                                       arrs)
+            mets.append(m)
+        return self.cache_epilogue(state, writebacks, orig), _stack(mets)
+
+    def place_dataset(self, inputs, labels, device):
+        """Place a stacked ``(num_batches, batch, ...)`` dataset on
+        ``device`` once."""
+        return (self._place_inputs(inputs, device),
+                self._place_labels(labels, device))
+
     def train_epoch(self, state: TrainState, inputs, labels):
         """``train_step`` over the leading ``(num_batches, batch, ...)``
         axis of ``inputs`` and ``labels``, which are placed on the device
         once.  Returns ``(state, folded)``: the JAX package's folded
-        metrics, the sums over the epoch and the mean ``loss``."""
+        metrics, the sums over the epoch and the mean ``loss``.
+
+        With the epoch row cache active the steps run against the cache
+        and its ladder; an epoch that no ladder level divides is
+        dispatched in chunks of ``epoch_cache_chunk`` steps
+        (``_run_epoch_chunks``)."""
+        self._require_compiled()
         dev = params_device(state.params)
-        placed = self._place_inputs(inputs, dev)
-        labels = self._place_labels(labels, dev)
-        steps = []
-        for i in range(labels.shape[0]):
-            state, m = self.train_step(
-                state, {k: v[i] for k, v in placed.items()}, labels[i])
-            steps.append(m)
-        folded = {}
-        for k in (steps[0] if steps else ()):
-            vals = torch.stack([m[k] for m in steps])
-            folded[k] = vals.mean() if k == "loss" else vals.sum()
-        return state, folded
+        inputs, labels = self.place_dataset(inputs, labels, dev)
+        self._resolve_cache(dev)
+        bounds = self._epoch_chunk_bounds(labels.shape[0])
+        if bounds is None:
+            return self._train_epoch(state, inputs, labels)
+        return self._run_epoch_chunks(state, inputs, labels, bounds)
 
     def train_epochs(self, state: TrainState, inputs, labels, epochs: int):
-        """``epochs`` passes of ``train_epoch``; the folded metrics are
-        stacked on a leading ``(epochs,)`` axis."""
+        """``epochs`` passes over the stacked batches, with one cache
+        prologue and epilogue for all of them when the epoch is unchunked,
+        else chunked epoch by epoch.  The folded metrics are stacked on a
+        leading ``(epochs,)`` axis."""
+        self._require_compiled()
+        dev = params_device(state.params)
+        inputs, labels = self.place_dataset(inputs, labels, dev)
+        self._resolve_cache(dev)
+        bounds = self._epoch_chunk_bounds(labels.shape[0])
+        if bounds is None:
+            return self._train_epochs(state, inputs, labels, epochs)
         mets = []
         for _ in range(int(epochs)):
-            state, m = self.train_epoch(state, inputs, labels)
+            state, m = self._run_epoch_chunks(state, inputs, labels, bounds)
             mets.append(m)
-        return state, {k: torch.stack([m[k] for m in mets])
-                       for k in (mets[0] if mets else ())}
+        return state, _stack(mets)
+
+    def _epoch_chunk_bounds(self, nb: int):
+        """``(lo, hi)`` chunk slices for a chunked epoch, or None when
+        chunking does not apply (JAX ``_epoch_chunk_bounds``): only with
+        the cache active and ``nb > epoch_cache_chunk``, and not when a
+        ladder level engages over the whole epoch.  Chunks are whole
+        inner blocks where possible, with at most one short tail."""
+        chunk = int(self.config.epoch_cache_chunk)
+        if not (self._epoch_cache_active and chunk > 0 and nb > chunk):
+            return None
+        inner = int(self.config.epoch_cache_inner)
+        named = named_levels(self.config)
+        if named is None and (nb % chunk == 0
+                              or (inner > 1 and nb % inner == 0)):
+            return None
+        if named and any(0 < s < nb and nb % s == 0 for s in named):
+            return None
+        if inner > 1 and chunk > inner:
+            q, r = divmod(nb, inner)
+            per = chunk // inner                   # blocks per chunk
+            k = max(-(-q // per), 1)
+            bq, br = divmod(q, k)                  # equalized blocks
+            sizes = [(bq + (1 if i < br else 0)) * inner for i in range(k)]
+            if r:
+                sizes.append(r)
+        else:
+            k = -(-nb // chunk)
+            base = nb // k
+            sizes = [base] * k
+            sizes[-1] += nb - base * k
+        bounds, lo = [], 0
+        for s in sizes:
+            bounds.append((lo, lo + s))
+            lo += s
+        return bounds
+
+    def _run_epoch_chunks(self, state: TrainState, inputs, labels, bounds):
+        """One epoch as consecutive chunk epochs, each with its own cache
+        prologue and epilogue; the loss is the step-weighted mean of the
+        chunks' means, the other metrics their sums."""
+        sums, loss_num, n_steps = {}, 0.0, 0
+        for lo, hi in bounds:
+            state, mets = self._train_epoch(
+                state, {k: v[lo:hi] for k, v in inputs.items()},
+                labels[lo:hi])
+            w = hi - lo
+            for k, v in mets.items():
+                if k == "loss":
+                    loss_num = loss_num + v * w
+                else:
+                    sums[k] = sums.get(k, 0.0) + v
+            n_steps += w
+        sums["loss"] = loss_num / n_steps
+        return state, sums
 
     def get_perf_metrics(self) -> MetricsAccumulator:
         """Running metrics of the current or last ``fit`` epoch."""
         return self._last_metrics
+
+    def _stage_scan_dataset(self, dataloader, device):
+        """The whole dataset stacked as ``(num_batches, batch, ...)`` and
+        placed on ``device`` for fit's staged branch (JAX
+        ``_stage_scan_dataset``), or None when fit keeps the per-batch
+        loop: a loader that is not array-backed, shuffles, keeps a last
+        short batch, is empty, or holds more than ``fit_scan_max_bytes``."""
+        cap = self.config.fit_scan_max_bytes
+        if not (cap > 0
+                and getattr(dataloader, "inputs", None) is not None
+                and getattr(dataloader, "drop_last", False)
+                and not getattr(dataloader, "shuffle", True)
+                and dataloader.num_batches > 0
+                and (sum(v.nbytes for v in dataloader.inputs.values())
+                     + dataloader.labels.nbytes) <= cap):
+            return None
+        nb, bsz = dataloader.num_batches, dataloader.batch_size
+        used = nb * bsz
+        stacked_in = {k: np.asarray(v[:used]).reshape((nb, bsz) + v.shape[1:])
+                      for k, v in dataloader.inputs.items()}
+        stacked_lab = np.asarray(dataloader.labels[:used]).reshape(
+            (nb, bsz) + dataloader.labels.shape[1:])
+        return self.place_dataset(stacked_in, stacked_lab, device)
 
     def fit(self, state: TrainState, dataloader, epochs: Optional[int] = None,
             verbose: bool = True, warmup: bool = True,
@@ -512,34 +777,72 @@ class FFModel:
             checkpoint_every_n_steps: Optional[int] = None,
             checkpoint_every_n_epochs: Optional[int] = None,
             resume: bool = False, sentinel=None):
-        """The plain epoch loop: an optional warmup step on the first
-        batch (a real update, the reference's untimed epoch 0), then
-        ``train_step`` over every batch of every epoch, with the metrics
-        accumulated and reported per epoch.  Returns ``(state,
-        samples_per_second)`` over the timed epochs, measured up to a
-        device synchronise."""
+        """The epoch loop: an optional warmup step on the first batch (a
+        real update, the reference's untimed epoch 0), then every epoch,
+        with the metrics accumulated and reported per epoch.  Returns
+        ``(state, samples_per_second)`` over the timed epochs, measured up
+        to a device synchronise.
+
+        An array-backed, unshuffled, ``drop_last`` loader within
+        ``fit_scan_max_bytes`` is staged on the device once and trained by
+        whole epochs, as the JAX package's scanned fast path does: several
+        epochs as one ``train_epochs`` (one cache prologue and epilogue),
+        one epoch as ``train_epoch``, a chunked epoch by chunks.
+        ``_last_fit_used_scan`` says which branch ran; every other loader
+        takes ``train_step`` batch by batch."""
         if (checkpoint_manager is not None or checkpoint_every_n_steps
                 or checkpoint_every_n_epochs or resume
                 or sentinel is not None):
             raise NotImplementedError(_DURABILITY)
+        self._require_compiled()
         epochs = epochs or self.config.epochs
         acc = MetricsAccumulator(self.metrics)
         self._last_metrics = acc
         dev = params_device(state.params)
+        scan_data = self._stage_scan_dataset(dataloader, dev)
+        self._last_fit_used_scan = scan_data is not None
         if warmup:
+            if dev.type == "cuda":
+                # a kernel first reached inside an epoch (the row set at
+                # the cache's writebacks) must not build in the timed window
+                _cuda.build()
             first = dataloader.peek()
             state, _ = self.train_step(state, first[0], first[1])
             _synchronize(dev)
-        t0 = time.perf_counter()
-        samples = 0
-        for epoch in range(epochs):
+
+        def report(epoch, mets):
             acc.reset()
-            for inputs, labels in dataloader:
-                state, mets = self.train_step(state, inputs, labels)
-                samples += int(labels.shape[0])
-                acc.update({k: v for k, v in mets.items() if k != "loss"})
+            acc.update({k: v for k, v in mets.items() if k != "loss"})
             if verbose:
                 print(f"epoch {epoch}: {acc.report()}")
+
+        t0 = time.perf_counter()
+        samples = 0
+        if scan_data is not None:
+            self._resolve_cache(dev)
+            bounds = self._epoch_chunk_bounds(scan_data[1].shape[0])
+            samples = epochs * dataloader.num_batches * dataloader.batch_size
+            if bounds is None and epochs > 1:
+                state, stacked = self._train_epochs(state, *scan_data, epochs)
+                for epoch in range(epochs):
+                    report(epoch, {k: v[epoch] for k, v in stacked.items()})
+            else:
+                for epoch in range(epochs):
+                    state, mets = (self._train_epoch(state, *scan_data)
+                                   if bounds is None else
+                                   self._run_epoch_chunks(state, *scan_data,
+                                                          bounds))
+                    report(epoch, mets)
+        else:
+            for epoch in range(epochs):
+                acc.reset()
+                for inputs, labels in dataloader:
+                    state, mets = self.train_step(state, inputs, labels)
+                    samples += int(labels.shape[0])
+                    acc.update({k: v for k, v in mets.items()
+                                if k != "loss"})
+                if verbose:
+                    print(f"epoch {epoch}: {acc.report()}")
         _synchronize(dev)
         elapsed = time.perf_counter() - t0
         thpt = samples / max(elapsed, 1e-9)
@@ -547,6 +850,12 @@ class FFModel:
             print(f"ELAPSED TIME = {elapsed:.4f}s, "
                   f"THROUGHPUT = {thpt:.2f} samples/s")
         return state, thpt
+
+
+def _stack(mets):
+    """Per-epoch folded metrics stacked on a leading ``(epochs,)`` axis."""
+    return {k: torch.stack([m[k] for m in mets])
+            for k in (mets[0] if mets else ())}
 
 
 def _synchronize(dev: torch.device) -> None:

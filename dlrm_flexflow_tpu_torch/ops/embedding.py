@@ -15,12 +15,17 @@ looked-up rows, gathered outside autograd) and ``scatter_apply``
 (``table[ids] += scale * row_grads`` in place, through the row-update
 kernel).  The forward takes injected ``rows__`` on that path.
 
+``Embedding(use_pallas=True)`` pools its bags through the embedding-bag
+kernel (``ops/bag_kernel.py``) under the JAX package's conditions, with
+``EmbeddingBagFn`` as its gradient; such an op trains through the dense
+table gradient, never the row-sparse path.
+
 Id contracts, as in the JAX package: a gather reads ``jnp.take``'s way
 (an id in ``[-R, 0)`` wraps, any other out-of-range id reads a NaN row);
 the scatter follows ``.at[].add`` (an id in ``[-R, 0)`` wraps, any other
-out-of-range id is dropped).  The JAX package's lane-packed storage, the
-pallas bag kernel (``use_pallas``) and CPU-placed tables are TPU or
-later-slice features with no counterpart here.
+out-of-range id is dropped).  The JAX package's lane-packed storage and
+CPU-placed tables are TPU or later-slice features with no counterpart
+here.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ import torch
 
 from ..initializers import UniformInitializer
 from ..tensor import ParameterSpec
+from .bag_kernel import embedding_bag_cuda
 from .base import Op
 from .fused_interact_kernel import divide
 from .row_update_kernel import row_update_cuda
@@ -78,12 +84,42 @@ def _f32_table(name, table_dtype):
     return table_dtype
 
 
+class EmbeddingBagFn(torch.autograd.Function):
+    """The differentiable bag: the counterpart of the JAX package's
+    ``embedding_bag`` custom VJP (``pallas_embedding.py``).
+
+    Forward: the embedding-bag kernel.  Backward: the JAX ``_bwd``, the
+    output grad divided by the bag for ``avg`` (a true division), repeated
+    for every slot of its bag, and summed per row into a zero table by
+    the row-update kernel, a deterministic scatter in the ids' order, as
+    the fused dense gradient does (``index_add_`` would add duplicates in
+    an atomic order that changes from run to run)."""
+
+    @staticmethod
+    def forward(ctx, table, ids, aggr):
+        ctx.save_for_backward(ids)
+        ctx.config = (table.shape, table.dtype, aggr)
+        return embedding_bag_cuda(table, ids, aggr)
+
+    @staticmethod
+    def backward(ctx, g):
+        (ids,) = ctx.saved_tensors
+        shape, dtype, aggr = ctx.config
+        bag = ids.shape[1]
+        if aggr == "avg":
+            g = divide(g, bag)
+        flat_g = g.repeat_interleave(bag, dim=0)     # (B * bag, d)
+        dtable = torch.zeros(shape, dtype=dtype, device=g.device)
+        return row_update_cuda(dtable, ids.reshape(-1), flat_g, 1.0), None, None
+
+
 class Embedding(Op):
     op_type = "Embedding"
 
     def __init__(self, name, input_tensor, num_entries: int, out_dim: int,
                  aggr: str = "sum", kernel_initializer=None,
-                 dtype=torch.float32, table_dtype=torch.float32):
+                 dtype=torch.float32, use_pallas: bool = False,
+                 table_dtype=torch.float32):
         super().__init__(name, [input_tensor])
         if aggr not in AGGR_MODES:
             raise ValueError(f"aggr must be one of {AGGR_MODES}, got {aggr!r}")
@@ -91,6 +127,10 @@ class Embedding(Op):
         self.out_dim = int(out_dim)
         self.aggr = aggr
         self.table_dtype = _f32_table(name, table_dtype)
+        # the JAX package's flag and eligibility: the bag kernel's path
+        # (the d % 128 rule is the TPU's lane tiling; the Hopper kernel
+        # needs none of it, but the op must take the reference's path)
+        self.use_pallas = use_pallas and out_dim % 128 == 0
         self.kernel_initializer = (kernel_initializer
                                    or UniformInitializer(-0.05, 0.05))
         ishape = input_tensor.shape
@@ -112,6 +152,14 @@ class Embedding(Op):
         (idx,) = xs
         rows = params.get("rows__")
         if rows is None:
+            # the JAX package's conditions for its bag kernel (no
+            # quantization scale, which the port's tables never carry;
+            # 2-D ids; sum or avg; B % 8 == 0, the TPU's sublane tile)
+            if (self.use_pallas and idx.dim() == 2
+                    and self.aggr in ("sum", "avg") and idx.shape[0] % 8 == 0):
+                out = EmbeddingBagFn.apply(params["embedding"], idx,
+                                           self.aggr)
+                return [out.to(self.outputs[0].dtype)]
             rows = take_rows(params["embedding"], idx)
         if idx.dim() >= 2 and self.aggr != "none":
             rows = pool(rows, self.aggr, -2)

@@ -142,6 +142,32 @@ def test_empty_bag_matches_jax_ref(interact, aggr):
         np.testing.assert_array_equal(port[:, D:], 0.0)
 
 
+@pytest.mark.parametrize("interact", ["cat", "dot"])
+@pytest.mark.parametrize("bag", [1, 3])
+def test_plain_drops_premasked_ids_past_the_table_like_the_kernel(interact,
+                                                                  bag):
+    """A pre-masked flat id >= R (which ``mask_local_ids`` never makes)
+    is dropped by the TPU kernel (``live()`` in ``_fused_kernel``), and
+    the port's plain version follows the kernel it ports; the JAX plain
+    ``fused_interact_ref`` ``jnp.take``s it (a NaN row) instead."""
+    table, bottom, local = _inputs(17, bag, dropped=False)
+    gids = np.asarray(_jax_gids(local)).copy()
+    rows = table.shape[0]
+    gids[0, 0, 0], gids[5, 2, bag - 1], gids[6, 1, 0] = rows, rows + 7, -1
+    port = tk.fused_interact_ref(torch.from_numpy(table),
+                                 torch.from_numpy(gids),
+                                 torch.from_numpy(bottom), interact=interact,
+                                 aggr="sum").numpy()
+    args = (jnp.asarray(table), jnp.asarray(gids), jnp.asarray(bottom))
+    kern = jax.jit(functools.partial(jk.fused_interact_pallas,
+                                     interact=interact, aggr="sum",
+                                     interpret=True))(*args)
+    assert np.isfinite(port).all()
+    _assert_agree(port, kern, interact, bag)
+    ref = jk.fused_interact_ref(*args, interact=interact, aggr="sum")
+    assert np.isnan(np.asarray(ref)[0]).any()
+
+
 def test_cpu_tensors_launch_no_kernel():
     table, bottom, local = _inputs(11, 2)
     before = tk.fused_interact_cuda.launches

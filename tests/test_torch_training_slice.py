@@ -340,8 +340,14 @@ def test_config_training_fields_match_jax():
         assert getattr(pc, f) == getattr(jc, f), f
     d = fft.FFConfig()
     for f in ("epochs", "learning_rate", "weight_decay",
-              "sparse_embedding_updates"):
+              "sparse_embedding_updates", "epoch_row_cache",
+              "epoch_cache_chunk", "epoch_cache_inner", "epoch_cache_levels",
+              "fit_scan_max_bytes"):
         assert getattr(d, f) == getattr(JaxFFConfig(), f), f
+    # the port's own flags for the path fit and the CLI take
+    assert fft.FFConfig.parse_args(
+        ["--epoch-row-cache", "off", "--fit-scan-max-bytes", "0"]) == \
+        fft.FFConfig(epoch_row_cache="off", fit_scan_max_bytes=0)
     assert fft.FFConfig.parse_args(["--learning-rate", "0.2",
                                     "--weight-decay", "0.1"]) == \
         fft.FFConfig(learning_rate=0.2, weight_decay=0.1)
