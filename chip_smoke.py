@@ -12,7 +12,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      kernel ran on that path;
   5. time the fused forward at the serving buckets beside its bound, its
      plain version and a library call;
-  6. hold the row-update kernel against its plain version, bit for bit;
+  6. hold the row update's two kernels (prepare-and-sort, update) against
+     their plain versions, bit for bit, over ids uniform, zipf, one id,
+     wrapped and dropped, int32 edges, R at a radix digit's bit
+     boundary, n from 0 to 65,536, d 16/64/128, f32/bf16 updates and
+     a float or tensor scale, and twice for determinism;
   7. hold the fused backward kernel against its plain version;
   8. train the full-width run_random.sh DLRM: the classic graph through
      train_epoch and fit (row-update kernel), the fused graph on the
@@ -20,7 +24,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      (forward and backward kernels), with launch counts, finite losses
      and one step of each held against the same step on the plain
      versions;
-  9. time the row-update and backward kernels at the path's shapes, and
+  9. time the row update (the sort alone, the update alone, the whole
+     call, launches per call from torch.profiler, uniform and zipf ids)
+     and the backward kernel at the path's shapes, and
      the training steps (information, not a claim);
  10. hold the row-set kernel against its plain version, bit for bit;
  11. hold the embedding-bag kernel against its plain version, bit for bit;
@@ -68,15 +74,19 @@ from dlrm_flexflow_tpu_torch.ops.fused_interact_kernel import (
 from dlrm_flexflow_tpu_torch.ops.row_set_kernel import (
     launch_row_set, prepare_row_set, row_set_cuda, row_set_ref)
 from dlrm_flexflow_tpu_torch.ops.row_update_kernel import (
-    launch_row_update, prepare_row_update, row_update_cuda, row_update_ref)
+    launch_row_update, prepare_row_update_cuda, prepare_row_update_ref,
+    row_update_cuda, row_update_ref)
 from dlrm_flexflow_tpu_torch.ops.slotting import slot_rows
 from dlrm_flexflow_tpu_torch.serving import DynamicBatcher, InferenceEngine
+from scripts.cuda_timing import graph_ms, launches_per_call
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and the
 # f32 rate outside the tensor cores, which the fused kernel's adds and
 # dot products run at
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+# H100 SXM maximum SM clock (data sheet), for the row update's add chain
+SM_CLOCK_HZ = 1.98e9
 
 # the run_random.sh model (bench.py): serving buckets and training batch
 TABLES, ROWS, DIM, BOT = 8, 1_000_000, 64, 64
@@ -95,6 +105,11 @@ KERNELS = {
         "dlrm_flexflow_tpu_torch/csrc/row_update.cu",
         "dlrm_flexflow_tpu/ops/pallas_scatter.py:67",
         row_update_cuda),
+    # the stable argsort that feeds _row_update_pallas in sparse_row_update
+    "row_update_prep": (
+        "dlrm_flexflow_tpu_torch/csrc/row_update_prep.cu",
+        "dlrm_flexflow_tpu/ops/pallas_scatter.py:596",
+        prepare_row_update_cuda),
     "row_set": (
         "dlrm_flexflow_tpu_torch/csrc/row_set.cu",
         "dlrm_flexflow_tpu/ops/pallas_scatter.py:460",
@@ -391,35 +406,6 @@ def profile_dispatch(engine, req, n: int, reps: int = 20) -> None:
 
 
 # --------------------------------------------------------------- phase 5
-def _graph_ms(fn, arg_sets, reps: int = 5, windows: int = 3) -> float:
-    """Device time of one call of ``fn``: the calls over every argument
-    set are captured once in a CUDA graph (no host launch cost between
-    them), the graph is replayed ``reps`` times between CUDA events in
-    each of ``windows`` windows, and the median window's total is divided
-    by the calls.  Cycling many id sets touches more table rows than the
-    50 MB L2 holds at the large buckets."""
-    for args in arg_sets[:3]:
-        fn(*args)  # warm the allocator and the library
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for args in arg_sets:
-            fn(*args)
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(windows):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / (reps * len(arg_sets)))
-    return sorted(times)[len(times) // 2]
-
-
 def _eager_ms(fn, arg_sets) -> float:
     """Wall time of one call as the host issues it, launch cost included."""
     for args in arg_sets[:3]:
@@ -465,9 +451,9 @@ def time_kernel(table, sets: int = 256):
                "interact": "cat", "bytes": nbytes,
                "bound_ms": max(bytes_ms, ops_ms),
                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-               "ms": _graph_ms(kern, arg_sets),
-               "plain_ms": _graph_ms(plain, arg_sets),
-               "library_ms": _graph_ms(library, arg_sets),
+               "ms": graph_ms(kern, arg_sets),
+               "plain_ms": graph_ms(plain, arg_sets),
+               "library_ms": graph_ms(library, arg_sets),
                "call_ms": _eager_ms(kern, arg_sets),
                "plain_call_ms": _eager_ms(plain, arg_sets)}
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
@@ -504,50 +490,119 @@ def _row_ids(kind, n, rows, gen, rng):
     return ids[torch.randperm(n, generator=gen, device="cuda")]
 
 
+def _longest_run(ids, rows) -> int:
+    live = torch.where(ids < 0, ids + rows, ids)
+    live = live[(live >= 0) & (live < rows)]
+    return int(torch.bincount(live).max()) if live.numel() else 0
+
+
+def _row_update_cases():
+    """(kind, n, rows, d, id dtype, update dtype, scale) of phase 6;
+    rows None means the headline's 8M-row table."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = [(k, n, None, DIM, torch.int64, f32, "tensor")
+             for k in ("uniform", "one_id", "zipf", "wrap_drop")
+             for n in (0, 1, 2048, 65_536)]
+    cases += [(k, 2048, ROWS, d, torch.int64, f32, "tensor")
+              for k in ("uniform", "zipf", "wrap_drop") for d in (16, 128)]
+    # R at a digit's bit boundary (255 / 256 / 257: one pass or two;
+    # 2^16 / 2^16 + 1: two or three); the sort's one-tile block (n <= 4096),
+    # its tiled walk within one tile of 8192 and over two tiles
+    cases += [("wrap_drop", n, r, DIM, torch.int64, f32, "tensor")
+              for r in (255, 256, 257, 2 ** 16, 2 ** 16 + 1)
+              for n in (2048, 6000, 9000)]
+    # n just past the one-tile block and past one tile, not multiples
+    cases += [(k, n, None, DIM, torch.int64, f32, "tensor")
+              for k in ("zipf", "wrap_drop") for n in (4097, 8193, 20_000)]
+    # int32 ids with int32 min and max; the update dtypes and scales
+    cases += [("int32_edges", 2048, None, DIM, torch.int32, f32, "tensor")]
+    cases += [("zipf", 2048, None if d == DIM else ROWS, d, torch.int32,
+               dt, sc)
+              for d in (16, DIM, 128) for dt in (f32, bf16)
+              for sc in ("tensor", "float")]
+    return cases
+
+
+def _case_ids(kind, n, rows, gen, rng, dtype):
+    if kind != "int32_edges":
+        return _row_ids(kind, n, rows, gen, rng).to(dtype)
+    ids = _row_ids("wrap_drop", n, rows, gen, rng)
+    lo, hi = np.iinfo(np.int32).min, np.iinfo(np.int32).max
+    for i, v in enumerate((lo, hi, lo + 1, -rows, -rows - 1, rows)):
+        ids[(i * 331) % n] = v
+    return ids.to(dtype)
+
+
 def check_row_update(table) -> float:
-    """Kernel A against ``row_update_ref`` on the same GPU tensors, bit
-    for bit, on clones of ``table`` (the headline's 8M x 64 flat table)
-    and on 1M-row tables of d = 16 and 128."""
+    """The prepare-and-sort kernel against ``prepare_row_update_ref`` and
+    the whole ``row_update_cuda`` call against ``row_update_ref`` on the
+    same GPU tensors, both bit for bit, on clones of ``table`` (the
+    headline's 8M x 64 flat table), on 1M-row tables of d = 16 and 128 and
+    on small tables whose R sits at a digit's bit boundary; each zipf case
+    of 2048 or more slots runs the kernel twice and must give the same
+    table (no atomics: deterministic)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     rng = np.random.default_rng(3)
-    cases = [(k, n, DIM) for k in ("uniform", "one_id", "zipf", "wrap_drop")
-             for n in (0, 1, 2048, 65_536)]
-    cases += [(k, 2048, d) for k in ("uniform", "zipf", "wrap_drop")
-              for d in (16, 128)]
-    others = {d: _rows_tensor(gen, ROWS, d) for d in (16, 128)}
-    failed, worst = [], 0.0
-    for kind, n, d in cases:
-        base = table if d == DIM else others[d]
+    tables = {}
+
+    def base_for(rows, d):
+        if rows is None:
+            return table
+        if (rows, d) not in tables:
+            tables[rows, d] = _rows_tensor(gen, rows, d)
+        return tables[rows, d]
+
+    failed, worst, prep_worst = [], 0.0, 0.0
+    for kind, n, rows_n, d, id_dtype, upd_dtype, scale_kind in (
+            _row_update_cases()):
+        base = base_for(rows_n, d)
         rows = base.shape[0]
-        ids = _row_ids(kind, n, rows, gen, rng)
-        upd = torch.randn((n, d), generator=gen, device="cuda")
-        scale = torch.tensor(-0.01, device="cuda")
+        ids = _case_ids(kind, n, rows, gen, rng, id_dtype)
+        upd = torch.randn((n, d), generator=gen, device="cuda").to(upd_dtype)
+        scale = (torch.tensor(-0.01, device="cuda") if scale_kind == "tensor"
+                 else -0.01)
+        keys, order = prepare_row_update_cuda(ids, rows)
+        want_keys, want_order = prepare_row_update_ref(ids, rows)
         got = row_update_cuda(base.clone(), ids, upd, scale)
         want = row_update_ref(base.clone(), ids, upd, scale)
+        again = (row_update_cuda(base.clone(), ids, upd, scale)
+                 if kind == "zipf" and n >= 2048 else None)
         torch.cuda.synchronize()
-        ok = torch.equal(got, want)
-        err = float((got - want).abs().max())
+        prep_ok = (torch.equal(keys, want_keys)
+                   and torch.equal(order, want_order))
+        ok = prep_ok and torch.equal(got, want)
+        deterministic = again is None or torch.equal(got, again)
+        err = float((got - want).abs().max()) if n else 0.0
         worst = max(worst, err)
-        wrapped = int(((ids < 0) & (ids >= -rows)).sum())
-        dropped = int(((ids < -rows) | (ids >= rows)).sum())
-        live = torch.where(ids < 0, ids + rows, ids)
-        live = live[(live >= 0) & (live < rows)]
-        longest = int(torch.bincount(live).max()) if live.numel() else 0
-        if kind == "wrap_drop" and n >= 2 and not (wrapped and dropped):
+        if n:
+            prep_worst = max(prep_worst, float(max(
+                (keys - want_keys).abs().max(),
+                (order - want_order).abs().max())))
+        i64 = ids.long()
+        wrapped = int(((i64 < 0) & (i64 >= -rows)).sum())
+        dropped = int(((i64 < -rows) | (i64 >= rows)).sum())
+        if kind in ("wrap_drop", "int32_edges") and n >= 2 and not (
+                wrapped and dropped):
             ok = False  # the case must hold both branches
         case = {"phase": "kernel_vs_plain", "kernel": "row_update",
                 "ids": kind, "n": n, "rows": rows, "d": d,
-                "wrapped": wrapped, "dropped": dropped,
-                "longest_run": longest, "max_abs_err": err,
-                "tolerance": "exact", "ok": bool(ok)}
+                "id_dtype": str(id_dtype).split(".")[-1],
+                "upd_dtype": str(upd_dtype).split(".")[-1],
+                "scale": scale_kind, "wrapped": wrapped, "dropped": dropped,
+                "longest_run": _longest_run(i64, rows),
+                "prep_exact": bool(prep_ok), "max_abs_err": err,
+                "tolerance": "exact",
+                "deterministic": (None if again is None
+                                  else bool(deterministic)),
+                "ok": bool(ok and deterministic)}
         log(case)
-        if not ok:
+        if not case["ok"]:
             failed.append(case)
-        del got, want
+        del got, want, again
     if failed:
         raise AssertionError(f"{len(failed)} row_update case(s) disagree "
                              f"with the plain version")
-    return worst
+    return worst, prep_worst
 
 
 # --------------------------------------------------------------- phase 7
@@ -756,7 +811,7 @@ def train_headline(inputs, labels):
                              f"touched changed {changed}")
     del model, state
     torch.cuda.empty_cache()
-    return row, epoch_counts["row_update"] + fit_counts["row_update"]
+    return row, {k: epoch_counts[k] + fit_counts[k] for k in epoch_counts}
 
 
 def train_fused_sparse(inputs, labels):
@@ -776,7 +831,7 @@ def train_fused_sparse(inputs, labels):
                              f"finite {_finite(folded)}")
     del model, state
     torch.cuda.empty_cache()
-    return counts["row_update"]
+    return counts
 
 
 def train_fused_dense(inputs, labels):
@@ -832,11 +887,14 @@ def _bound(nbytes, flops):
 
 def time_row_update(table, sets: int = 64):
     """Kernel A at the training step's shape (n = 256 * 8 updates of
-    d = 64 on the 8M-row table), uniform and zipf ids: the kernel alone on
-    prepared (sorted) inputs and the whole wrapper from CUDA graphs, the
-    plain version (host-synchronising, so timed eagerly) and
-    ``index_add_`` (the same sum in an atomic order) as the library
-    call."""
+    d = 64 on the 8M-row table), uniform and zipf ids, from CUDA graphs:
+    the prepare-and-sort kernel alone, the update kernel alone on its
+    prepared keys and order, and the whole ``row_update_cuda`` call;
+    beside them the plain versions (``prepare_row_update_ref`` from a
+    graph; ``row_update_ref`` host-synchronising, so timed eagerly), the
+    library calls (``torch.sort`` for the sort, ``index_add_``, the same
+    sum in an atomic order, for the update), launches per call from
+    torch.profiler, the bytes bound and the add chain's serial floor."""
     gen = torch.Generator(device="cuda").manual_seed(7)
     rng = np.random.default_rng(7)
     rows, n = table.shape[0], BATCH * TABLES
@@ -846,24 +904,64 @@ def time_row_update(table, sets: int = 64):
                      torch.randn((n, DIM), generator=gen, device="cuda"),
                      torch.tensor(-0.01, device="cuda"))
                     for _ in range(sets)]
-        prepared = [(t,) + prepare_row_update(t, i, u, s)
+        id_sets = [(i, rows) for _, i, _, _ in arg_sets]
+        prepared = [(t,) + prepare_row_update_cuda(i, rows) + (u, s)
                     for t, i, u, s in arg_sets]
         uniq = sum(int(torch.unique(a[1]).numel()) for a in arg_sets) / sets
+        longest = sum(_longest_run(a[1], rows) for a in arg_sets) / sets
+        # the call: ids (8 B) and updates read, each touched row read and
+        # written; the sort alone: ids read, keys and order written
         nbytes = 2 * uniq * DIM * 4 + n * DIM * 4 + n * 8
-        bound_ms, bound_by = _bound(nbytes, n * DIM)
+        bound_ms, bound_by = _bound(nbytes, 2 * n * DIM)
+        prep_bytes = n * 8 + n * 8
+        prep_bound_ms, prep_bound_by = _bound(prep_bytes, 0)
         row = {"phase": "timing", "kernel": "row_update", "ids": kind,
                "n": n, "d": DIM, "rows": rows, "distinct_rows": uniq,
-               "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
-               "ms": _graph_ms(launch_row_update, prepared),
-               "wrapper_ms": _graph_ms(row_update_cuda, arg_sets),
+               "mean_longest_run": longest, "bytes": nbytes,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               # L dependent FADDs of 4 cycles at the 1.98 GHz boost clock
+               "serial_floor_ms": longest * 4 / SM_CLOCK_HZ * 1e3,
+               "ms": graph_ms(row_update_cuda, arg_sets),
+               "kernel_ms": graph_ms(launch_row_update, prepared),
+               "prep_ms": graph_ms(prepare_row_update_cuda, id_sets),
                "plain_ms": _eager_ms(row_update_ref, arg_sets[:16]),
-               "library_ms": _graph_ms(
+               "prep_plain_ms": graph_ms(prepare_row_update_ref, id_sets),
+               "library_ms": graph_ms(
                    lambda t, i, u, s: t.index_add_(0, i, u, alpha=-0.01),
                    arg_sets),
+               "prep_library_ms": graph_ms(
+                   lambda i, r: torch.sort(i, stable=True), id_sets),
+               "prep_bytes": prep_bytes, "prep_bound_ms": prep_bound_ms,
+               "prep_bound_by": prep_bound_by,
                "call_ms": _eager_ms(row_update_cuda, arg_sets)}
+        # "ms" is the whole call, so it includes "prep_ms"
+        row["launches_per_call"], row["kernels_per_call"] = (
+            launches_per_call(row_update_cuda, arg_sets))
         row["share_of_bound"] = bound_ms / row["ms"]
         log(row)
         out[kind] = row
+    # the sort's cost by its passes (R's bit length: 8, 16, 23 bits), and
+    # the update kernel's by the length of one run among uniform ids
+    log({"phase": "timing", "kernel": "row_update_prep", "n": n,
+         "ms_by_passes": {
+             passes: graph_ms(prepare_row_update_cuda, [
+                 (torch.randint(0, r, (n,), generator=gen, device="cuda"), r)
+                 for _ in range(16)])
+             for passes, r in ((1, 200), (2, 60_000), (3, rows))}})
+    by_run = {}
+    for length in (1, 32, 64, 256, 1024):
+        sets = []
+        for _ in range(16):
+            ids = torch.randint(0, rows, (n,), generator=gen, device="cuda")
+            ids[:length] = rows // 2
+            ids = ids[torch.randperm(n, generator=gen, device="cuda")]
+            sets.append((table,) + prepare_row_update_cuda(ids, rows) + (
+                torch.randn((n, DIM), generator=gen, device="cuda"),
+                torch.tensor(-0.01, device="cuda")))
+        by_run[length] = graph_ms(launch_row_update, sets)
+    log({"phase": "timing", "kernel": "row_update", "n": n,
+         "kernel_ms_by_run_length": by_run,
+         "serial_floor_ms_per_row": 4 / SM_CLOCK_HZ * 1e3})
     return out
 
 
@@ -897,8 +995,8 @@ def time_fused_bwd(table, sets: int = 64):
             row = {"phase": "timing", "kernel": "fused_interact_bwd",
                    "interact": interact, "B": bsz, "T": TABLES, "bag": 1,
                    "d": DIM, "bytes": nbytes, "bound_ms": bound_ms,
-                   "bound_by": bound_by, "ms": _graph_ms(kern, arg_sets),
-                   "plain_ms": _graph_ms(plain, arg_sets),
+                   "bound_by": bound_by, "ms": graph_ms(kern, arg_sets),
+                   "plain_ms": graph_ms(plain, arg_sets),
                    "library_ms": None, "call_ms": _eager_ms(kern, arg_sets)}
             row["share_of_bound"] = bound_ms / row["ms"]
             log(row)
@@ -1241,10 +1339,10 @@ def time_row_set(table, sets: int = 4):
                "n": n, "d": DIM, "rows": parent.shape[0],
                "live_rows": live, "bytes": nbytes, "bound_ms": bound_ms,
                "bound_by": bound_by,
-               "ms": _graph_ms(launch_row_set, prepared),
-               "wrapper_ms": _graph_ms(row_set_cuda, arg_sets),
+               "ms": graph_ms(launch_row_set, prepared),
+               "wrapper_ms": graph_ms(row_set_cuda, arg_sets),
                "plain_ms": _eager_ms(row_set_ref, arg_sets),
-               "library_ms": _graph_ms(
+               "library_ms": graph_ms(
                    lambda t, i, v: t.index_copy_(0, i, v), lib_sets),
                "call_ms": _eager_ms(row_set_cuda, arg_sets)}
         row["share_of_bound"] = bound_ms / row["ms"]
@@ -1269,9 +1367,9 @@ def time_embedding_bag(table, sets: int = 256):
     row = {"phase": "timing", "kernel": "embedding_bag", "B": BATCH,
            "bag": BAG, "d": BAG_DIM, "rows": BAG_ROWS, "mode": "sum",
            "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
-           "ms": _graph_ms(embedding_bag_cuda, arg_sets),
-           "plain_ms": _graph_ms(embedding_bag_ref, arg_sets),
-           "library_ms": _graph_ms(
+           "ms": graph_ms(embedding_bag_cuda, arg_sets),
+           "plain_ms": graph_ms(embedding_bag_ref, arg_sets),
+           "library_ms": graph_ms(
                lambda t, i: torch.nn.functional.embedding_bag(
                    i, t, mode="sum"), arg_sets),
            "call_ms": _eager_ms(embedding_bag_cuda, arg_sets)}
@@ -1304,7 +1402,7 @@ def main() -> int:
     serve_launches, path_err = serve(model, state)
     fwd_time = time_kernel(table)[-1]  # the top serving bucket, B=256
     # phases 6-7: the training kernels against their plain versions
-    row_err = check_row_update(table)
+    row_err, prep_err = check_row_update(table)
     bwd_err = check_fused_bwd(table)
     # phases 10-11: the row-set and bag kernels against their plain versions
     set_err = check_row_set(table)
@@ -1313,16 +1411,29 @@ def main() -> int:
     torch.cuda.empty_cache()
     # phase 8: the training paths
     inputs, labels = _epoch_data(64)
-    headline, headline_rows = train_headline(inputs, labels)
-    sparse_rows = train_fused_sparse(inputs, labels)
+    headline, headline_counts = train_headline(inputs, labels)
+    sparse_counts = train_fused_sparse(inputs, labels)
     dense, dense_counts = train_fused_dense(inputs, labels)
     # phases 12-13: the staged, cached epochs and the use_pallas graph
     staged, staged_counts = train_staged(inputs, labels)
     bag_row, bag_counts = train_bag_graph()
+    path_counts = (headline_counts, sparse_counts, dense_counts,
+                   staged_counts, bag_counts)
+    row_launches = sum(c["row_update"] for c in path_counts)
+    prep_launches = sum(c["row_update_prep"] for c in path_counts)
+    if prep_launches != row_launches:
+        raise AssertionError(f"{prep_launches} prepare-and-sort launches "
+                             f"for {row_launches} row updates")
     # phases 9 and 14: timings at the paths' shapes
     gen = torch.Generator(device="cuda").manual_seed(9)
     table = _rows_tensor(gen, TABLES * ROWS, DIM)
-    row_time = time_row_update(table)["uniform"]
+    row_times = time_row_update(table)
+    row_time = row_times["zipf"]  # the main path's realistic traffic
+    prep_time = {"ms": row_time["prep_ms"],
+                 "plain_ms": row_time["prep_plain_ms"],
+                 "bound_ms": row_time["prep_bound_ms"],
+                 "bound_by": row_time["prep_bound_by"],
+                 "library_ms": row_time["prep_library_ms"]}
     bwd_time = time_fused_bwd(table)["cat", BATCH]
     set_time = time_row_set(table)["epilogue"]
     bag_time = time_embedding_bag(bag_table)
@@ -1337,10 +1448,8 @@ def main() -> int:
                max(fwd_err, path_err), fwd_time),
         _entry("fused_interact_bwd", dense_counts["fused_interact_bwd"],
                bwd_err, bwd_time),
-        _entry("row_update",
-               headline_rows + sparse_rows + dense_counts["row_update"]
-               + staged_counts["row_update"] + bag_counts["row_update"],
-               row_err, row_time),
+        _entry("row_update", row_launches, row_err, row_time),
+        _entry("row_update_prep", prep_launches, prep_err, prep_time),
         _entry("row_set", staged_counts["row_set"], set_err, set_time),
         _entry("embedding_bag", bag_counts["embedding_bag"], bag_err,
                bag_time)]})

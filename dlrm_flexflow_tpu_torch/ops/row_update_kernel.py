@@ -1,5 +1,5 @@
-"""In-place sorted row update: the plain PyTorch version and the wrapper
-of its hand-written Hopper kernel.
+"""In-place sorted row update: the plain PyTorch version and the wrappers
+of its two hand-written Hopper kernels.
 
 Counterpart of ``sparse_row_update`` and ``_row_update_pallas`` in
 ``dlrm_flexflow_tpu/ops/pallas_scatter.py``:
@@ -14,9 +14,19 @@ to ``.at[].add`` on the CPU and to the TPU kernel.  ``index_add_`` on the
 card gives the same sum in an atomic order that changes from run to run,
 so the port never calls it for this.
 
-``row_update_cuda`` launches the kernel (``csrc/row_update.cu``) for
-tensors on a CUDA device and runs ``row_update_ref`` only for tensors on
-the CPU; a CUDA tensor never reaches the plain version through it.
+The scaled update ``u`` is ``f32(scale) * upd`` formed in f32 (f64 for
+f64 updates) and rounded once to the update's own dtype, then cast to the
+table's: what ``scale * upd`` gives for f32 updates, and for bf16 updates
+with a float scale.  (ATen rounds a 0-dim CUDA tensor scale to a bf16
+update's dtype before it multiplies; the port does not.)  The kernel takes
+f32 and bf16 updates, the dtypes its callers pass.
+
+On the card ``row_update_cuda`` makes two launches: the prepare-and-sort
+kernel (``csrc/row_update_prep.cu``), which applies the id contract and
+sorts the ids stably, and the update kernel (``csrc/row_update.cu``),
+which scales as it loads.  For tensors on the CPU it runs
+``row_update_ref``; a CUDA tensor never reaches the plain version
+through it.
 """
 
 from __future__ import annotations
@@ -28,12 +38,12 @@ import torch
 
 from .. import _cuda
 
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-def prepare_row_update(table, ids, upd, scale):
-    """Validate shapes and devices; return ``(sorted_ids, order, u)``:
-    the int32 ids with the wrap applied and every dropped id at -1,
-    sorted stably; the permutation that sorted them; and the scaled f32
-    updates ``(n, d)`` in the original slot order."""
+
+def validate_row_update(table, ids, upd):
+    """Validate shapes, dtypes and devices; return the flat ids ``(n,)``
+    and the updates ``(n, d)``, views where the inputs are contiguous."""
     if table.dim() != 2:
         raise ValueError(f"expected a (R, d) table, got {tuple(table.shape)}")
     rows_n, dim = table.shape
@@ -45,17 +55,32 @@ def prepare_row_update(table, ids, upd, scale):
     if len(devices) != 1:
         raise ValueError(f"inputs on different devices: "
                          f"{sorted(map(str, devices))}")
-    flat = ids.reshape(-1).long()
     if upd.shape != ids.shape + (dim,):
         raise ValueError(f"updates {tuple(upd.shape)} do not match ids "
                          f"{tuple(ids.shape)} and d = {dim}")
-    # the scaled updates exactly as sparse_row_update forms them
-    u = (scale * upd.reshape(-1, dim)).to(table.dtype).contiguous()
+    if ids.numel() >= 2 ** 31:
+        raise ValueError(f"{ids.numel()} updates overflow int32")
+    return ids.reshape(-1), upd.reshape(-1, dim)
+
+
+def prepare_row_update_ref(ids, rows_n):
+    """The plain version of the prepare-and-sort kernel: ``(keys, order)``,
+    int32 both.  A key is the id with ``.at[].add``'s wrap applied, or
+    ``rows_n`` for a dropped id; the keys are sorted stably (dropped slots
+    last) and ``order`` is the slot each sorted key came from."""
+    flat = ids.reshape(-1).long()
     flat = torch.where(flat < 0, flat + rows_n, flat)
     live = (flat >= 0) & (flat < rows_n)
-    gids = torch.where(live, flat, torch.full_like(flat, -1))
-    sorted_ids, order = torch.sort(gids.to(torch.int32), stable=True)
-    return sorted_ids, order, u
+    keys = torch.where(live, flat, torch.full_like(flat, rows_n))
+    keys, order = torch.sort(keys.to(torch.int32), stable=True)
+    return keys, order.to(torch.int32)
+
+
+def scaled_updates(upd, scale, dtype):
+    """``scale * upd`` as the kernel forms it (module docstring), cast to
+    ``dtype``: ``(n, d)`` contiguous."""
+    work = torch.float64 if upd.dtype == torch.float64 else torch.float32
+    return (upd.to(work) * scale).to(upd.dtype).to(dtype).contiguous()
 
 
 def row_update_ref(table, ids, upd, scale=1.0):
@@ -65,19 +90,22 @@ def row_update_ref(table, ids, upd, scale=1.0):
     slot's rank within its run is computed, and for rank 0, 1, ... one
     ``index_add_`` adds the slots of that rank, whose ids are distinct.
     Returns ``table``."""
-    sorted_ids, order, u = prepare_row_update(table, ids, upd, scale)
-    n = sorted_ids.numel()
+    flat, upd = validate_row_update(table, ids, upd)
+    rows_n = table.shape[0]
+    keys, order = prepare_row_update_ref(flat, rows_n)
+    u = scaled_updates(upd, scale, table.dtype)
+    n = keys.numel()
     if n == 0:
         return table
     pos = torch.arange(n, device=table.device)
     start = torch.ones(n, dtype=torch.bool, device=table.device)
-    start[1:] = sorted_ids[1:] != sorted_ids[:-1]
+    start[1:] = keys[1:] != keys[:-1]
     first = torch.cummax(torch.where(start, pos, torch.zeros_like(pos)),
                          dim=0).values
-    live = sorted_ids >= 0
+    live = keys < rows_n
     rank, by_rank = torch.sort((pos - first)[live], stable=True)
-    rows = sorted_ids[live].long()[by_rank]
-    vals = u[order[live][by_rank]]
+    rows = keys[live].long()[by_rank]
+    vals = u[order[live].long()[by_rank]]
     lo = 0
     with torch.no_grad():
         for count in torch.bincount(rank).tolist():  # one host sync
@@ -86,66 +114,152 @@ def row_update_ref(table, ids, upd, scale=1.0):
     return table
 
 
-# ------------------------------------------------------------------ kernel
+# ------------------------------------------------------------------ kernels
+_PREP_SIGNATURES = {
+    "ff_row_update_prep": (
+        ctypes.c_int,
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_longlong]
+        + [ctypes.c_void_p] * 5),
+    "ff_row_update_prep_tile": (ctypes.c_int, []),
+    "ff_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
+}
 _SIGNATURES = {
     "ff_row_update": (
         ctypes.c_int,
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_longlong,
-                                                      ctypes.c_int,
-                                                      ctypes.c_void_p]),
+        [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p,
+                                 ctypes.c_float] + [ctypes.c_int] * 4
+        + [ctypes.c_void_p]),
     "ff_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 _count_lock = threading.Lock()
 
 
-def launch_row_update(table, sorted_ids, order, u) -> None:
-    """Launch the kernel on prepared inputs (``prepare_row_update``) on the
-    current stream, without counting it.  ``row_update_cuda`` is the
-    entry point; this is its launch step, exposed so that the kernel can
-    be timed apart from the sort."""
-    rows_n, dim = table.shape
-    n = sorted_ids.numel()
+def _raise_on(lib, err, what):
+    if err:
+        msg = lib.ff_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what} kernel launch failed: {msg}")
+
+
+def prepare_row_update_cuda(ids, rows_n):
+    """``prepare_row_update_ref``'s ``(keys, order)`` from the Hopper
+    kernel (one launch, adding one to ``prepare_row_update_cuda.launches``)
+    for CUDA ids; for CPU ids the plain version."""
+    if ids.device.type == "cpu":
+        return prepare_row_update_ref(ids, rows_n)
+    if ids.device.type != "cuda":
+        raise ValueError(f"no row_update_prep kernel for {ids.device}")
+    if ids.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"ids must be int32 or int64, got {ids.dtype}")
+    n = ids.numel()
+    if not 0 <= rows_n < 2 ** 31 or n >= 2 ** 31:
+        raise ValueError(f"{n} ids into {rows_n} rows overflow int32")
+    flat = ids.reshape(-1).contiguous()
+    keys = torch.empty(n, dtype=torch.int32, device=ids.device)
+    order = torch.empty(n, dtype=torch.int32, device=ids.device)
     if n == 0:
-        return
-    vec4 = int(dim % 4 == 0 and table.data_ptr() % 16 == 0
-               and u.data_ptr() % 16 == 0)
+        return keys, order
+    lib = _cuda.load("row_update_prep", _PREP_SIGNATURES)
+    keys_tmp = order_tmp = None
+    if n > lib.ff_row_update_prep_tile():  # tiles over global scratch
+        keys_tmp = torch.empty_like(keys)
+        order_tmp = torch.empty_like(order)
+    with torch.cuda.device(ids.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.ff_row_update_prep(
+            flat.data_ptr(), int(flat.dtype == torch.int64), n, rows_n,
+            keys.data_ptr(), order.data_ptr(),
+            keys_tmp.data_ptr() if keys_tmp is not None else None,
+            order_tmp.data_ptr() if order_tmp is not None else None, stream)
+    _raise_on(lib, err, "row_update_prep")
+    with _count_lock:
+        prepare_row_update_cuda.launches += 1
+    return keys, order
+
+
+def _scale_args(scale, device):
+    """(pointer, value) for the kernel: a 0-dim f32 tensor on ``device``
+    is read there (no host sync); a number or a CPU 0-dim tensor is
+    passed by value."""
+    if not isinstance(scale, torch.Tensor):
+        return None, float(scale)
+    if scale.dim() != 0:
+        raise ValueError(f"scale must be a number or a 0-dim tensor, got "
+                         f"shape {tuple(scale.shape)}")
+    if scale.device.type == "cpu":
+        return None, float(scale)
+    if scale.device != device or scale.dtype != torch.float32:
+        raise TypeError(f"a tensor scale on the card must be f32 on "
+                        f"{device}, got {scale.dtype} on {scale.device}")
+    return scale.data_ptr(), 0.0
+
+
+def _launch_args(table, n, scale):
+    """The update kernel's limits, checked: its row offsets are 32-bit;
+    returns ``_scale_args``."""
+    if n * table.shape[1] >= 2 ** 32:
+        raise ValueError(f"{n} updates of d = {table.shape[1]} overflow "
+                         f"the kernel's 32-bit offsets")
+    return _scale_args(scale, table.device)
+
+
+def launch_row_update(table, keys, order, upd, scale) -> None:
+    """Launch the update kernel on prepared keys and order (from the
+    prepare-and-sort kernel) and the unscaled ``(n, d)`` updates in their
+    original slot order, on the current stream, without counting it.
+    ``row_update_cuda`` is the entry point; this is its launch step,
+    exposed so that the kernel can be timed apart from the sort."""
+    n = keys.numel()
+    if n:
+        _launch_update(table, keys, order, upd,
+                       *_launch_args(table, n, scale))
+
+
+def _launch_update(table, keys, order, upd, ptr, value) -> None:
+    rows_n, dim = table.shape
+    n = keys.numel()
+    esize = upd.element_size()
+    vec = next(v for v in (4, 2, 1)
+               if v == 1 or (dim >= 32 * v and dim % v == 0
+                             and table.data_ptr() % (4 * v) == 0
+                             and upd.data_ptr() % (esize * v) == 0))
     lib = _cuda.load("row_update", _SIGNATURES)
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.ff_row_update(table.data_ptr(), sorted_ids.data_ptr(),
-                                order.data_ptr(), u.data_ptr(), n, dim,
-                                rows_n, vec4, stream)
-    if err:
-        msg = lib.ff_cuda_error_string(err).decode()
-        raise RuntimeError(f"row_update kernel launch failed: {msg}")
+        err = lib.ff_row_update(table.data_ptr(), keys.data_ptr(),
+                                order.data_ptr(), upd.data_ptr(),
+                                _KERNEL_DTYPES[upd.dtype], ptr, value, n,
+                                dim, rows_n, vec, stream)
+    _raise_on(lib, err, "row_update")
 
 
 def row_update_cuda(table, ids, upd, scale=1.0):
     """``table[ids] += scale * upd`` in place; returns ``table``.
 
     ``table`` (R, d) f32 contiguous, ``ids`` (...) int32 or int64, ``upd``
-    (..., d) float; ``scale`` a float or a 0-dim tensor on the table's
-    device.  On CUDA tensors this sorts the ids, launches the Hopper
-    kernel (adding one to ``row_update_cuda.launches``) or raises; on CPU
-    tensors it runs ``row_update_ref``."""
+    (..., d) f32 or bf16; ``scale`` a number or a 0-dim tensor (f32
+    when on the card).  On CUDA tensors this launches the prepare-and-sort
+    kernel and the update kernel (adding one to
+    ``row_update_cuda.launches``) or raises; on CPU tensors it runs
+    ``row_update_ref``."""
     if table.device.type == "cpu":
         return row_update_ref(table, ids, upd, scale)
     if table.device.type != "cuda":
         raise ValueError(f"no row_update kernel for {table.device}")
-    if table.dtype != torch.float32 or not upd.is_floating_point():
-        raise TypeError(f"row_update kernel takes an f32 table and float "
-                        f"updates, got {table.dtype}, {upd.dtype}")
+    if table.dtype != torch.float32 or upd.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"row_update kernel takes an f32 table and f32 "
+                        f"or bf16 updates, got {table.dtype}, {upd.dtype}")
     if not table.is_contiguous():
         raise ValueError("row_update kernel updates a contiguous table")
-    sorted_ids, order, u = prepare_row_update(table, ids, upd, scale)
-    if sorted_ids.numel() >= 2 ** 31:
-        raise ValueError(f"{sorted_ids.numel()} updates overflow int32")
-    if sorted_ids.numel() == 0:
+    flat, upd = validate_row_update(table, ids, upd)
+    args = _launch_args(table, flat.numel(), scale)  # before any launch
+    if flat.numel() == 0:
         return table
-    launch_row_update(table, sorted_ids, order, u)
+    keys, order = prepare_row_update_cuda(flat, table.shape[0])
+    _launch_update(table, keys, order, upd.contiguous(), *args)
     with _count_lock:
         row_update_cuda.launches += 1
     return table
 
 
+prepare_row_update_cuda.launches = 0
 row_update_cuda.launches = 0

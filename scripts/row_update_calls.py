@@ -1,0 +1,84 @@
+"""Time and count the port's whole row-update call on one CUDA card, for
+this checkout or another one.
+
+    python scripts/row_update_calls.py [--root DIR]
+
+Imports ``dlrm_flexflow_tpu_torch`` from ``--root`` (default: the checkout
+that holds this script), so that two versions of the port can be measured
+in one call on one card, in turns (A B B A), with the same script.  Only
+the entry point every version has is called: ``row_update_cuda(table,
+ids, upd, scale)`` at the training step's shape (n = 256 * 8 updates of
+d = 64 f32 into the 8M x 64 stacked table, scale a 0-dim f32 tensor), at
+uniform ids and at zipf ids (a = 1.05), 64 id sets each.  For each it
+prints one JSON line: the whole call's device time from a CUDA graph of
+the 64 calls (``cuda_timing.graph_ms``), its host-issued wall per call,
+and the device kernels per call from torch.profiler
+(``cuda_timing.launches_per_call``).  The first line is the card's name
+and power limit.  Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SETS = 64
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=REPO,
+                    help="checkout whose dlrm_flexflow_tpu_torch is timed")
+    root = os.path.abspath(ap.parse_args().root)
+    sys.path.insert(0, root)
+    import numpy as np
+    import torch
+
+    from cuda_timing import graph_ms, launches_per_call
+    from dlrm_flexflow_tpu_torch import _cuda
+    from dlrm_flexflow_tpu_torch.data.loader import zipf_ids
+    from dlrm_flexflow_tpu_torch.ops.row_update_kernel import row_update_cuda
+
+    if not torch.cuda.is_available():
+        print("row_update_calls: needs a CUDA card", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True)
+    print(smi.stdout.strip().splitlines()[0], flush=True)
+    _cuda.build()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rng = np.random.default_rng(7)
+    rows, dim, n = 8 * 1_000_000, 64, 256 * 8
+    table = torch.rand((rows, dim), generator=gen, device="cuda") - 0.5
+    for kind in ("uniform", "zipf"):
+        sets = []
+        for _ in range(SETS):
+            ids = (torch.randint(0, rows, (n,), generator=gen, device="cuda")
+                   if kind == "uniform" else
+                   torch.from_numpy(zipf_ids(rng, rows, (n,), a=1.05)).cuda())
+            sets.append((table, ids,
+                         torch.randn((n, dim), generator=gen, device="cuda"),
+                         torch.tensor(-0.01, device="cuda")))
+        ms = graph_ms(row_update_cuda, sets)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for a in sets:
+            row_update_cuda(*a)
+        torch.cuda.synchronize()
+        call_ms = (time.perf_counter() - t0) * 1e3 / len(sets)
+        launches, kernels = launches_per_call(row_update_cuda, sets)
+        print(json.dumps({
+            "root": root, "ids": kind, "n": n, "d": dim, "rows": rows,
+            "ms": ms, "call_ms": call_ms, "launches_per_call": launches,
+            "kernels_per_call": kernels}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
