@@ -6,12 +6,19 @@
 Phases, each of which fails the run (non-zero exit, no result line):
   1. the card: nvidia-smi name and power limit, torch and CUDA versions;
   2. build every kernel in dlrm_flexflow_tpu_torch/csrc with nvcc;
-  3. hold the fused forward kernel against its plain version on the card;
+  3. hold the fused forward kernel against its plain versions on the
+     card through both entries: pre-masked flat ids, and the op's local
+     ids (int64 and int32, dropped entries included) masked in the
+     launch, whose output and masked ids must equal mask_local_ids +
+     fused_interact_ref; the model's table at B = 1, 7, 256 and bag 0,
+     1, 3, and small tables of d = 6, 33 and 64 with T * bag = 40;
   4. serve the full-width run_random.sh DLRM (fused interaction) through
      InferenceEngine + DynamicBatcher and check the answers and that the
      kernel ran on that path;
   5. time the fused forward at the serving buckets beside its bound, its
-     plain version and a library call;
+     plain version, a library call and the launch floor (an empty kernel),
+     and the whole call as the op issues it, before (mask, cast, kernel)
+     and now (one launch), with launches per call;
   6. hold the row update's two kernels (prepare-and-sort, update) against
      their plain versions, bit for bit, over ids uniform, zipf, one id,
      wrapped and dropped, int32 edges, R at a radix digit's bit
@@ -29,7 +36,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      and the backward kernel at the path's shapes, and
      the training steps (information, not a claim);
  10. hold the row-set kernel against its plain version, bit for bit;
- 11. hold the embedding-bag kernel against its plain version, bit for bit;
+ 11. hold the embedding-bag kernel against its plain version, bit for bit,
+     int64 and int32 ids, bags up to 40, d = 128, 256 and 33;
  12. train the classic graph through fit's staged branch with the epoch
      row cache (fit(epochs=2) over 64 batches: one train_epochs, the
      ladder [8], 17 row-set launches), held bit for bit against the same
@@ -38,7 +46,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
      its row-update backward) a few steps, its forward and one step held
      against the plain versions;
  14. time the row-set kernel at the epilogue and block shapes, the bag
-     kernel, and profile the cached and uncached staged epochs
+     kernel at every serving bucket (int64 and int32 ids, launches per
+     call, the launch floor), and profile the cached and uncached staged epochs
      (information, not a claim).
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -69,6 +78,7 @@ from dlrm_flexflow_tpu_torch.ops import fused_interact as fused_module
 from dlrm_flexflow_tpu_torch.ops.bag_kernel import (embedding_bag_cuda,
                                                    embedding_bag_ref)
 from dlrm_flexflow_tpu_torch.ops.fused_interact_kernel import (
+    empty_launch_cuda, fused_embed_interact_cuda, fused_embed_interact_ref,
     fused_interact_bwd_cuda, fused_interact_bwd_ref, fused_interact_cuda,
     fused_interact_ref, interact_width, mask_local_ids)
 from dlrm_flexflow_tpu_torch.ops.row_set_kernel import (
@@ -78,7 +88,9 @@ from dlrm_flexflow_tpu_torch.ops.row_update_kernel import (
     row_update_cuda, row_update_ref)
 from dlrm_flexflow_tpu_torch.ops.slotting import slot_rows
 from dlrm_flexflow_tpu_torch.serving import DynamicBatcher, InferenceEngine
-from scripts.cuda_timing import graph_ms, launches_per_call
+from dlrm_flexflow_tpu_torch.tools.cuda_timing import (graph_ms,
+                                                    launches_per_call,
+                                                    wall_ms)
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and the
 # f32 rate outside the tensor cores, which the fused kernel's adds and
@@ -92,6 +104,9 @@ SM_CLOCK_HZ = 1.98e9
 TABLES, ROWS, DIM, BOT = 8, 1_000_000, 64, 64
 BUCKETS = (1, 8, 64, 256)
 BATCH = 256
+INT32_MIN = int(np.iinfo(np.int32).min)
+# rows of d = 64 f32 (25.6 MB) that the 50 MB L2 holds
+L2_ROWS = 100_000
 KERNELS = {
     "fused_interact_fwd": (
         "dlrm_flexflow_tpu_torch/csrc/fused_interact.cu",
@@ -163,20 +178,34 @@ def build_kernels() -> None:
 
 
 # --------------------------------------------------------------- phase 3
-def _gids(gen, bsz, bag, drop: bool):
-    """Masked flat ids (B, T, bag) int32 for the 8 x 1M-row tables, with
-    dropped ids (-1, -3, int32 min, and one past a table's end) when
-    ``drop`` and the shape has room for them."""
-    local = torch.randint(0, ROWS, (bsz, TABLES, bag), generator=gen,
-                          device="cuda", dtype=torch.int64)
+def _model_consts():
+    """Offsets and row counts (int64, on the card) of the 8 x 1M tables."""
+    return (torch.arange(TABLES, device="cuda", dtype=torch.int64) * ROWS,
+            torch.full((TABLES,), ROWS, device="cuda", dtype=torch.int64))
+
+
+def _local(gen, bsz, bag, drop: bool, counts=None):
+    """Local ids (B, T, bag) int64 below each table's count (default the
+    8 x 1M tables), with dropped ids (-1, -3, int32 min, one at and one
+    past a table's count) when ``drop`` and the shape has room."""
+    counts = [ROWS] * TABLES if counts is None else counts
+    local = torch.stack([torch.randint(0, c, (bsz, bag), generator=gen,
+                                       device="cuda") for c in counts], 1)
     if drop and bag:
         flat = local.view(-1)
-        bad = [-1, -3, int(np.iinfo(np.int32).min), ROWS]
+        bad = [-1, -3, INT32_MIN, None, None]
         for i, v in enumerate(bad[:flat.numel() // 2]):
-            flat[(i * 7919) % flat.numel()] = v
-    offsets = torch.arange(TABLES, device="cuda", dtype=torch.int64) * ROWS
-    counts = torch.full((TABLES,), ROWS, device="cuda", dtype=torch.int64)
-    return mask_local_ids(local, offsets, counts).to(torch.int32)
+            k = (i * 7919) % flat.numel()
+            t = (k // bag) % len(counts)
+            flat[k] = v if v is not None else counts[t] + (i - 3) * 5
+    return local
+
+
+def _gids(gen, bsz, bag, drop: bool):
+    """Masked flat ids (B, T, bag) int32 for the 8 x 1M-row tables, with
+    the dropped ids of ``_local`` when ``drop``."""
+    return mask_local_ids(_local(gen, bsz, bag, drop),
+                          *_model_consts()).to(torch.int32)
 
 
 def _bottom(gen, bsz):
@@ -195,41 +224,82 @@ def _agree(k, r, interact, bag):
     return torch.allclose(k, r, rtol=1e-5, atol=1e-6), "rtol 1e-5 atol 1e-6"
 
 
+def _fwd_case(table, ids, bottom, consts, interact, aggr, cd, **tags):
+    """One forward case on local ids: the pre-masked entry on the ids
+    ``mask_local_ids`` gives, and the folded entry on the local ids with
+    its gids, each against its plain version on the same inputs.
+    Returns the case rows."""
+    kw = dict(interact=interact, aggr=aggr, compute_dtype=cd)
+    bsz, t, bag = ids.shape
+    width = interact_width(interact, t, table.shape[1], bottom.shape[1])
+    gids = mask_local_ids(ids, *consts).to(torch.int32)
+    out, kg = fused_embed_interact_cuda(table, ids, *consts, bottom,
+                                        want_gids=True, **kw)
+    ref, rg = fused_embed_interact_ref(table, ids, *consts, bottom,
+                                       want_gids=True, **kw)
+    calls = [("premasked",
+              fused_interact_cuda(table, gids, bottom, **kw),
+              fused_interact_ref(table, gids, bottom, **kw), None),
+             ("folded", out, ref, torch.equal(kg, rg))]
+    torch.cuda.synchronize()
+    rows = []
+    for entry, k, r, gids_same in calls:
+        ok, tol = _agree(k, r, interact, bag)
+        ok = ok and k.shape == (bsz, width) and gids_same is not False
+        err = float((k - r).abs().max()) if k.numel() else 0.0
+        rows.append({"phase": "kernel_vs_plain",
+                     "kernel": "fused_interact_fwd", "entry": entry,
+                     "B": bsz, "T": t, "bag": bag, "d": table.shape[1],
+                     "ids": str(ids.dtype)[6:],
+                     "interact": interact, "aggr": aggr, "compute_dtype": cd,
+                     **tags, "max_abs_err": err, "tolerance": tol,
+                     "gids_bit_identical": gids_same, "ok": bool(ok)})
+    return rows
+
+
+def _fwd_configs():
+    return [(i, a, cd) for i in ("cat", "dot") for a in ("sum", "avg")
+            for cd in ((None,) if i == "cat" else (None, "bfloat16"))]
+
+
 def check_kernel_cases(table) -> float:
+    """The forward kernel through both entries against the plain versions:
+    on the model's table (8 x 1M x 64) at B = 1, 7, 256 and bag 0, 1, 3,
+    pre-masked ids and local ids (int64 and int32 in turn) with dropped
+    entries; then on small ragged tables of d = 6 and 33 (the scalar
+    path) and 64, with bag 5 (T * bag = 40 ids, more than a warp)."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    worst = 0.0
-    failed = []
+    consts = _model_consts()
+    rows = []
     for bsz in (1, 7, 256):
         for bag in (0, 1, 3):
-            gids = _gids(gen, bsz, bag, drop=True)
+            local = _local(gen, bsz, bag, drop=True)
             bottom = _bottom(gen, bsz)
-            for interact in ("cat", "dot"):
-                for aggr in ("sum", "avg"):
-                    for cd in ((None,) if interact == "cat"
-                               else (None, "bfloat16")):
-                        kw = dict(interact=interact, aggr=aggr,
-                                  compute_dtype=cd)
-                        k = fused_interact_cuda(table, gids, bottom, **kw)
-                        r = fused_interact_ref(table, gids, bottom, **kw)
-                        torch.cuda.synchronize()
-                        ok, tol = _agree(k, r, interact, bag)
-                        ok = ok and k.shape == (bsz, interact_width(
-                            interact, TABLES, DIM, BOT))
-                        err = float((k - r).abs().max()) if k.numel() else 0.0
-                        worst = max(worst, err)
-                        case = {"phase": "kernel_vs_plain",
-                                "kernel": "fused_interact_fwd", "B": bsz,
-                                "bag": bag, "interact": interact,
-                                "aggr": aggr, "compute_dtype": cd,
-                                "max_abs_err": err, "tolerance": tol,
-                                "ok": bool(ok)}
-                        log(case)
-                        if not ok:
-                            failed.append(case)
+            for n, (interact, aggr, cd) in enumerate(_fwd_configs()):
+                ids = local.to(torch.int32) if n % 2 else local
+                rows += _fwd_case(table, ids, bottom, consts, interact, aggr,
+                                  cd, tables="model")
+    counts = [5000, 3000, 7000, 1000, 4000, 2500, 6000, 1500]
+    offsets = np.concatenate([[0], np.cumsum(counts[:-1])])
+    small = (torch.as_tensor(offsets, device="cuda"),
+             torch.as_tensor(counts, device="cuda"))
+    for d in (6, 33, 64):
+        tab = _rows_tensor(gen, sum(counts), d)
+        for bsz in (1, 7, 256):
+            for bag in (1, 5):
+                local = _local(gen, bsz, bag, drop=True, counts=counts)
+                bottom = torch.rand((bsz, d), generator=gen, device="cuda")
+                for n, (interact, aggr, cd) in enumerate(_fwd_configs()):
+                    ids = local.to(torch.int32) if n % 2 else local
+                    rows += _fwd_case(tab, ids, bottom, small, interact,
+                                      aggr, cd, tables="small")
+    for row in rows:
+        log(row)
+    failed = [r for r in rows if not r["ok"]]
     if failed:
-        raise AssertionError(f"{len(failed)} kernel case(s) disagree with "
-                             f"the plain version")
-    return worst
+        raise AssertionError(f"{len(failed)} of {len(rows)} forward case(s) "
+                             f"disagree with the plain version")
+    return max(r["max_abs_err"] for r in rows)
 
 
 # --------------------------------------------------------------- phase 4
@@ -406,28 +476,59 @@ def profile_dispatch(engine, req, n: int, reps: int = 20) -> None:
 
 
 # --------------------------------------------------------------- phase 5
-def _eager_ms(fn, arg_sets) -> float:
-    """Wall time of one call as the host issues it, launch cost included."""
-    for args in arg_sets[:3]:
-        fn(*args)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
+def check_one_launch(what, fn, arg_sets, wrapper, kernel, traced,
+                     kernels) -> None:
+    """Fails unless every call of ``fn`` makes exactly one device
+    operation, a launch of ``kernel``: its wrapper's counter (exact) must
+    grow by one a call, and the profiler's reading (``traced`` and
+    ``kernels`` from ``launches_per_call``) must show no other operation.
+    The tracer can drop a record or two in 64 calls, so its reading must
+    lie in (0.9, 1]: 0, "not measured" or a second operation fail."""
+    before = wrapper.launches
     for args in arg_sets:
         fn(*args)
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / len(arg_sets)
+    made = wrapper.launches - before
+    others = [k for k in kernels if kernel not in k]
+    if (made != len(arg_sets) or traced == "not measured"
+            or not 0.9 < traced <= 1 or others):
+        raise AssertionError(
+            f"{what}: {made} {kernel} launches for {len(arg_sets)} calls, "
+            f"{traced} device operations per call traced ({kernels})")
 
 
-def time_kernel(table, sets: int = 256):
-    """Per serving bucket: the kernel, its plain version and
-    ``F.embedding_bag`` (the pooling part only; the port never calls it)
-    on the same inputs, and the bytes bound."""
+def _launch_floor_ms(sets: int) -> float:
+    """An empty kernel of the forward's library timed as the kernels are
+    (``graph_ms``): the floor under any launch (information only)."""
+    return graph_ms(empty_launch_cuda, [()] * sets)
+
+
+def time_kernel(model, state, sets: int = 256):
+    """Per serving bucket: the kernel on pre-masked ids, its plain version
+    and ``F.embedding_bag`` (the pooling part only; the port never calls
+    it) on the same inputs, and the bytes bound; the kernel on a table
+    that fits the 50 MB L2 (``l2_table_ms``: what the rows' trips to
+    device memory cost); then the whole call as
+    the op issues it, on its int64 local ids: before this design the
+    mask, the cast and the kernel on pre-masked ids, now the folded call
+    and the op's forward itself, each with launches per call; the whole
+    call's bound (local ids at 8 bytes, offsets and counts, rows, bottom,
+    output); and the launch floor."""
     gen = torch.Generator(device="cuda").manual_seed(2)
+    table = state.params["emb"]["embedding"]
+    op = model.get_op("emb")
+    consts = op.table_consts(table.device)
+    floor_ms = _launch_floor_ms(sets)
+    l2_table = _rows_tensor(gen, L2_ROWS, DIM)
     rows = []
     for bsz in BUCKETS:
         bag = 1
-        arg_sets = [(table, _gids(gen, bsz, bag, drop=False),
-                     _bottom(gen, bsz)) for _ in range(sets)]
+        local_sets = [(_local(gen, bsz, bag, drop=False), _bottom(gen, bsz))
+                      for _ in range(sets)]
+        arg_sets = [(table, mask_local_ids(i, *consts).to(torch.int32), b)
+                    for i, b in local_sets]
+        l2_sets = [(l2_table, (i % L2_ROWS).to(torch.int32), b)
+                   for i, b in local_sets]
 
         def kern(t, g, b):
             return fused_interact_cuda(t, g, b, interact="cat", aggr="sum")
@@ -439,26 +540,62 @@ def time_kernel(table, sets: int = 256):
             return torch.nn.functional.embedding_bag(
                 g.view(-1, bag), t, mode="sum")
 
+        def op_before(i, b):  # the op's forward before: mask, cast, kernel
+            g = mask_local_ids(i, *consts).to(torch.int32).contiguous()
+            return fused_interact_cuda(table, g, b, interact="cat",
+                                       aggr="sum")
+
+        def op_folded(i, b):
+            return fused_embed_interact_cuda(table, i, *consts, b)[0]
+
+        def op_plain(i, b):
+            return fused_embed_interact_ref(table, i, *consts, b)[0]
+
+        def op_forward(i, b):
+            with torch.no_grad():
+                return op.forward(state.params["emb"], [i, b])[0]
+
         width = interact_width("cat", TABLES, DIM, BOT)
         live = sum(int((g >= 0).sum()) for _, g, _ in arg_sets) / sets
         nbytes = 4 * (live * DIM + bsz * BOT + bsz * TABLES * bag
                       + bsz * width)
+        op_bytes = (nbytes + 4 * bsz * TABLES * bag  # int64 ids, not int32
+                    + 2 * 8 * TABLES)                # offsets and counts
         flops = live * DIM  # the pooling adds
-        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = flops / F32_FLOPS_PER_S * 1e3
+        bound_ms, bound_by = _bound(nbytes, flops)
+        op_bound_ms, op_bound_by = _bound(op_bytes, flops)
         row = {"phase": "timing", "kernel": "fused_interact_fwd",
                "B": bsz, "T": TABLES, "bag": bag, "d": DIM,
-               "interact": "cat", "bytes": nbytes,
-               "bound_ms": max(bytes_ms, ops_ms),
-               "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+               "interact": "cat", "bytes": nbytes, "bound_ms": bound_ms,
+               "bound_by": bound_by, "launch_floor_ms": floor_ms,
                "ms": graph_ms(kern, arg_sets),
+               "l2_table_ms": graph_ms(kern, l2_sets),
                "plain_ms": graph_ms(plain, arg_sets),
                "library_ms": graph_ms(library, arg_sets),
-               "call_ms": _eager_ms(kern, arg_sets),
-               "plain_call_ms": _eager_ms(plain, arg_sets)}
-        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+               "call_ms": wall_ms(kern, arg_sets),
+               "plain_call_ms": wall_ms(plain, arg_sets),
+               "op_bytes": op_bytes, "op_bound_ms": op_bound_ms,
+               "op_bound_by": op_bound_by,
+               "op_before_ms": graph_ms(op_before, local_sets),
+               "op_ms": graph_ms(op_folded, local_sets),
+               "op_forward_ms": graph_ms(op_forward, local_sets),
+               "op_plain_ms": graph_ms(op_plain, local_sets),
+               "op_before_call_ms": wall_ms(op_before, local_sets),
+               "op_call_ms": wall_ms(op_folded, local_sets),
+               "op_forward_call_ms": wall_ms(op_forward, local_sets)}
+        for name, fn in (("op_before", op_before), ("op", op_folded),
+                         ("op_forward", op_forward)):
+            row[f"{name}_launches_per_call"], row[f"{name}_kernels"] = (
+                launches_per_call(fn, local_sets[:64]))
+        row["share_of_bound"] = bound_ms / row["ms"]
+        row["op_share_of_bound"] = op_bound_ms / row["op_ms"]
         log(row)
         rows.append(row)
+        for name, fn in (("op", op_folded), ("op_forward", op_forward)):
+            check_one_launch(name, fn, local_sets[:64], fused_interact_cuda,
+                             "fused_interact_kernel",
+                             row[f"{name}_launches_per_call"],
+                             row[f"{name}_kernels"])
     return rows
 
 
@@ -924,7 +1061,7 @@ def time_row_update(table, sets: int = 64):
                "ms": graph_ms(row_update_cuda, arg_sets),
                "kernel_ms": graph_ms(launch_row_update, prepared),
                "prep_ms": graph_ms(prepare_row_update_cuda, id_sets),
-               "plain_ms": _eager_ms(row_update_ref, arg_sets[:16]),
+               "plain_ms": wall_ms(row_update_ref, arg_sets[:16]),
                "prep_plain_ms": graph_ms(prepare_row_update_ref, id_sets),
                "library_ms": graph_ms(
                    lambda t, i, u, s: t.index_add_(0, i, u, alpha=-0.01),
@@ -933,7 +1070,7 @@ def time_row_update(table, sets: int = 64):
                    lambda i, r: torch.sort(i, stable=True), id_sets),
                "prep_bytes": prep_bytes, "prep_bound_ms": prep_bound_ms,
                "prep_bound_by": prep_bound_by,
-               "call_ms": _eager_ms(row_update_cuda, arg_sets)}
+               "call_ms": wall_ms(row_update_cuda, arg_sets)}
         # "ms" is the whole call, so it includes "prep_ms"
         row["launches_per_call"], row["kernels_per_call"] = (
             launches_per_call(row_update_cuda, arg_sets))
@@ -997,7 +1134,7 @@ def time_fused_bwd(table, sets: int = 64):
                    "d": DIM, "bytes": nbytes, "bound_ms": bound_ms,
                    "bound_by": bound_by, "ms": graph_ms(kern, arg_sets),
                    "plain_ms": graph_ms(plain, arg_sets),
-                   "library_ms": None, "call_ms": _eager_ms(kern, arg_sets)}
+                   "library_ms": None, "call_ms": wall_ms(kern, arg_sets)}
             row["share_of_bound"] = bound_ms / row["ms"]
             log(row)
             out[interact, bsz] = row
@@ -1005,8 +1142,6 @@ def time_fused_bwd(table, sets: int = 64):
 
 
 # -------------------------------------------------------------- phase 10
-INT32_MIN = int(np.iinfo(np.int32).min)
-
 
 def _set_ids(gen, n, rows):
     """int32 ids of one phase-10 case, in a random order: n - n // 4
@@ -1068,36 +1203,59 @@ def check_row_set(table) -> float:
 
 
 # -------------------------------------------------------------- phase 11
+def _same_bits(k, r) -> bool:
+    """Equal values, with NaN where the other has NaN."""
+    nan = torch.isnan(k)
+    return torch.equal(nan, torch.isnan(r)) and torch.equal(
+        k.masked_fill(nan, 0), r.masked_fill(nan, 0))
+
+
 def check_embedding_bag():
     """The bag kernel against ``embedding_bag_ref`` on 1M-row tables of
     d = 128 and 256, bit for bit: sum and avg, bag 1, 3 and 8, B = 1, 8,
     64 and 256, with a bag of one repeated row and a bag repeating
-    another.  Returns (max abs error, the d = 128 table)."""
+    another; then the paths the redesign added: int32 ids, a bag of 40
+    (longer than a warp's ids and a lane's register chunk) and d = 33
+    (the scalar path, on a 100k-row table), with a wrapped id (-5) and
+    one out of range (a NaN row).  Returns (max abs error, the d = 128
+    table)."""
     gen = torch.Generator(device="cuda").manual_seed(11)
     tables = {d: _rows_tensor(gen, ROWS, d) for d in (128, 256)}
+    tables[33] = _rows_tensor(gen, 100_000, 33)
+    cases = [(d, bag, torch.int64, False) for d in (128, 256)
+             for bag in (1, 3, 8)]
+    cases += [(d, bag, dt, True) for d in (128, 33) for bag in (1, 8, 40)
+              for dt in (torch.int32, torch.int64)]
     failed, worst = [], 0.0
-    for d, table in tables.items():
+    for d, bag, dtype, edges in cases:
+        table = tables[d]
+        rows = table.shape[0]
         for bsz in BUCKETS:
-            for bag in (1, 3, 8):
-                ids = torch.randint(0, ROWS, (bsz, bag), generator=gen,
-                                    device="cuda")
-                ids[0] = int(ids[0, 0])
-                if bsz > 1:
-                    ids[-1] = ids[0]
-                for mode in ("sum", "avg"):
-                    k = embedding_bag_cuda(table, ids, mode)
-                    r = embedding_bag_ref(table, ids, mode)
-                    torch.cuda.synchronize()
-                    ok = torch.equal(k, r) and k.shape == (bsz, d)
-                    err = float((k - r).abs().max())
-                    worst = max(worst, err)
-                    case = {"phase": "kernel_vs_plain",
-                            "kernel": "embedding_bag", "B": bsz, "bag": bag,
-                            "d": d, "mode": mode, "max_abs_err": err,
-                            "tolerance": "exact", "ok": bool(ok)}
-                    log(case)
-                    if not ok:
-                        failed.append(case)
+            ids = torch.randint(0, rows, (bsz, bag), generator=gen,
+                                device="cuda")
+            ids[0] = int(ids[0, 0])
+            if bsz > 1:
+                ids[-1] = ids[0]
+            if edges and bsz > 2:
+                ids[1, bag // 2], ids[2, bag - 1] = -5, rows
+            ids = ids.to(dtype)
+            for mode in ("sum", "avg"):
+                k = embedding_bag_cuda(table, ids, mode)
+                r = embedding_bag_ref(table, ids, mode)
+                torch.cuda.synchronize()
+                ok = _same_bits(k, r) and k.shape == (bsz, d)
+                live = ~torch.isnan(r)
+                err = float((k[live] - r[live]).abs().max())
+                worst = max(worst, err)
+                case = {"phase": "kernel_vs_plain", "kernel": "embedding_bag",
+                        "B": bsz, "bag": bag, "d": d, "rows": rows,
+                        "ids": str(dtype)[6:], "mode": mode,
+                        "wrapped_and_nan_ids": edges and bsz > 2,
+                        "max_abs_err": err, "tolerance": "exact",
+                        "ok": bool(ok)}
+                log(case)
+                if not ok:
+                    failed.append(case)
     if failed:
         raise AssertionError(f"{len(failed)} embedding_bag case(s) disagree "
                              f"with the plain version")
@@ -1341,10 +1499,10 @@ def time_row_set(table, sets: int = 4):
                "bound_by": bound_by,
                "ms": graph_ms(launch_row_set, prepared),
                "wrapper_ms": graph_ms(row_set_cuda, arg_sets),
-               "plain_ms": _eager_ms(row_set_ref, arg_sets),
+               "plain_ms": wall_ms(row_set_ref, arg_sets),
                "library_ms": graph_ms(
                    lambda t, i, v: t.index_copy_(0, i, v), lib_sets),
-               "call_ms": _eager_ms(row_set_cuda, arg_sets)}
+               "call_ms": wall_ms(row_set_cuda, arg_sets)}
         row["share_of_bound"] = bound_ms / row["ms"]
         log(row)
         out[shape] = row
@@ -1354,28 +1512,46 @@ def time_row_set(table, sets: int = 4):
 
 
 def time_embedding_bag(table, sets: int = 256):
-    """The bag kernel at the JAX docstring's shape (1M x 128 f32, B = 256,
-    bag 8), its plain version and ``F.embedding_bag`` (mode "sum", the
-    library call), from CUDA graphs cycling many id sets.  The ids are
-    int64, 8 bytes each in the bound."""
+    """The bag kernel at the JAX docstring's shape (1M x 128 f32, bag 8)
+    at every serving bucket, its plain version and ``F.embedding_bag``
+    (mode "sum", the library call), from CUDA graphs cycling many id
+    sets, with int64 ids (8 bytes each in the bound) and int32 ids, on a
+    table that fits the L2 (50k x 128), the launches per call, and the
+    launch floor.  Returns the B = 256 row."""
     gen = torch.Generator(device="cuda").manual_seed(15)
-    arg_sets = [(table, torch.randint(0, BAG_ROWS, (BATCH, BAG),
-                                      generator=gen, device="cuda"))
-                for _ in range(sets)]
-    nbytes = 4 * BATCH * BAG * BAG_DIM + 8 * BATCH * BAG + 4 * BATCH * BAG_DIM
-    bound_ms, bound_by = _bound(nbytes, BATCH * BAG * BAG_DIM)
-    row = {"phase": "timing", "kernel": "embedding_bag", "B": BATCH,
-           "bag": BAG, "d": BAG_DIM, "rows": BAG_ROWS, "mode": "sum",
-           "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
-           "ms": graph_ms(embedding_bag_cuda, arg_sets),
-           "plain_ms": graph_ms(embedding_bag_ref, arg_sets),
-           "library_ms": graph_ms(
-               lambda t, i: torch.nn.functional.embedding_bag(
-                   i, t, mode="sum"), arg_sets),
-           "call_ms": _eager_ms(embedding_bag_cuda, arg_sets)}
-    row["share_of_bound"] = bound_ms / row["ms"]
-    log(row)
-    return row
+    floor_ms = _launch_floor_ms(sets)
+    l2_table = _rows_tensor(gen, L2_ROWS // 2, BAG_DIM)
+    rows = {}
+    for bsz in BUCKETS:
+        arg_sets = [(table, torch.randint(0, BAG_ROWS, (bsz, BAG),
+                                          generator=gen, device="cuda"))
+                    for _ in range(sets)]
+        i32_sets = [(t, i.to(torch.int32)) for t, i in arg_sets]
+        l2_sets = [(l2_table, i % (L2_ROWS // 2)) for _, i in arg_sets]
+        nbytes = 4 * bsz * BAG * BAG_DIM + 8 * bsz * BAG + 4 * bsz * BAG_DIM
+        bound_ms, bound_by = _bound(nbytes, bsz * BAG * BAG_DIM)
+        row = {"phase": "timing", "kernel": "embedding_bag", "B": bsz,
+               "bag": BAG, "d": BAG_DIM, "rows": BAG_ROWS, "mode": "sum",
+               "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
+               "launch_floor_ms": floor_ms,
+               "ms": graph_ms(embedding_bag_cuda, arg_sets),
+               "int32_ids_ms": graph_ms(embedding_bag_cuda, i32_sets),
+               "l2_table_ms": graph_ms(embedding_bag_cuda, l2_sets),
+               "plain_ms": graph_ms(embedding_bag_ref, arg_sets),
+               "library_ms": graph_ms(
+                   lambda t, i: torch.nn.functional.embedding_bag(
+                       i, t, mode="sum"), arg_sets),
+               "call_ms": wall_ms(embedding_bag_cuda, arg_sets)}
+        row["launches_per_call"], row["kernels_per_call"] = (
+            launches_per_call(embedding_bag_cuda, i32_sets[:64]))
+        row["share_of_bound"] = bound_ms / row["ms"]
+        log(row)
+        rows[bsz] = row
+        check_one_launch("embedding_bag_cuda", embedding_bag_cuda,
+                         i32_sets[:64], embedding_bag_cuda,
+                         "embedding_bag_kernel", row["launches_per_call"],
+                         row["kernels_per_call"])
+    return rows[BATCH]
 
 
 def _entry(name, launches, err, timing):
@@ -1400,7 +1576,13 @@ def main() -> int:
     table = state.params["emb"]["embedding"]
     fwd_err = check_kernel_cases(table)
     serve_launches, path_err = serve(model, state)
-    fwd_time = time_kernel(table)[-1]  # the top serving bucket, B=256
+    top = time_kernel(model, state)[-1]  # the top serving bucket, B=256
+    # the main path launches the folded call: its time, plain version and
+    # whole-call bound
+    fwd_time = {"ms": top["op_ms"], "plain_ms": top["op_plain_ms"],
+                "bound_ms": top["op_bound_ms"],
+                "bound_by": top["op_bound_by"],
+                "library_ms": top["library_ms"]}
     # phases 6-7: the training kernels against their plain versions
     row_err, prep_err = check_row_update(table)
     bwd_err = check_fused_bwd(table)

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``_build/lib<name>-<digest>.so``,
-then loaded with ``ctypes``.  The digest covers the source and the flags,
-so an edited kernel is rebuilt and a built one is reused.  Nothing here
+then loaded with ``ctypes``.  The digest covers the source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited kernel is rebuilt
+and a built one is reused.  Nothing here
 runs at import: the first CUDA call of a kernel's wrapper builds and
 loads its library, and :func:`build` builds several at once (one ``nvcc``
 per source, all started together).  A machine without ``nvcc`` gets an
@@ -45,9 +46,12 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
+    """The library of ``csrc/<name>.cu``, named by a digest of that source,
+    the shared headers (``csrc/*.cuh``) and the flags."""
+    sources = [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        b"".join(p.read_bytes() for p in sources)
+        + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

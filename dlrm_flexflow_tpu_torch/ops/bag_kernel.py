@@ -63,8 +63,9 @@ def embedding_bag_ref(table, ids, mode: str = "sum"):
 _SIGNATURES = {
     "ff_embedding_bag": (
         ctypes.c_int,
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_longlong]
-        + [ctypes.c_int] * 2 + [ctypes.c_void_p]),
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p]
+        + [ctypes.c_int] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 2
+        + [ctypes.c_void_p]),
     "ff_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 _count_lock = threading.Lock()
@@ -76,7 +77,8 @@ def embedding_bag_cuda(table, ids, mode: str = "sum"):
 
     On CUDA tensors this launches the Hopper kernel (and adds one to
     ``embedding_bag_cuda.launches``) or raises; on CPU tensors it runs
-    ``embedding_bag_ref``."""
+    ``embedding_bag_ref``.  The kernel reads the ids at their own
+    width."""
     _check(table, ids, mode)
     if table.device.type == "cpu":
         return embedding_bag_ref(table, ids, mode)
@@ -88,8 +90,11 @@ def embedding_bag_cuda(table, ids, mode: str = "sum"):
     if not table.is_contiguous():
         raise ValueError("embedding_bag kernel reads a contiguous table")
     rows_n, dim = table.shape
+    if rows_n >= 2 ** 31:
+        raise ValueError(f"table of {rows_n} rows overflows the kernel's "
+                         f"int32 rows")
     bsz, bag = ids.shape
-    ids = ids.long().contiguous()
+    ids = ids.contiguous()
     out = torch.empty((bsz, dim), dtype=torch.float32, device=table.device)
     if bsz == 0 or dim == 0:
         return out
@@ -99,6 +104,7 @@ def embedding_bag_cuda(table, ids, mode: str = "sum"):
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ff_embedding_bag(table.data_ptr(), ids.data_ptr(),
+                                   int(ids.dtype == torch.int64),
                                    out.data_ptr(), bsz, bag, dim, rows_n,
                                    int(mode == "avg"), vec4, stream)
     if err:

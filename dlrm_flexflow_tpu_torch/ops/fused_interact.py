@@ -15,10 +15,11 @@ Forward paths:
   with respect to the rows;
 * otherwise ``FusedEmbedInteractFn``, the counterpart of the JAX
   package's ``fused_embed_interact`` custom VJP: the forward kernel at
-  every batch size on the card, the plain version on the CPU.  The JAX
-  package's cost gate (``kernel_costs.fused_interact_wins``) holds TPU
-  v5e constants and is not carried over; re-measuring it on the H100 is
-  queued in ROADMAP.md.
+  every batch size on the card, one launch that also masks the local
+  ids (``fused_embed_interact_cuda``), the plain version on the CPU.
+  The JAX package's cost gate (``kernel_costs.fused_interact_wins``)
+  holds TPU v5e constants and is not carried over; re-measuring it on
+  the H100 is queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -26,15 +27,20 @@ from __future__ import annotations
 import torch
 
 from .embedding import RaggedStackedEmbedding
-from .fused_interact_kernel import (BF16_NAMES, fused_interact_bwd_cuda,
-                                    fused_interact_cuda, fused_interact_ref,
-                                    interact_width, mask_local_ids,
-                                    masked_pool_interact)
+from .fused_interact_kernel import (BF16_NAMES, fused_embed_interact_cuda,
+                                    fused_interact_bwd_cuda,
+                                    fused_interact_ref, interact_width,
+                                    mask_local_ids, masked_pool_interact)
 from .row_update_kernel import row_update_cuda
 
 
 class FusedEmbedInteractFn(torch.autograd.Function):
-    """The differentiable fused gather -> pool -> interact.
+    """The differentiable fused gather -> pool -> interact, on the op's
+    local ids ``(B, T, bag)`` and its per-table offsets and row counts.
+
+    Forward: one launch that masks the ids, gathers, pools and
+    interacts; when a gradient is wanted it also writes the masked int32
+    flat ids, which the backward reads.
 
     Backward at f32: the fused backward kernel gives the per-slot row
     grads and ``dbottom``; the dense table gradient is then ONE
@@ -48,11 +54,15 @@ class FusedEmbedInteractFn(torch.autograd.Function):
     bf16 operand casts of ``dot`` have no backward kernel)."""
 
     @staticmethod
-    def forward(ctx, table, bottom, gids, interact, aggr, compute_dtype):
+    def forward(ctx, table, bottom, idx, offsets, row_counts, interact,
+                aggr, compute_dtype):
+        out, gids = fused_embed_interact_cuda(
+            table, idx, offsets, row_counts, bottom, interact=interact,
+            aggr=aggr, compute_dtype=compute_dtype,
+            want_gids=any(ctx.needs_input_grad[:2]))
         ctx.save_for_backward(table, bottom, gids)
         ctx.config = (interact, aggr, compute_dtype)
-        return fused_interact_cuda(table, gids, bottom, interact=interact,
-                                   aggr=aggr, compute_dtype=compute_dtype)
+        return out
 
     @staticmethod
     def backward(ctx, g):
@@ -66,13 +76,13 @@ class FusedEmbedInteractFn(torch.autograd.Function):
                                          aggr=aggr,
                                          compute_dtype=compute_dtype)
                 dtable, dbottom = torch.autograd.grad(out, (t, b), g)
-            return dtable, dbottom, None, None, None, None
+            return dtable, dbottom, None, None, None, None, None, None
         rowg, dbottom = fused_interact_bwd_cuda(
             table, gids, bottom, g.contiguous(), interact=interact,
             aggr=aggr)
         dtable = row_update_cuda(torch.zeros_like(table),
                                  gids.clamp_min(0), rowg, 1.0)
-        return dtable, dbottom, None, None, None, None
+        return dtable, dbottom, None, None, None, None, None, None
 
 
 class FusedEmbedInteract(RaggedStackedEmbedding):
@@ -107,9 +117,9 @@ class FusedEmbedInteract(RaggedStackedEmbedding):
         idx, bottom = xs
         out_dtype = self.outputs[0].dtype
         offsets, row_counts = self.table_consts(idx.device)
-        gids = mask_local_ids(idx, offsets, row_counts)
         rows = params.get("rows__")  # the row-sparse step: (B, T, bag, d)
         if rows is not None:
+            gids = mask_local_ids(idx, offsets, row_counts)
             # the rows came from gather_rows (jnp.take semantics); the
             # mask keeps the dropped-id rule in training too: a dropped
             # slot pools as 0.0, so its row grad is exact 0.0 and
@@ -119,6 +129,6 @@ class FusedEmbedInteract(RaggedStackedEmbedding):
                                          self.compute_dtype)]
         out = FusedEmbedInteractFn.apply(
             params["embedding"], bottom.float().contiguous(),
-            gids.to(torch.int32).contiguous(), self.interact, self.aggr,
+            idx.contiguous(), offsets, row_counts, self.interact, self.aggr,
             self.compute_dtype)
         return [out.to(out_dtype)]

@@ -15,10 +15,14 @@ Dropped-id rule: ``mask_local_ids`` maps every local id that is negative
 or beyond its table's row count to -1; a -1 slot reads nothing and pools
 as exact 0.0.  The kernel and the plain version share that encoding.
 
-``fused_interact_cuda`` and ``fused_interact_bwd_cuda`` launch their
-kernels for tensors on a CUDA device and run ``fused_interact_ref`` and
-``fused_interact_bwd_ref`` only for tensors on the CPU; a CUDA tensor
-never reaches a plain version through them.
+The op's forward calls ``fused_embed_interact_cuda``, which reads the
+op's local ids and masks them inside the forward kernel's one launch
+(writing the masked ids when the backward needs them);
+``fused_interact_cuda`` takes pre-masked flat ids into the same kernel.
+They and ``fused_interact_bwd_cuda`` launch their kernels for tensors on
+a CUDA device and run the plain versions (``fused_embed_interact_ref``,
+``fused_interact_ref``, ``fused_interact_bwd_ref``) only for tensors on
+the CPU; a CUDA tensor never reaches a plain version through them.
 """
 
 from __future__ import annotations
@@ -67,12 +71,17 @@ def divide(x, n: int):
 
 def pool_rows(rows, aggr: str, out_dtype):
     """Bag-pool gathered rows ``(B, T, bag, d)`` -> ``(B, T, d)``: the sum
-    over the bag, divided by the bag for ``avg``.  An empty bag pools to
-    exact 0.0 in both modes."""
+    over the bag in bag order, ``((r0 + r1) + r2) + ...`` as the kernels
+    sum (``sum`` reduces in an order of its own, and under bf16 ``dot``
+    one ulp of a pooled value can flip its operand's rounding), divided by
+    the bag for ``avg``.  An empty bag pools to exact 0.0 in both
+    modes."""
     b, t, bag, d = rows.shape
     if bag == 0:
         return torch.zeros((b, t, d), dtype=out_dtype, device=rows.device)
-    pooled = rows.sum(dim=2)
+    pooled = rows[:, :, 0]
+    for j in range(1, bag):
+        pooled = pooled + rows[:, :, j]
     if aggr == "avg":
         pooled = divide(pooled, bag)
     return pooled.to(out_dtype)
@@ -129,15 +138,97 @@ def fused_interact_ref(table, gids, bottom, *, interact: str = "cat",
                                 out_dtype, compute_dtype)
 
 
+def fused_embed_interact_ref(table, idx, offsets, row_counts, bottom, *,
+                             interact: str = "cat", aggr: str = "sum",
+                             compute_dtype=None, want_gids: bool = False):
+    """The plain version of the folded call: ``mask_local_ids`` on the
+    op's local ids ``(B, T, bag)``, then ``fused_interact_ref``.  Returns
+    ``(out, gids)``, ``gids`` the masked int32 flat ids when
+    ``want_gids``, else None."""
+    gids = mask_local_ids(idx, offsets, row_counts).to(torch.int32)
+    out = fused_interact_ref(table, gids, bottom, interact=interact,
+                             aggr=aggr, compute_dtype=compute_dtype)
+    return out, (gids if want_gids else None)
+
+
 # ------------------------------------------------------------------ kernel
 _SIGNATURES = {
     "ff_fused_interact_fwd": (
         ctypes.c_int,
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_longlong]
-        + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
+        [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 5
+        + [ctypes.c_int] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 4
+        + [ctypes.c_void_p]),
+    "ff_empty_kernel": (ctypes.c_int, [ctypes.c_void_p]),
     "ff_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 _count_lock = threading.Lock()
+
+
+def _check_fwd(table, ids, bottom, interact, aggr, *others):
+    """The checks both forward entries share; ``ids`` is (B, T, bag)."""
+    if interact not in ("cat", "dot"):
+        raise ValueError(f"unknown interaction op {interact!r}")
+    if aggr not in ("sum", "avg"):
+        raise ValueError(f"unknown aggregation {aggr!r}")
+    devices = {x.device for x in (table, ids, bottom, *others)}
+    if len(devices) != 1:
+        raise ValueError(f"inputs on different devices: {sorted(map(str, devices))}")
+    if table.dim() != 2 or ids.dim() != 3 or bottom.dim() != 2:
+        raise ValueError(
+            f"expected table (R, d), ids (B, T, bag), bottom (B, bot); got "
+            f"{tuple(table.shape)}, {tuple(ids.shape)}, "
+            f"{tuple(bottom.shape)}")
+    if bottom.shape[0] != ids.shape[0]:
+        raise ValueError(f"bottom has {bottom.shape[0]} rows, ids "
+                         f"{ids.shape[0]}")
+    if interact == "dot" and bottom.shape[1] != table.shape[1]:
+        raise ValueError(f"dot interaction needs bottom width "
+                         f"{table.shape[1]}, got {bottom.shape[1]}")
+    if table.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no fused_interact kernel for {table.device}")
+
+
+def _launch_fwd(table, ids, offsets, row_counts, bottom, gids_out, interact,
+                aggr, compute_dtype):
+    """Check what the kernel takes and launch it once on CUDA tensors;
+    ``offsets``/``row_counts`` None means ``ids`` are pre-masked flat
+    ids.  Adds one to ``fused_interact_cuda.launches``, the count of
+    this kernel whichever entry launched it."""
+    if table.dtype != torch.float32 or bottom.dtype != torch.float32:
+        raise TypeError(f"fused_interact kernel takes an f32 table and "
+                        f"bottom, got {table.dtype}, {bottom.dtype}")
+    if not (table.is_contiguous() and ids.is_contiguous()
+            and bottom.is_contiguous()):
+        raise ValueError("fused_interact kernel takes contiguous tensors")
+    rows_n, dim = table.shape
+    bsz, t, bag = ids.shape
+    bot_dim = bottom.shape[1]
+    if rows_n >= 2 ** 31:
+        raise ValueError(f"table of {rows_n} rows overflows int32 ids")
+    dot = interact == "dot"
+    out = torch.empty((bsz, interact_width(interact, t, dim, bot_dim)),
+                      dtype=torch.float32, device=table.device)
+    if bsz == 0:
+        return out
+    vec4 = (dim % 4 == 0 and table.data_ptr() % 16 == 0
+            and (dot or (bot_dim % 4 == 0 and out.data_ptr() % 16 == 0)))
+    lib = _cuda.load("fused_interact", _SIGNATURES)
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.ff_fused_interact_fwd(
+            table.data_ptr(), ids.data_ptr(), int(ids.dtype == torch.int64),
+            None if offsets is None else offsets.data_ptr(),
+            None if row_counts is None else row_counts.data_ptr(),
+            bottom.data_ptr(), out.data_ptr(),
+            None if gids_out is None else gids_out.data_ptr(), bsz, t, bag,
+            dim, bot_dim, rows_n, int(dot), int(aggr == "avg"),
+            int(compute_dtype in BF16_NAMES), int(vec4), stream)
+    if err:
+        msg = lib.ff_cuda_error_string(err).decode()
+        raise RuntimeError(f"fused_interact kernel launch failed: {msg}")
+    with _count_lock:
+        fused_interact_cuda.launches += 1
+    return out
 
 
 def fused_interact_cuda(table, gids, bottom, *, interact: str = "cat",
@@ -149,62 +240,68 @@ def fused_interact_cuda(table, gids, bottom, *, interact: str = "cat",
     On CUDA tensors this launches the Hopper kernel (and adds one to
     ``fused_interact_cuda.launches``) or raises; on CPU tensors it runs
     ``fused_interact_ref``."""
-    if interact not in ("cat", "dot"):
-        raise ValueError(f"unknown interaction op {interact!r}")
-    if aggr not in ("sum", "avg"):
-        raise ValueError(f"unknown aggregation {aggr!r}")
-    devices = {table.device, gids.device, bottom.device}
-    if len(devices) != 1:
-        raise ValueError(f"inputs on different devices: {sorted(map(str, devices))}")
+    _check_fwd(table, gids, bottom, interact, aggr)
     if table.device.type == "cpu":
         return fused_interact_ref(table, gids, bottom, interact=interact,
                                   aggr=aggr, compute_dtype=compute_dtype)
-    if table.device.type != "cuda":
-        raise ValueError(f"no fused_interact kernel for {table.device}")
-    if (table.dtype != torch.float32 or bottom.dtype != torch.float32
-            or gids.dtype != torch.int32):
-        raise TypeError(
-            f"fused_interact kernel takes an f32 table and bottom and int32 "
-            f"ids, got {table.dtype}, {bottom.dtype}, {gids.dtype}")
-    if table.dim() != 2 or gids.dim() != 3 or bottom.dim() != 2:
-        raise ValueError(
-            f"expected table (R, d), gids (B, T, bag), bottom (B, bot); got "
-            f"{tuple(table.shape)}, {tuple(gids.shape)}, "
-            f"{tuple(bottom.shape)}")
-    if not (table.is_contiguous() and gids.is_contiguous()
-            and bottom.is_contiguous()):
-        raise ValueError("fused_interact kernel takes contiguous tensors")
-    rows_n, dim = table.shape
-    bsz, t, bag = gids.shape
-    bot_dim = bottom.shape[1]
-    if bottom.shape[0] != bsz:
-        raise ValueError(f"bottom has {bottom.shape[0]} rows, ids {bsz}")
-    if interact == "dot" and bot_dim != dim:
-        raise ValueError(
-            f"dot interaction needs bottom width {dim}, got {bot_dim}")
-    if rows_n >= 2 ** 31:
-        raise ValueError(f"table of {rows_n} rows overflows int32 ids")
-    width = interact_width(interact, t, dim, bot_dim)
-    out = torch.empty((bsz, width), dtype=torch.float32, device=table.device)
-    if bsz == 0:
-        return out
-    lib = _cuda.load("fused_interact", _SIGNATURES)
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.ff_fused_interact_fwd(
-            table.data_ptr(), gids.data_ptr(), bottom.data_ptr(),
-            out.data_ptr(), bsz, t, bag, dim, bot_dim, rows_n,
-            int(interact == "dot"), int(aggr == "avg"),
-            int(compute_dtype in BF16_NAMES), stream)
-    if err:
-        msg = lib.ff_cuda_error_string(err).decode()
-        raise RuntimeError(f"fused_interact kernel launch failed: {msg}")
-    with _count_lock:
-        fused_interact_cuda.launches += 1
-    return out
+    if gids.dtype != torch.int32:
+        raise TypeError(f"fused_interact kernel takes int32 flat ids, got "
+                        f"{gids.dtype}")
+    return _launch_fwd(table, gids, None, None, bottom, None, interact, aggr,
+                       compute_dtype)
 
 
 fused_interact_cuda.launches = 0
+
+
+def fused_embed_interact_cuda(table, idx, offsets, row_counts, bottom, *,
+                              interact: str = "cat", aggr: str = "sum",
+                              compute_dtype=None, want_gids: bool = False):
+    """The op's whole forward in one launch: ``mask_local_ids`` folded
+    into the fused forward.  ``idx`` (B, T, bag) int32 or int64 local ids
+    as the op receives them, ``offsets`` and ``row_counts`` (T,) int64
+    (``RaggedStackedEmbedding.table_consts``), ``table`` and ``bottom``
+    as ``fused_interact_cuda``.  Returns ``(out, gids)``: ``gids`` the
+    masked int32 flat ids ``(B, T, bag)``, which the backward reads,
+    when ``want_gids``, else None.
+
+    On CUDA tensors this launches the Hopper kernel (and adds one to
+    ``fused_interact_cuda.launches``) or raises; on CPU tensors it runs
+    ``fused_embed_interact_ref``."""
+    _check_fwd(table, idx, bottom, interact, aggr, offsets, row_counts)
+    t = idx.shape[1]
+    if offsets.shape != (t,) or row_counts.shape != (t,):
+        raise ValueError(f"expected ({t},) offsets and row counts, got "
+                         f"{tuple(offsets.shape)}, {tuple(row_counts.shape)}")
+    if table.device.type == "cpu":
+        return fused_embed_interact_ref(
+            table, idx, offsets, row_counts, bottom, interact=interact,
+            aggr=aggr, compute_dtype=compute_dtype, want_gids=want_gids)
+    if idx.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"fused_interact kernel takes int32 or int64 ids, "
+                        f"got {idx.dtype}")
+    if offsets.dtype != torch.int64 or row_counts.dtype != torch.int64:
+        raise TypeError(f"fused_interact kernel takes int64 offsets and "
+                        f"row counts, got {offsets.dtype}, "
+                        f"{row_counts.dtype}")
+    if not (offsets.is_contiguous() and row_counts.is_contiguous()):
+        raise ValueError("fused_interact kernel takes contiguous tensors")
+    gids = (torch.empty(idx.shape, dtype=torch.int32, device=idx.device)
+            if want_gids else None)
+    out = _launch_fwd(table, idx, offsets, row_counts, bottom, gids,
+                      interact, aggr, compute_dtype)
+    return out, gids
+
+
+def empty_launch_cuda() -> None:
+    """Launch the forward library's empty kernel (one warp, no work) on
+    the current CUDA stream: the floor under any launch of the forward,
+    for timing.  Counts nothing."""
+    lib = _cuda.load("fused_interact", _SIGNATURES)
+    err = lib.ff_empty_kernel(torch.cuda.current_stream().cuda_stream)
+    if err:
+        msg = lib.ff_cuda_error_string(err).decode()
+        raise RuntimeError(f"empty kernel launch failed: {msg}")
 
 
 # ---------------------------------------------------------------- backward

@@ -1,6 +1,8 @@
-"""Device timing of a Python callable on one CUDA card, shared by
-``chip_smoke.py`` and ``scripts/row_update_calls.py``.  Imports only
-torch, so that a script can time another checkout's package with it."""
+"""Timing of a Python callable on one CUDA card, shared by
+``chip_smoke.py`` and the A/B tools beside this file
+(``row_update_calls.py``, ``forward_calls.py``).  Imports only torch, so
+that a tool can time another checkout's package with it: the tools,
+run by path, import it as the top-level module ``cuda_timing``."""
 
 from __future__ import annotations
 
@@ -38,6 +40,20 @@ def graph_ms(fn, arg_sets, reps: int = 5, windows: int = 3) -> float:
     return sorted(times)[len(times) // 2]
 
 
+def wall_ms(fn, arg_sets) -> float:
+    """Wall time of one call as the host issues it, launch cost included:
+    three warm-up calls, then every argument set once between two
+    synchronizations."""
+    for args in arg_sets[:3]:
+        fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for args in arg_sets:
+        fn(*args)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / len(arg_sets)
+
+
 def launches_per_call(fn, arg_sets):
     """Device operations (kernels and copies) per call of ``fn`` from
     torch.profiler's CUDA activity over one call per argument set, and
@@ -45,7 +61,12 @@ def launches_per_call(fn, arg_sets):
     that follow its start, so one uncounted call runs first, then, after
     a pause, the counted calls inside a ``record_function`` range; only
     device operations that start inside that range or after it are
-    counted.  Returns ("not measured", {}) when the profiler saw none."""
+    counted.  Even so the tracer can drop a record or two: in a process
+    that has profiled many times before, the bag kernel has read 63 of
+    64 calls.  So a reading just under a whole number is a dropped
+    record, not a missed launch; an exact count of one kernel's launches
+    is its wrapper's counter.  Returns ("not measured", {}) when the
+    profiler saw none."""
     from torch.profiler import ProfilerActivity, profile, record_function
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:

@@ -109,6 +109,25 @@ def test_wrapper_on_cpu_runs_the_plain_version(mode):
                                        torch.from_numpy(ids), mode).numpy())
 
 
+@pytest.mark.parametrize("mode", ["sum", "avg"])
+def test_wrapper_on_cpu_takes_int32_ids_like_int64(mode):
+    """int32 ids give the int64 result bit for bit, wrapped ids in
+    [-R, 0) and NaN rows for ids outside [-R, R) included, and launch
+    nothing."""
+    table, ids = _inputs(8, 5, seed=4)
+    ids[3, 1], ids[4, 0], ids[5, 4] = -1, ROWS, -ROWS - 1
+    ids[6, 2] = np.iinfo(np.int32).min
+    before = embedding_bag_cuda.launches
+    tt = torch.from_numpy(table)
+    got = embedding_bag_cuda(tt, torch.from_numpy(ids.astype(np.int32)),
+                             mode)
+    want = embedding_bag_cuda(tt, torch.from_numpy(ids), mode)
+    assert embedding_bag_cuda.launches == before
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    assert torch.isnan(got[4]).all() and torch.isnan(got[6]).all()
+    assert torch.isfinite(got[3]).all()
+
+
 @pytest.mark.parametrize("case,exc", [("mode", ValueError),
                                       ("ids_1d", ValueError),
                                       ("ids_float", TypeError),

@@ -168,6 +168,36 @@ def test_plain_drops_premasked_ids_past_the_table_like_the_kernel(interact,
     assert np.isnan(np.asarray(ref)[0]).any()
 
 
+@pytest.mark.parametrize("aggr", ["sum", "avg"])
+def test_plain_sums_each_bag_in_bag_order(aggr):
+    """Rows whose sum depends on its order (1e8 absorbs a 1 in f32): the
+    plain version pools ((r0 + r1) + r2) + r3, as the CUDA kernel does,
+    bit for bit against a sequential numpy sum and against the JAX
+    package's plain function and interpret-mode kernel.  (On the card
+    ``Tensor.sum`` reduces in an order of its own.)"""
+    bag = 4
+    table = np.zeros((sum(ROW_COUNTS), D), np.float32)
+    table[:4, 0] = [1e8, 1, -1e8, 1]
+    table[:4, 1] = [1, 1e8, 1, -1e8]
+    table[:4, 2:] = np.random.default_rng(2).standard_normal((4, D - 2))
+    local = np.broadcast_to(np.arange(bag, dtype=np.int32),
+                            (B, len(ROW_COUNTS), bag)).copy()
+    bottom = np.random.default_rng(3).standard_normal((B, D)).astype(
+        np.float32)
+    port = _port(table, local, bottom, interact="cat", aggr=aggr)
+    rows = table[:4]
+    want = ((rows[0] + rows[1]) + rows[2]) + rows[3]
+    if aggr == "avg":
+        want = want / np.float32(bag)
+    np.testing.assert_array_equal(port[:, D:D + D],
+                                  np.broadcast_to(want, (B, D)))
+    assert port[0, D] == np.float32(1.0) / (bag if aggr == "avg" else 1)
+    args = (jnp.asarray(table), _jax_gids(local), jnp.asarray(bottom))
+    for kernel in (False, True):
+        _assert_agree(port, _jax_fwd("cat", aggr, None, kernel)(*args),
+                      "cat", 1)  # bit-exact
+
+
 def test_cpu_tensors_launch_no_kernel():
     table, bottom, local = _inputs(11, 2)
     before = tk.fused_interact_cuda.launches
@@ -188,6 +218,98 @@ def test_bf16_dot_differs_from_f32_dot():
                  compute_dtype="bfloat16")
     assert f32.dtype == bf16.dtype == np.float32
     assert not np.array_equal(f32, bf16)
+
+
+# ------------------------------------------ the folded call (ids masked in it)
+# fused_embed_interact_cuda takes the op's local ids, int32 or int64, with
+# the per-table offsets and row counts, and masks them in the same launch;
+# its plain version (what the CPU runs) is mask_local_ids followed by
+# fused_interact_ref.  Tolerances as above.
+_FOLDED_CASES = ([("cat", aggr, bag, None) for aggr in ("sum", "avg")
+                  for bag in (0, 1, 3)]
+                 + [("dot", aggr, bag, cd) for aggr in ("sum", "avg")
+                    for bag in (0, 1, 3) for cd in (None, "bfloat16")])
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_fwd(interact, aggr, cd, kernel: bool):
+    if kernel:
+        return jax.jit(functools.partial(
+            jk.fused_interact_pallas, interact=interact, aggr=aggr,
+            interpret=True, compute_dtype=cd))
+    return jax.jit(functools.partial(jk.fused_interact_ref,
+                                     interact=interact, aggr=aggr,
+                                     compute_dtype=cd))
+
+
+def _consts():
+    return (torch.as_tensor(OFFSETS),
+            torch.as_tensor(ROW_COUNTS, dtype=torch.int64))
+
+
+def _folded(table, local, bottom, **kw):
+    return tk.fused_embed_interact_cuda(
+        torch.from_numpy(table), torch.from_numpy(local), *_consts(),
+        torch.from_numpy(bottom), **kw)
+
+
+@pytest.mark.parametrize("interact,aggr,bag,cd", _FOLDED_CASES)
+def test_folded_call_matches_jax_mask_ref_and_interpret_kernel(interact,
+                                                                aggr, bag,
+                                                                cd):
+    """Local ids with dropped entries (-1, -3, int32 min, one at and one
+    past its table's count), int64 in even cases and int32 in odd ones,
+    against JAX's ``mask_local_ids`` + ``fused_interact_ref`` and its
+    interpret-mode kernel (which refuses an empty bag); the masked ids
+    come back bit for bit."""
+    i = _FOLDED_CASES.index((interact, aggr, bag, cd))
+    table, bottom, local = _inputs(100 + i, bag)
+    local = local.astype(np.int64 if i % 2 == 0 else np.int32)
+    out, gids = _folded(table, local, bottom, interact=interact, aggr=aggr,
+                        compute_dtype=cd, want_gids=True)
+    assert out.shape == (B, jk.interact_width(interact, 3, D, D))
+    args = (jnp.asarray(table), _jax_gids(local), jnp.asarray(bottom))
+    assert gids.dtype == torch.int32
+    np.testing.assert_array_equal(gids.numpy(), np.asarray(args[1]))
+    _assert_agree(out.numpy(), _jax_fwd(interact, aggr, cd, False)(*args),
+                  interact, bag)
+    if bag:
+        _assert_agree(out.numpy(), _jax_fwd(interact, aggr, cd, True)(*args),
+                      interact, bag)
+
+
+@pytest.mark.parametrize("bag", [1, 3])
+def test_folded_gids_are_mask_local_ids_in_both_id_widths(bag):
+    """The gids output equals ``mask_local_ids(...).to(int32)`` bit for
+    bit, from int32 and int64 ids alike (int32 min and ids at and past a
+    table's count included), and the output does not depend on the
+    width; without ``want_gids`` no gids come back."""
+    table, bottom, local = _inputs(31, bag)
+    local[5, 2, 0] = np.iinfo(np.int32).max
+    want = tk.mask_local_ids(torch.from_numpy(local.astype(np.int64)),
+                             *_consts()).to(torch.int32)
+    outs = []
+    for dtype in (np.int32, np.int64):
+        out, gids = _folded(table, local.astype(dtype), bottom,
+                            interact="dot", aggr="avg", want_gids=True)
+        assert gids.dtype == torch.int32 and torch.equal(gids, want)
+        outs.append(out)
+    assert torch.equal(outs[0], outs[1])
+    out, gids = _folded(table, local, bottom, interact="dot", aggr="avg")
+    assert gids is None and torch.equal(out, outs[0])
+
+
+def test_folded_entry_on_cpu_launches_no_kernel():
+    table, bottom, local = _inputs(13, 2)
+    before = tk.fused_interact_cuda.launches
+    out, gids = _folded(table, local, bottom, interact="cat", aggr="sum",
+                        want_gids=True)
+    plain, plain_gids = tk.fused_embed_interact_ref(
+        torch.from_numpy(table), torch.from_numpy(local), *_consts(),
+        torch.from_numpy(bottom), interact="cat", aggr="sum",
+        want_gids=True)
+    assert torch.equal(out, plain) and torch.equal(gids, plain_gids)
+    assert tk.fused_interact_cuda.launches == before == 0
 
 
 # ------------------------------------------------------------- the op level
@@ -329,11 +451,11 @@ def test_autograd_fn_grads_match_jax_custom_vjp(interact, cd):
     bag = 2
     table, bottom, local = _inputs(70, bag)
     g = _cotangent(8, interact)
-    gids = tk.mask_local_ids(torch.from_numpy(local), OFFSETS,
-                             ROW_COUNTS).to(torch.int32)
     tt = torch.from_numpy(table).requires_grad_()
     tb = torch.from_numpy(bottom).requires_grad_()
-    out = FusedEmbedInteractFn.apply(tt, tb, gids, interact, "sum", cd)
+    out = FusedEmbedInteractFn.apply(
+        tt, tb, torch.from_numpy(local), torch.as_tensor(OFFSETS),
+        torch.as_tensor(ROW_COUNTS, dtype=torch.int64), interact, "sum", cd)
     dt, db = torch.autograd.grad(out, (tt, tb), torch.from_numpy(g))
     jids = _jax_gids(local).astype(jnp.int32)
     _, vjp = jax.vjp(lambda t, b: jk.fused_embed_interact(
@@ -348,6 +470,33 @@ def test_autograd_fn_grads_match_jax_custom_vjp(interact, cd):
                                    atol=1e-3)
         np.testing.assert_allclose(db.numpy(), np.asarray(jdb), rtol=1e-3,
                                    atol=1e-3)
+
+
+@pytest.mark.parametrize("interact", ["cat", "dot"])
+def test_fused_op_grads_match_jax_op(interact):
+    """``FusedEmbedInteract.forward`` (the folded call inside the
+    autograd.Function) and its gradients against ``jax.vjp`` of the JAX
+    op's forward, on int64 local ids with dropped entries; tolerances of
+    the backward above."""
+    bag = 2
+    jop, pop = _ops(interact, "sum", bag)
+    rng = np.random.default_rng(3)
+    table = rng.standard_normal((pop.total_rows, D)).astype(np.float32)
+    _, bottom, local = _inputs(77, bag)
+    g = _cotangent(10, interact)
+    jidx = jnp.asarray(local)
+    want, vjp = jax.vjp(
+        lambda t, b: jop.forward({"embedding": t}, [jidx, b])[0],
+        jnp.asarray(table), jnp.asarray(bottom))
+    jdt, jdb = vjp(jnp.asarray(g))
+    tt = torch.from_numpy(table).requires_grad_()
+    tb = torch.from_numpy(bottom).requires_grad_()
+    (got,) = pop.forward({"embedding": tt},
+                         [torch.from_numpy(local.astype(np.int64)), tb])
+    dt, db = torch.autograd.grad(got, (tt, tb), torch.from_numpy(g))
+    _assert_agree(got.detach().numpy(), want, interact, bag)
+    _assert_bwd_agree(dt, jdt, interact)
+    _assert_bwd_agree(db, jdb, interact)
 
 
 def test_bwd_cpu_tensors_launch_no_kernel():
