@@ -24,16 +24,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
      wrapped and dropped, int32 edges, R at a radix digit's bit
      boundary, n from 0 to 65,536, d 16/64/128, f32/bf16 updates and
      a float or tensor scale, and twice for determinism;
-  7. hold the fused backward kernel against its plain version;
+  7. hold the fused backward kernel against its plain version, with and
+     without the safe ids it writes for the scatter (bit-exact against
+     gids.clamp_min(0)): the model's table at B = 1, 7, 256 and bag 0,
+     1, 3, and small tables of d = 6, 33 and 64, a bottom of 6 (the
+     scalar paths), T * bag = 40 ids (two passes) and ids past the table;
   8. train the full-width run_random.sh DLRM: the classic graph through
      train_epoch and fit (row-update kernel), the fused graph on the
      row-sparse path, and the fused graph on the dense table gradient
-     (forward and backward kernels), with launch counts, finite losses
-     and one step of each held against the same step on the plain
-     versions;
+     (forward and backward kernels), cat and dot, with launch counts,
+     finite losses and one step of each held against the same step on
+     the plain versions;
   9. time the row update (the sort alone, the update alone, the whole
      call, launches per call from torch.profiler, uniform and zipf ids)
-     and the backward kernel at the path's shapes, and
+     and the backward kernel at the path's shapes (cat and dot, beside
+     the launch floor; one launch a call, and the op's whole backward
+     launches it once and no clamp), and
      the training steps (information, not a claim);
  10. hold the row-set kernel against its plain version, bit for bit;
  11. hold the embedding-bag kernel against its plain version, bit for bit,
@@ -62,6 +68,7 @@ import subprocess
 import sys
 import threading
 import time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -477,21 +484,24 @@ def profile_dispatch(engine, req, n: int, reps: int = 20) -> None:
 
 # --------------------------------------------------------------- phase 5
 def check_one_launch(what, fn, arg_sets, wrapper, kernel, traced,
-                     kernels) -> None:
-    """Fails unless every call of ``fn`` makes exactly one device
-    operation, a launch of ``kernel``: its wrapper's counter (exact) must
-    grow by one a call, and the profiler's reading (``traced`` and
-    ``kernels`` from ``launches_per_call``) must show no other operation.
-    The tracer can drop a record or two in 64 calls, so its reading must
-    lie in (0.9, 1]: 0, "not measured" or a second operation fail."""
+                     kernels, others=()) -> None:
+    """Fails unless every call of ``fn`` launches ``kernel`` exactly once:
+    its wrapper's counter (exact) must grow by one a call, and the
+    profiler's reading (``traced`` and ``kernels`` from
+    ``launches_per_call``) must show no device operation besides it whose
+    name holds none of ``others`` (by default: none at all).  The tracer
+    can drop a record or two in 64 calls, so its reading of ``kernel``
+    must lie in (0.9, 1]: 0, "not measured" or a second launch fail."""
     before = wrapper.launches
     for args in arg_sets:
         fn(*args)
     torch.cuda.synchronize()
     made = wrapper.launches - before
-    others = [k for k in kernels if kernel not in k]
+    mine = sum(n for k, n in kernels.items() if kernel in k)
+    stray = [k for k in kernels
+             if kernel not in k and not any(o in k for o in others)]
     if (made != len(arg_sets) or traced == "not measured"
-            or not 0.9 < traced <= 1 or others):
+            or not 0.9 < mine <= 1 or stray):
         raise AssertionError(
             f"{what}: {made} {kernel} launches for {len(arg_sets)} calls, "
             f"{traced} device operations per call traced ({kernels})")
@@ -743,17 +753,60 @@ def check_row_update(table) -> float:
 
 
 # --------------------------------------------------------------- phase 7
-def _cotangent(gen, bsz, interact):
-    width = interact_width(interact, TABLES, DIM, BOT)
+def _cotangent(gen, bsz, interact, t=TABLES, d=DIM, bot=BOT):
+    width = interact_width(interact, t, d, bot)
     return torch.randn((bsz, width), generator=gen, device="cuda")
 
 
+def _bwd_case(table, gids, bottom, g, interact, aggr, **tags):
+    """One backward case: the kernel with and without the safe ids
+    against ``fused_interact_bwd_ref``, cat bit-exact (slices, a division
+    by the bag and masks), dot within rtol 1e-5 and atol 1e-6 (its f32
+    dot products sum in another order); the safe ids bit-exact against
+    ``gids.clamp_min(0)``; the two launches' row grads and dbottom
+    bit-identical to each other."""
+    kw = dict(interact=interact, aggr=aggr)
+    bsz, t, bag = gids.shape
+    k = fused_interact_bwd_cuda(table, gids, bottom, g, want_safe=True, **kw)
+    k2 = fused_interact_bwd_cuda(table, gids, bottom, g, **kw)
+    r = fused_interact_bwd_ref(table, gids, bottom, g, **kw)
+    torch.cuda.synchronize()
+    if interact == "cat":
+        ok, tol = all(map(torch.equal, k[:2], r)), "exact"
+    else:
+        ok = all(torch.allclose(a, b, rtol=1e-5, atol=1e-6)
+                 for a, b in zip(k[:2], r))
+        tol = "rtol 1e-5 atol 1e-6"
+    safe_same = torch.equal(k[2], gids.clamp_min(0))
+    ok = (ok and safe_same and all(map(torch.equal, k[:2], k2))
+          and k[0].shape == (bsz, t, bag, table.shape[1]))
+    err = max((float((a - b).abs().max()) if a.numel() else 0.0)
+              for a, b in zip(k[:2], r))
+    return {"phase": "kernel_vs_plain", "kernel": "fused_interact_bwd",
+            "B": bsz, "T": t, "bag": bag, "d": table.shape[1],
+            "bot": bottom.shape[1], "interact": interact, "aggr": aggr,
+            **tags, "max_abs_err": err, "tolerance": tol,
+            "safe_bit_identical": safe_same, "ok": bool(ok)}
+
+
+def _past_the_table(gids, rows):
+    """Pre-masked ids at and past the table's end, which the kernel drops
+    and the safe ids keep, at a fixed spread of slots."""
+    flat = gids.view(-1)
+    for i, k in enumerate(range(3, flat.numel(), 97)):
+        flat[k] = rows + 5 * (i % 3)
+    return gids
+
+
 def check_fused_bwd(table) -> float:
-    """Kernel B against ``fused_interact_bwd_ref``: cat bit-exact (slices,
-    a division by the bag and masks), dot within rtol 1e-5 and atol 1e-6
-    (its f32 matmuls sum in another order)."""
+    """The backward kernel against its plain version (``_bwd_case``): on
+    the model's table (8 x 1M x 64, bottom 64) at B = 1, 7, 256 and bag 0,
+    1, 3, with dropped ids; then on small ragged tables of d = 6 and 33
+    (the scalar path) and 64, cat also with a bottom of 6 (the scalar path
+    by the bottom), bag 1 and 5 (T * bag = 40 slots: the ids in two
+    passes), with dropped ids and ids at and past the table's end."""
     gen = torch.Generator(device="cuda").manual_seed(4)
-    failed, worst = [], 0.0
+    rows = []
     for bsz in (1, 7, 256):
         for bag in (0, 1, 3):
             gids = _gids(gen, bsz, bag, drop=True)
@@ -761,32 +814,36 @@ def check_fused_bwd(table) -> float:
             for interact in ("cat", "dot"):
                 g = _cotangent(gen, bsz, interact)
                 for aggr in ("sum", "avg"):
-                    kw = dict(interact=interact, aggr=aggr)
-                    k = fused_interact_bwd_cuda(table, gids, bottom, g, **kw)
-                    r = fused_interact_bwd_ref(table, gids, bottom, g, **kw)
-                    torch.cuda.synchronize()
-                    if interact == "cat":
-                        ok, tol = all(map(torch.equal, k, r)), "exact"
-                    else:
-                        ok = all(torch.allclose(a, b, rtol=1e-5, atol=1e-6)
-                                 for a, b in zip(k, r))
-                        tol = "rtol 1e-5 atol 1e-6"
-                    ok = ok and k[0].shape == (bsz, TABLES, bag, DIM)
-                    err = max((float((a - b).abs().max()) if a.numel()
-                               else 0.0) for a, b in zip(k, r))
-                    worst = max(worst, err)
-                    case = {"phase": "kernel_vs_plain",
-                            "kernel": "fused_interact_bwd", "B": bsz,
-                            "bag": bag, "interact": interact, "aggr": aggr,
-                            "max_abs_err": err, "tolerance": tol,
-                            "ok": bool(ok)}
-                    log(case)
-                    if not ok:
-                        failed.append(case)
+                    rows.append(_bwd_case(table, gids, bottom, g, interact,
+                                          aggr, tables="model"))
+    counts = [5000, 3000, 7000, 1000, 4000, 2500, 6000, 1500]
+    offsets = np.concatenate([[0], np.cumsum(counts[:-1])])
+    small = (torch.as_tensor(offsets, device="cuda"),
+             torch.as_tensor(counts, device="cuda"))
+    for d in (6, 33, 64):
+        tab = _rows_tensor(gen, sum(counts), d)
+        for bsz in (1, 7, 256):
+            for bag in (1, 5):
+                gids = _past_the_table(mask_local_ids(
+                    _local(gen, bsz, bag, drop=True, counts=counts), *small
+                ).to(torch.int32), tab.shape[0])
+                for interact, bot in (("cat", d), ("cat", 6), ("dot", d)):
+                    if interact == "cat" and bot == 6 and d == 6:
+                        continue
+                    bottom = torch.rand((bsz, bot), generator=gen,
+                                        device="cuda")
+                    g = _cotangent(gen, bsz, interact, len(counts), d, bot)
+                    for aggr in ("sum", "avg"):
+                        rows.append(_bwd_case(tab, gids, bottom, g, interact,
+                                              aggr, tables="small"))
+    for row in rows:
+        log(row)
+    failed = [r for r in rows if not r["ok"]]
     if failed:
-        raise AssertionError(f"{len(failed)} fused_interact_bwd case(s) "
-                             f"disagree with the plain version")
-    return worst
+        raise AssertionError(f"{len(failed)} of {len(rows)} "
+                             f"fused_interact_bwd case(s) disagree with the "
+                             f"plain version")
+    return max(r["max_abs_err"] for r in rows)
 
 
 # --------------------------------------------------------------- phase 8
@@ -801,9 +858,15 @@ def _plain(module, name, fn):
         setattr(module, name, old)
 
 
-def _train_model(fused, compute_dtype, sparse="auto", **config):
+def _train_model(fused, compute_dtype, sparse="auto", interact="cat",
+                 **config):
+    """The run_random.sh model, or with ``interact="dot"`` its dot form
+    (top MLP 145-1024-1024-1024-1)."""
+    top0 = interact_width(interact, TABLES, DIM, BOT)
     cfg = DLRMConfig(embedding_size=[ROWS] * TABLES,
-                     fused_interaction="on" if fused else "off")
+                     fused_interaction="on" if fused else "off",
+                     arch_interaction_op=interact,
+                     mlp_top=[top0, 1024, 1024, 1024, 1])
     ffc = FFConfig(batch_size=BATCH, compute_dtype=compute_dtype,
                    sparse_embedding_updates=sparse, **config)
     model = build_dlrm(cfg, ffc).compile(
@@ -828,21 +891,29 @@ def _finite(mets) -> bool:
     return all(bool(torch.isfinite(v).all()) for v in mets.values())
 
 
-def _same_step(model, state, inputs, labels, module, name, plain_fn):
+def _same_step(model, state, inputs, labels, module, name, plain_fn,
+               rtol=0.0, atol=0.0):
     """One train_step through the kernels and the same step with one
     wrapper swapped for its plain version, on clones of ``state``;
-    returns (bit-identical, max abs difference over all parameters)."""
-    a, b = state.clone(), state.clone()
-    a, ma = model.train_step(a, inputs, labels)
+    returns (every parameter and the loss bit-identical, or within
+    ``rtol``/``atol`` when given; max abs difference over all
+    parameters)."""
+    a, ma = model.train_step(state, inputs, labels, False)
     with _plain(module, name, plain_fn):
-        b, mb = model.train_step(b, inputs, labels)
+        b, mb = model.train_step(state, inputs, labels, False)
     torch.cuda.synchronize()
+
+    def agree(x, y):
+        if rtol or atol:
+            return torch.allclose(x, y, rtol=rtol, atol=atol)
+        return torch.equal(x, y)
+
     same, err = True, 0.0
     for op, params in a.params.items():
         for k, v in params.items():
-            same = same and torch.equal(v, b.params[op][k])
+            same = same and agree(v, b.params[op][k])
             err = max(err, float((v - b.params[op][k]).abs().max()))
-    same = same and torch.equal(ma["loss"], mb["loss"])
+    same = same and agree(ma["loss"], mb["loss"])
     return same, err
 
 
@@ -1014,6 +1085,53 @@ def train_fused_dense(inputs, labels):
     return row, counts
 
 
+def train_fused_dense_dot(inputs, labels):
+    """(iii-dot) The fused graph's dot form on the dense table gradient at
+    f32 (top MLP 145-1024-1024-1024-1): the forward kernel's and the
+    backward kernel's dot halves on a training path, its first step held
+    to the same step on ``fused_interact_bwd_ref`` within phase 7's dot
+    tolerance."""
+    model, state = _train_model(True, "float32", sparse="off",
+                                interact="dot")
+    step0 = ({k: v[0] for k, v in inputs.items()}, labels[0])
+    same, err = _same_step(model, state, *step0, fused_module,
+                           "fused_interact_bwd_cuda", fused_interact_bwd_ref,
+                           rtol=1e-5, atol=1e-6)
+    log({"phase": "train_vs_plain", "config": "fused_dense_dot",
+         "plain": "fused_interact_bwd_ref", "within_tolerance": same,
+         "max_abs_err": err, "tolerance": "rtol 1e-5 atol 1e-6 (dot)"})
+    if not same:
+        raise AssertionError("fused dense dot step through the backward "
+                             "kernel != the same step on "
+                             "fused_interact_bwd_ref")
+    state, _ = model.train_step(state, *step0)  # warm
+    torch.cuda.synchronize()
+    nb = 4
+    part = ({k: v[1:1 + nb] for k, v in inputs.items()}, labels[1:1 + nb])
+    reset_counts()  # the main path starts here
+    t0 = time.perf_counter()
+    state, folded = model.train_epoch(state, *part)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()  # ... and ends here
+    row = {"phase": "train", "config": "fused_dense_dot", "graph": "fused dot",
+           "compute_dtype": "float32", "steps": nb, "launches": counts,
+           "loss": float(folded["loss"]), "step_wall_ms": wall * 1e3 / nb,
+           "samples_per_s": nb * BATCH / wall,
+           "note": "walls are information, not a claim"}
+    log(row)
+    if (not _finite(folded)
+            or min(counts[k] for k in ("fused_interact_fwd",
+                                       "fused_interact_bwd",
+                                       "row_update")) < nb):
+        raise AssertionError(f"fused dense dot path: launches {counts}, "
+                             f"finite {_finite(folded)}")
+    profile_steps(model, state, inputs, labels, "fused_dense_dot", reps=3)
+    del model, state
+    torch.cuda.empty_cache()
+    return counts
+
+
 # --------------------------------------------------------------- phase 9
 def _bound(nbytes, flops):
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1102,11 +1220,33 @@ def time_row_update(table, sets: int = 64):
     return out
 
 
+def _op_backward(interact):
+    """``FusedEmbedInteractFn.backward`` as autograd calls it at f32 (the
+    op's whole backward: the zero table gradient, the backward kernel
+    with the safe ids, the row update's two kernels), on a context that
+    holds what the forward saved."""
+    def call(table, gids, bottom, g):
+        ctx = SimpleNamespace(saved_tensors=(table, bottom, gids),
+                              config=(interact, "sum", None))
+        return fused_module.FusedEmbedInteractFn.backward(ctx, g)
+    return call
+
+
+# the op backward's device operations besides the backward kernel: the
+# zero table gradient and the row update's prepare-and-sort and update
+_OP_BWD_OTHERS = ("FillFunctor", "Memset", "prep_", "row_update_kernel")
+
+
 def time_fused_bwd(table, sets: int = 64):
-    """Kernel B at B in 1, 8, 64, 256 for cat and dot: its time, its
-    bound and its plain version's time; no single PyTorch call computes
-    it, so there is no library time."""
+    """The backward kernel at B in 1, 8, 64, 256 for cat and dot, called
+    as the op calls it (with the safe ids): its time, its bound, its
+    plain version's time, the launch floor (an empty kernel), and the
+    one-launch gate; no single PyTorch call computes it, so there is no
+    library time.  At B = 256 also the op's whole backward on the 8M-row
+    table: its time, its device operations per call, and the gate that
+    it launches the backward kernel once and no clamp."""
     gen = torch.Generator(device="cuda").manual_seed(8)
+    floor_ms = _launch_floor_ms(sets)
     out = {}
     for interact in ("cat", "dot"):
         for bsz in BUCKETS:
@@ -1115,14 +1255,18 @@ def time_fused_bwd(table, sets: int = 64):
                         for _ in range(sets)]
 
             def kern(t, gi, b, g):
-                return fused_interact_bwd_cuda(t, gi, b, g, interact=interact)
+                return fused_interact_bwd_cuda(t, gi, b, g, interact=interact,
+                                               want_safe=True)
 
             def plain(t, gi, b, g):
-                return fused_interact_bwd_ref(t, gi, b, g, interact=interact)
+                return fused_interact_bwd_ref(t, gi, b, g, interact=interact,
+                                              want_safe=True)
 
             width = interact_width(interact, TABLES, DIM, BOT)
             slots = bsz * TABLES
-            nbytes = 4 * (bsz * width + slots + slots * DIM + bsz * BOT)
+            # g and the ids read; row grads, dbottom and safe ids written
+            nbytes = 4 * (bsz * width + slots + slots * DIM + bsz * BOT
+                          + slots)
             flops = 0
             if interact == "dot":
                 f = TABLES + 1
@@ -1132,12 +1276,34 @@ def time_fused_bwd(table, sets: int = 64):
             row = {"phase": "timing", "kernel": "fused_interact_bwd",
                    "interact": interact, "B": bsz, "T": TABLES, "bag": 1,
                    "d": DIM, "bytes": nbytes, "bound_ms": bound_ms,
-                   "bound_by": bound_by, "ms": graph_ms(kern, arg_sets),
+                   "bound_by": bound_by, "launch_floor_ms": floor_ms,
+                   "ms": graph_ms(kern, arg_sets),
                    "plain_ms": graph_ms(plain, arg_sets),
                    "library_ms": None, "call_ms": wall_ms(kern, arg_sets)}
+            row["launches_per_call"], row["kernels_per_call"] = (
+                launches_per_call(kern, arg_sets))
             row["share_of_bound"] = bound_ms / row["ms"]
+            if bsz == BATCH:
+                op_sets = arg_sets[:8]  # each call zero-fills a 2.05 GB table
+                op = _op_backward(interact)
+                row["op_backward_ms"] = graph_ms(op, op_sets)
+                row["op_backward_call_ms"] = wall_ms(op, op_sets)
+                row["op_backward_ops_per_call"], row["op_backward_ops"] = (
+                    launches_per_call(op, op_sets))
             log(row)
             out[interact, bsz] = row
+            check_one_launch("fused_interact_bwd_cuda", kern, arg_sets,
+                             fused_interact_bwd_cuda,
+                             "fused_interact_bwd_kernel",
+                             row["launches_per_call"],
+                             row["kernels_per_call"])
+            if bsz == BATCH:
+                check_one_launch("op backward", op, op_sets,
+                                 fused_interact_bwd_cuda,
+                                 "fused_interact_bwd_kernel",
+                                 row["op_backward_ops_per_call"],
+                                 row["op_backward_ops"],
+                                 others=_OP_BWD_OTHERS)
     return out
 
 
@@ -1596,10 +1762,11 @@ def main() -> int:
     headline, headline_counts = train_headline(inputs, labels)
     sparse_counts = train_fused_sparse(inputs, labels)
     dense, dense_counts = train_fused_dense(inputs, labels)
+    dot_counts = train_fused_dense_dot(inputs, labels)
     # phases 12-13: the staged, cached epochs and the use_pallas graph
     staged, staged_counts = train_staged(inputs, labels)
     bag_row, bag_counts = train_bag_graph()
-    path_counts = (headline_counts, sparse_counts, dense_counts,
+    path_counts = (headline_counts, sparse_counts, dense_counts, dot_counts,
                    staged_counts, bag_counts)
     row_launches = sum(c["row_update"] for c in path_counts)
     prep_launches = sum(c["row_update_prep"] for c in path_counts)
@@ -1626,9 +1793,12 @@ def main() -> int:
          "staged_fit_samples_per_s": staged["fit_samples_per_s"]})
     log({"kernels": [
         _entry("fused_interact_fwd",
-               serve_launches + dense_counts["fused_interact_fwd"],
+               serve_launches + sum(c["fused_interact_fwd"]
+                                    for c in (dense_counts, dot_counts)),
                max(fwd_err, path_err), fwd_time),
-        _entry("fused_interact_bwd", dense_counts["fused_interact_bwd"],
+        _entry("fused_interact_bwd",
+               sum(c["fused_interact_bwd"] for c in (dense_counts,
+                                                     dot_counts)),
                bwd_err, bwd_time),
         _entry("row_update", row_launches, row_err, row_time),
         _entry("row_update_prep", prep_launches, prep_err, prep_time),

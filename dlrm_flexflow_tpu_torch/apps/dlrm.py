@@ -197,11 +197,22 @@ def build_dlrm(cfg: DLRMConfig, ffconfig: Optional[FFConfig] = None,
     return model
 
 
+def cli_loader(cfg: DLRMConfig, ffconfig: FFConfig) -> SyntheticDLRMLoader:
+    """The CLI's synthetic data, built as the JAX CLI builds it:
+    ``--data-size`` samples (default 16 batches) of stacked ids, at the
+    loader's own default seed.  ``--seed`` seeds ``init`` only, so the
+    two CLIs train on the same batches at any seed."""
+    n = cfg.data_size if cfg.data_size > 0 else 16 * ffconfig.batch_size
+    return SyntheticDLRMLoader(n, cfg.mlp_bot[0], cfg.embedding_size,
+                               cfg.embedding_bag_size, ffconfig.batch_size,
+                               stacked=True)
+
+
 def run(argv: Sequence[str] = ()) -> float:
     """The reference app's CLI: MSE loss with accuracy and MSE metrics,
     SGD at the config's learning rate and weight decay, synthetic data
-    (``--data-size`` samples, default 16 batches), trained by ``fit`` on
-    the CUDA card.  Returns samples/s."""
+    (``cli_loader``), trained by ``fit`` on the CUDA card.  Returns
+    samples/s."""
     ffconfig = FFConfig.parse_args(argv)
     cfg = DLRMConfig.parse_args(argv)
     if cfg.dataset:
@@ -214,12 +225,8 @@ def run(argv: Sequence[str] = ()) -> float:
                   loss_type="mean_squared_error",
                   metrics=("accuracy", "mean_squared_error"))
     state = model.init()
-    n = cfg.data_size if cfg.data_size > 0 else 16 * ffconfig.batch_size
-    loader = SyntheticDLRMLoader(n, cfg.mlp_bot[0], cfg.embedding_size,
-                                 cfg.embedding_bag_size, ffconfig.batch_size,
-                                 stacked=True,
-                                 seed=ffconfig.seed)
-    _, thpt = model.fit(state, loader, epochs=ffconfig.epochs)
+    _, thpt = model.fit(state, cli_loader(cfg, ffconfig),
+                        epochs=ffconfig.epochs)
     return thpt
 
 

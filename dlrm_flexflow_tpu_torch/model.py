@@ -57,6 +57,9 @@ _CCE = ("sparse_categorical_crossentropy", "sparse_crossentropy",
 _DURABILITY = ("checkpointed and resilient training (checkpoint_manager, "
                "checkpoint cadences, resume, sentinel) is not ported yet: "
                "it comes with the durability slice in ROADMAP.md")
+_CALLBACKS = ("fit(callbacks=...) is not ported yet: keras-style callbacks "
+              "come with the optimizer, schedules and data item of "
+              "ROADMAP.md (Queue A item 7)")
 _MODES = ("auto", "on", "off")
 
 
@@ -67,8 +70,8 @@ class TrainState:
 
     ``FFModel.train_step`` consumes its input state, as the JAX package's
     donated step does: the tables and dense parameters are updated in
-    place and the returned state holds the same tensors.  ``clone`` a
-    state that must survive a step."""
+    place and the returned state holds the same tensors.  A state that
+    must survive a step goes in with ``donate=False``, or is ``clone``d."""
 
     params: Dict[str, Dict[str, torch.Tensor]]
     opt_state: Dict[str, Any] = field(default_factory=dict)
@@ -313,7 +316,8 @@ class FFModel:
             return x.to(dev)
         return place(opt_state)
 
-    def init(self, seed: Optional[int] = None, device=None) -> TrainState:
+    def init(self, seed: Optional[int] = None, *, device=None
+             ) -> TrainState:
         """Draw every op's parameters on ``device`` (default: the CUDA
         card; raises without one) from generators seeded by ``seed`` and
         the op's position, and the optimizer's initial state."""
@@ -431,21 +435,26 @@ class FFModel:
         return self._loss_fn(preds, labels), preds
 
     def train_step(self, state: TrainState, inputs, labels,
-                   slot_override=None):
+                   donate: bool = True, *, slot_override=None):
         """One forward, backward and SGD step; returns ``(new_state,
         metrics)`` with the batch's metric sums and ``loss`` as 0-dim
         tensors on the device (no host sync).
 
-        Consumes ``state`` like the JAX package's donated step: the dense
-        parameters and the tables are updated in place, and the returned
-        state holds the same tensors.  Clone a state that must survive
-        (``TrainState.clone``).
+        ``donate=True`` consumes ``state`` like the JAX package's donated
+        step: the dense parameters and the tables are updated in place,
+        and the returned state holds the same tensors.  ``donate=False``
+        leaves ``state`` as it was: the step runs on
+        ``TrainState.clone()`` of it (every parameter, whole tables
+        included, the optimizer state and the step), and returns the same
+        new state as the donated step.
 
         ``slot_override`` (the epoch row cache) maps an op name to this
         batch's cache slots: the op's "embedding" then holds its cache,
         the rows are gathered from it by slot, and the row-sparse step
         lands in it through the row-update kernel."""
         self._require_compiled()
+        if not donate:
+            state = state.clone()
         params = state.params
         dev = params_device(params)
         inputs = self._place_inputs(inputs, dev)
@@ -772,7 +781,7 @@ class FFModel:
         return self.place_dataset(stacked_in, stacked_lab, device)
 
     def fit(self, state: TrainState, dataloader, epochs: Optional[int] = None,
-            verbose: bool = True, warmup: bool = True,
+            verbose: bool = True, callbacks=None, warmup: bool = True,
             show_throughput: bool = True, checkpoint_manager=None,
             checkpoint_every_n_steps: Optional[int] = None,
             checkpoint_every_n_epochs: Optional[int] = None,
@@ -789,7 +798,12 @@ class FFModel:
         epochs as one ``train_epochs`` (one cache prologue and epilogue),
         one epoch as ``train_epoch``, a chunked epoch by chunks.
         ``_last_fit_used_scan`` says which branch ran; every other loader
-        takes ``train_step`` batch by batch."""
+        takes ``train_step`` batch by batch.
+
+        ``callbacks`` stands where the JAX package's ``fit`` takes it;
+        any value but None raises until callbacks are ported."""
+        if callbacks is not None:
+            raise NotImplementedError(_CALLBACKS)
         if (checkpoint_manager is not None or checkpoint_every_n_steps
                 or checkpoint_every_n_epochs or resume
                 or sentinel is not None):

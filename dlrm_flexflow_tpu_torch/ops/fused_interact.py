@@ -43,11 +43,12 @@ class FusedEmbedInteractFn(torch.autograd.Function):
     flat ids, which the backward reads.
 
     Backward at f32: the fused backward kernel gives the per-slot row
-    grads and ``dbottom``; the dense table gradient is then ONE
-    deterministic scatter of the row grads into a zero table through the
-    row-update kernel, at ``max(gids, 0)`` (the JAX package's ``safe``
-    ids; dropped slots carry exact 0.0).  ``index_add_`` would add
-    duplicates in an atomic order that changes from run to run.
+    grads, ``dbottom`` and, in the same launch, the scatter's ids
+    ``max(gids, 0)`` (the JAX package's ``safe`` ids; dropped slots carry
+    exact 0.0); the dense table gradient is then ONE deterministic
+    scatter of the row grads into a zero table through the row-update
+    kernel.  ``index_add_`` would add duplicates in an atomic order that
+    changes from run to run.
 
     Backward under bf16 compute: autograd of the plain formulation, as
     the JAX package's ``_bwd`` falls back to the emitter VJP there (the
@@ -77,11 +78,10 @@ class FusedEmbedInteractFn(torch.autograd.Function):
                                          compute_dtype=compute_dtype)
                 dtable, dbottom = torch.autograd.grad(out, (t, b), g)
             return dtable, dbottom, None, None, None, None, None, None
-        rowg, dbottom = fused_interact_bwd_cuda(
+        rowg, dbottom, safe = fused_interact_bwd_cuda(
             table, gids, bottom, g.contiguous(), interact=interact,
-            aggr=aggr)
-        dtable = row_update_cuda(torch.zeros_like(table),
-                                 gids.clamp_min(0), rowg, 1.0)
+            aggr=aggr, want_safe=True)
+        dtable = row_update_cuda(torch.zeros_like(table), safe, rowg, 1.0)
         return dtable, dbottom, None, None, None, None, None, None
 
 

@@ -325,11 +325,13 @@ def interact_backward(g, bottom, pooled, interact: str):
 
 
 def fused_interact_bwd_ref(table, gids, bottom, g, *, interact: str = "cat",
-                           aggr: str = "sum"):
+                           aggr: str = "sum", want_safe: bool = False):
     """The plain backward: ``interact_backward`` on the re-pooled rows,
     then the pooled grads broadcast over the bag (divided by the bag for
     ``avg``) and zeroed at dropped slots.  Returns ``(row_grads
-    (B, T, bag, d), dbottom (B, bot))``."""
+    (B, T, bag, d), dbottom (B, bot))``, and with ``want_safe`` also the
+    scatter's ids ``max(gids, 0)`` as int32 (the JAX package's ``safe``
+    ids)."""
     b, t, bag = gids.shape
     dim = table.shape[1]
     live = (gids >= 0) & (gids < table.shape[0])
@@ -347,23 +349,28 @@ def fused_interact_bwd_ref(table, gids, bottom, g, *, interact: str = "cat",
     rowg = torch.where(live[..., None], dpooled[:, :, None, :],
                        torch.zeros((), dtype=dpooled.dtype,
                                    device=dpooled.device))
-    return rowg.expand(b, t, bag, dim).contiguous(), dbot.contiguous()
+    out = (rowg.expand(b, t, bag, dim).contiguous(), dbot.contiguous())
+    if want_safe:
+        out += (gids.clamp_min(0).to(torch.int32),)
+    return out
 
 
 _BWD_SIGNATURES = {
     "ff_fused_interact_bwd": (
         ctypes.c_int,
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_longlong]
-        + [ctypes.c_int] * 2 + [ctypes.c_void_p]),
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_longlong]
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p]),
     "ff_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 
 
 def fused_interact_bwd_cuda(table, gids, bottom, g, *, interact: str = "cat",
-                            aggr: str = "sum"):
+                            aggr: str = "sum", want_safe: bool = False):
     """Run the fused backward at f32.  Inputs as ``fused_interact_cuda``
     plus ``g`` (B, width) f32, the interaction's output cotangent.
-    Returns ``(row_grads (B, T, bag, d), dbottom (B, bot))``.
+    Returns ``(row_grads (B, T, bag, d), dbottom (B, bot))``, and with
+    ``want_safe`` also the scatter's ids ``max(gids, 0)`` (B, T, bag)
+    int32, written by the same launch.
 
     On CUDA tensors this launches the Hopper kernel (and adds one to
     ``fused_interact_bwd_cuda.launches``) or raises; on CPU tensors it
@@ -393,7 +400,8 @@ def fused_interact_bwd_cuda(table, gids, bottom, g, *, interact: str = "cat",
                          f"{tuple(gids.shape)} (width {width})")
     if table.device.type == "cpu":
         return fused_interact_bwd_ref(table, gids, bottom, g,
-                                      interact=interact, aggr=aggr)
+                                      interact=interact, aggr=aggr,
+                                      want_safe=want_safe)
     if table.device.type != "cuda":
         raise ValueError(f"no fused_interact_bwd kernel for {table.device}")
     if (table.dtype != torch.float32 or bottom.dtype != torch.float32
@@ -411,22 +419,29 @@ def fused_interact_bwd_cuda(table, gids, bottom, g, *, interact: str = "cat",
                        device=table.device)
     dbot = torch.empty((bsz, bot_dim), dtype=torch.float32,
                        device=table.device)
+    safe = (torch.empty(gids.shape, dtype=torch.int32, device=gids.device)
+            if want_safe else None)
+    out = (rowg, dbot) + ((safe,) if want_safe else ())
     if bsz == 0:
-        return rowg, dbot
+        return out
+    dot = interact == "dot"
+    aligned = (table,) if dot else (g, rowg, dbot)
+    vec4 = (dim % 4 == 0 and (dot or bot_dim % 4 == 0)
+            and all(x.data_ptr() % 16 == 0 for x in aligned))
     lib = _cuda.load("fused_interact_bwd", _BWD_SIGNATURES)
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ff_fused_interact_bwd(
             table.data_ptr(), gids.data_ptr(), bottom.data_ptr(),
-            g.data_ptr(), rowg.data_ptr(), dbot.data_ptr(), bsz, t, bag, dim,
-            bot_dim, rows_n, int(interact == "dot"), int(aggr == "avg"),
-            stream)
+            g.data_ptr(), rowg.data_ptr(), dbot.data_ptr(),
+            None if safe is None else safe.data_ptr(), bsz, t, bag, dim,
+            bot_dim, rows_n, int(dot), int(aggr == "avg"), int(vec4), stream)
     if err:
         msg = lib.ff_cuda_error_string(err).decode()
         raise RuntimeError(f"fused_interact_bwd kernel launch failed: {msg}")
     with _count_lock:
         fused_interact_bwd_cuda.launches += 1
-    return rowg, dbot
+    return out
 
 
 fused_interact_bwd_cuda.launches = 0

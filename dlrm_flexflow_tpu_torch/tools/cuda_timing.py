@@ -10,6 +10,11 @@ import time
 
 import torch
 
+# characters of a device operation's name that launches_per_call keeps:
+# enough to tell ATen's elementwise kernels apart by their functor (a
+# fill from a clamp), which the first 60 do not
+NAME_CHARS = 160
+
 
 def graph_ms(fn, arg_sets, reps: int = 5, windows: int = 3) -> float:
     """Device time of one call of ``fn``: the calls over every argument
@@ -89,6 +94,7 @@ def launches_per_call(fn, arg_sets):
         return "not measured", {}
     calls = len(arg_sets)
     per_call = {}
-    for e in ops:  # names cut to 60 characters, counts summed
-        per_call[e.name[:60]] = per_call.get(e.name[:60], 0) + 1 / calls
+    for e in ops:  # names cut to NAME_CHARS characters, counts summed
+        key = e.name[:NAME_CHARS]
+        per_call[key] = per_call.get(key, 0) + 1 / calls
     return len(ops) / calls, per_call

@@ -1,7 +1,7 @@
 """Samples/s of the port's training CLI on each of fit's three paths, on
 one CUDA card.
 
-    python scripts/torch_fit_paths.py [--epochs 1,2] [--rounds 2] [--profile]
+    python dlrm_flexflow_tpu_torch/tools/torch_fit_paths.py [--epochs 1,2] [--rounds 2] [--profile]
 
 Runs ``dlrm_flexflow_tpu_torch.apps.dlrm.run`` at ``-b 256 --wd 0
 --data-size 16384`` (the run_random.sh model, 64 batches of synthetic
@@ -33,7 +33,8 @@ import subprocess
 import sys
 import time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))))
 
 import torch  # noqa: E402
 

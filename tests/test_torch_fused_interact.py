@@ -509,3 +509,56 @@ def test_bwd_cpu_tensors_launch_no_kernel():
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     assert tk.fused_interact_bwd_cuda.launches == 0
+
+
+@pytest.mark.parametrize("interact", ["cat", "dot"])
+@pytest.mark.parametrize("bag", [1, 3])
+def test_bwd_safe_ids_are_the_jax_bwd_safe_ids(interact, bag):
+    """``want_safe``'s third output is the JAX ``_bwd``'s scatter ids,
+    ``jnp.maximum(gids, 0)`` as int32 (``pallas_fused_interact.py:495``),
+    pre-masked ids past the table kept as they are; the first two outputs
+    are unchanged by it; and the port's one scatter at those ids gives the
+    JAX ``_bwd``'s table gradient (its interpret-mode kernel), as the op's
+    backward now forms it."""
+    from dlrm_flexflow_tpu_torch.ops.row_update_kernel import row_update_ref
+    table, bottom, local = _inputs(80 + bag, bag)
+    gids = np.asarray(_jax_gids(local)).astype(np.int32)
+    rows = table.shape[0]
+    gids[7, 0, 0], gids[8, 2, bag - 1] = rows, rows + 9
+    g = _cotangent(11, interact)
+    tt, tg, tb, tgr = map(torch.from_numpy, (table, gids, bottom, g))
+    rowg, dbot, safe = tk.fused_interact_bwd_ref(
+        tt, tg, tb, tgr, interact=interact, aggr="sum", want_safe=True)
+    assert safe.dtype == torch.int32
+    np.testing.assert_array_equal(
+        safe.numpy(), np.asarray(jnp.maximum(jnp.asarray(gids), 0)
+                                 .astype(jnp.int32)))
+    plain = tk.fused_interact_bwd_ref(tt, tg, tb, tgr, interact=interact,
+                                      aggr="sum")
+    assert len(plain) == 2
+    assert torch.equal(rowg, plain[0]) and torch.equal(dbot, plain[1])
+    jdt, _, jdb = jk._bwd(interact, "sum", True, True, None,
+                          (jnp.asarray(table), jnp.asarray(gids),
+                           jnp.asarray(bottom)), jnp.asarray(g))
+    dtable = row_update_ref(torch.zeros_like(tt), safe, rowg, 1.0)
+    _assert_bwd_agree(dtable, jdt, interact)
+    _assert_bwd_agree(dbot, jdb, interact)
+
+
+@pytest.mark.parametrize("interact", ["cat", "dot"])
+def test_bwd_want_safe_on_cpu_launches_no_kernel(interact):
+    table, bottom, local = _inputs(14, 3)
+    gids = tk.mask_local_ids(torch.from_numpy(local), OFFSETS,
+                             ROW_COUNTS).to(torch.int32)
+    args = (torch.from_numpy(table), gids, torch.from_numpy(bottom),
+            torch.from_numpy(_cotangent(12, interact)))
+    before = tk.fused_interact_bwd_cuda.launches
+    got = tk.fused_interact_bwd_cuda(*args, interact=interact, aggr="avg",
+                                     want_safe=True)
+    want = tk.fused_interact_bwd_ref(*args, interact=interact, aggr="avg",
+                                     want_safe=True)
+    assert len(got) == 3
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.equal(got[2], gids.clamp_min(0))
+    assert tk.fused_interact_bwd_cuda.launches == before == 0
