@@ -13,8 +13,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      fused_interact_ref; the model's table at B = 1, 7, 256 and bag 0,
      1, 3, and small tables of d = 6, 33 and 64 with T * bag = 40;
   4. serve the full-width run_random.sh DLRM (fused interaction) through
-     InferenceEngine + DynamicBatcher and check the answers and that the
-     kernel ran on that path;
+     InferenceEngine + DynamicBatcher (one CUDA graph per bucket) and
+     check the answers, that the kernel ran on that path (launch counts
+     through the graphs' replay accounting) and that the graphs replayed;
+     every bucket's graph against the eager model.predict, bit for bit,
+     full and padded; profile a dispatch graphed and eager;
   5. time the fused forward at the serving buckets beside its bound, its
      plain version, a library call and the launch floor (an empty kernel),
      and the whole call as the op issues it, before (mask, cast, kernel)
@@ -34,7 +37,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      row-sparse path, and the fused graph on the dense table gradient
      (forward and backward kernels), cat and dot, with launch counts,
      finite losses and one step of each held against the same step on
-     the plain versions;
+     the plain versions; on every path four captured and replayed steps
+     held bit for bit against four eager steps, and the main path's
+     steps replayed from one captured step;
   9. time the row update (the sort alone, the update alone, the whole
      call, launches per call from torch.profiler, uniform and zipf ids)
      and the backward kernel at the path's shapes (cat and dot, beside
@@ -46,15 +51,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
      int64 and int32 ids, bags up to 40, d = 128, 256 and 33;
  12. train the classic graph through fit's staged branch with the epoch
      row cache (fit(epochs=2) over 64 batches: one train_epochs, the
-     ladder [8], 17 row-set launches), held bit for bit against the same
-     run uncached, on row_set_ref, chunked, and through train_epochs;
+     ladder [8], 17 row-set launches, one capture), held bit for bit
+     against the same run uncached, on row_set_ref, on eager steps,
+     chunked, and through train_epochs;
  13. train a graph of Embedding(use_pallas=True) (the bag kernel forward,
      its row-update backward) a few steps, its forward and one step held
      against the plain versions;
  14. time the row-set kernel at the epilogue and block shapes, the bag
      kernel at every serving bucket (int64 and int32 ids, launches per
-     call, the launch floor), and profile the cached and uncached staged epochs
-     (information, not a claim).
+     call, the launch floor), and profile the cached and uncached staged
+     epochs, graphed and eager (information, not a claim).
+Profile lines carry the graph replays in their window, the graph pool's
+bytes and the host's launches per dispatch or step.
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it exits with code 2 and prints no result.
@@ -63,6 +71,7 @@ Without a CUDA device it exits with code 2 and prints no result.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import subprocess
 import sys
@@ -155,6 +164,13 @@ def read_counts() -> dict:
 
 def log(obj) -> None:
     print(obj if isinstance(obj, str) else json.dumps(obj), flush=True)
+
+
+def _free() -> None:
+    """Release a finished phase's memory: its models, states and graph
+    pools (a CUDA graph's pool goes with its runner)."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # --------------------------------------------------------------- phase 1
@@ -367,8 +383,11 @@ def serve(model, state):
     the traffic and read just after it."""
     t0 = time.perf_counter()
     engine = InferenceEngine(model, state)
+    torch.cuda.synchronize()
     log({"phase": "engine", "buckets": engine.buckets,
-         "warmup_s": round(time.perf_counter() - t0, 3)})
+         "graphs": sorted(engine._graphs),
+         "warmup_s": round(time.perf_counter() - t0, 3),
+         "pool_bytes": pool_bytes(engine._pool)})
     rng = np.random.default_rng(0)
     clients, per_client = 8, 16
     reqs = [[_request(rng, 1) for _ in range(per_client)]
@@ -384,6 +403,7 @@ def serve(model, state):
             errors.append(e)
 
     reset_counts()  # the main path starts here
+    replays0 = engine.graph_replays
     t_start = time.perf_counter()
     batcher = DynamicBatcher(engine)
     threads = [threading.Thread(target=client, args=(c,))
@@ -399,6 +419,7 @@ def serve(model, state):
     answers["big", 300] = engine.predict(big[300])  # two top-bucket chunks
     wall_s = time.perf_counter() - t_start
     launches = read_counts()["fused_interact_fwd"]  # the main path ends
+    replays = engine.graph_replays - replays0
     if alive or errors:
         raise RuntimeError(f"client threads failed: alive={len(alive)} "
                            f"errors={errors[:1]!r}")
@@ -414,8 +435,9 @@ def serve(model, state):
             raise AssertionError(f"bad answer {key}: shape {a.shape} "
                                  f"dtype {a.dtype} range [{a.min()}, "
                                  f"{a.max()}]")
-    if launches <= 0:
-        raise AssertionError("the serving path launched no fused kernel")
+    if launches <= 0 or replays <= 0:
+        raise AssertionError(f"the serving path launched {launches} fused "
+                             f"kernels in {replays} graph replays")
     # a full bucket against the forward whose embedding op runs the plain
     # version on the same GPU tensors: the cat interaction is pure data
     # movement and the MLP is the same code, so the two agree bit for bit
@@ -428,6 +450,7 @@ def serve(model, state):
     unpadded = model.predict(state, big[3]).cpu().numpy()
     log({"phase": "serve", "requests": summary["requests"],
          "rows": sum(want.values()), "launches": launches,
+         "graph_replays": replays,
          "wall_s": wall_s, "batcher_qps": summary["qps"],
          "batcher_p50_us": summary.get("p50_us"),
          "batcher_p99_us": summary.get("p99_us"),
@@ -444,42 +467,200 @@ def serve(model, state):
                              f"err {err}")
     if not np.array_equal(padded, unpadded):
         raise AssertionError("padded bucket rows != unpadded forward")
+    check_buckets_vs_eager(model, state, engine, rng)
+    check_lazy_capture_beside_traffic(model, state, rng)
     for n in (1, 256):
-        profile_dispatch(engine, big[256] if n == 256 else reqs[0][0], n)
+        profile_dispatch(model, state, engine,
+                         big[256] if n == 256 else reqs[0][0], n)
     return launches, err
 
 
-def profile_dispatch(engine, req, n: int, reps: int = 20) -> None:
-    """Where an engine dispatch's time goes (information, not a check):
-    the host wall per dispatch without and with torch.profiler, the
-    device kernel time per dispatch from the profiler's CUDA activity,
-    the device's idle share of the profiled wall, and the kernels that
-    took the most device time."""
+def check_buckets_vs_eager(model, state, engine, rng) -> None:
+    """Every bucket's graph, after the traffic's replays, against the eager
+    ``model.predict`` on the same rows, bit for bit: a full bucket and a
+    partial one (padded by the engine, unpadded eagerly)."""
+    rows = []
+    for b in engine.buckets:
+        for n in sorted({b, max(1, b - 3)}):
+            req = _request(rng, n)
+            before = engine.graph_replays
+            got = engine.predict(req)
+            want = model.predict(state, req).cpu().numpy()
+            rows.append({"bucket": b, "rows": n,
+                         "replayed": engine.graph_replays - before,
+                         "bit_identical": bool(np.array_equal(got, want)),
+                         "max_abs_err": float(np.abs(got - want).max())})
+    ok = all(r["bit_identical"] and r["replayed"] == 1 for r in rows)
+    log({"phase": "graph_vs_eager", "config": "serving", "cases": rows,
+         "ok": ok})
+    if not ok:
+        raise AssertionError("a bucket's graph != the eager forward")
+
+
+@contextlib.contextmanager
+def _capture_times(marks):
+    """Append ``("begin" | "end", perf_counter())`` to ``marks`` around
+    every CUDA graph capture made inside the block."""
+    cls = torch.cuda.CUDAGraph
+    begin, end = cls.capture_begin, cls.capture_end
+
+    def timed_begin(self, *args, **kwargs):
+        marks.append(("begin", time.perf_counter()))
+        return begin(self, *args, **kwargs)
+
+    def timed_end(self, *args, **kwargs):
+        out = end(self, *args, **kwargs)
+        marks.append(("end", time.perf_counter()))
+        return out
+
+    cls.capture_begin, cls.capture_end = timed_begin, timed_end
+    try:
+        yield
+    finally:
+        cls.capture_begin, cls.capture_end = begin, end
+
+
+def check_lazy_capture_beside_traffic(model, state, rng) -> None:
+    """An engine built without warmup captures its bucket at the first
+    dispatch while another thread runs eager forwards and small
+    device-to-host copies, each a synchronising call.  The engine
+    captures in ``thread_local`` mode (a ``global`` capture forbids such
+    calls in every thread), so neither thread may fail, the dispatch must
+    equal the eager forward bit for bit, and some of the other thread's
+    synchronising calls must have finished while the capture was open (a
+    short switch interval interleaves the two)."""
+    engine = InferenceEngine(model, state, buckets=[8], warmup=False)
+    req, other = _request(rng, 5), _request(rng, 64)
+    probe = torch.ones(1, device="cuda")
+    stop, errors, synced, marks = threading.Event(), [], [], []
+
+    def traffic():
+        try:
+            while not stop.is_set():
+                model.predict(state, other).cpu()
+                synced.append(time.perf_counter())
+                for _ in range(8):
+                    probe.cpu()
+                    synced.append(time.perf_counter())
+        except BaseException as e:  # re-raised below, after the join
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-4)
+    thread = threading.Thread(target=traffic)
+    try:
+        thread.start()
+        while len(synced) < 9 and thread.is_alive():
+            time.sleep(0.001)
+        with _capture_times(marks):
+            got = engine.predict(req)  # the eager run and the capture
+    finally:
+        stop.set()
+        thread.join(timeout=120)
+        sys.setswitchinterval(interval)
+    want = model.predict(state, req).cpu().numpy()
+    opened = [t for k, t in marks if k == "begin"]
+    closed = [t for k, t in marks if k == "end"]
+    during = (sum(1 for t in synced if opened[0] < t < closed[0])
+              if len(opened) == len(closed) == 1 else 0)
+    ok = (not errors and not thread.is_alive() and during > 0
+          and sorted(engine._graphs) == [8]
+          and bool(np.array_equal(got, want)))
+    log({"phase": "graph_vs_eager", "config": "lazy capture beside eager "
+         "traffic", "captures": len(opened),
+         "capture_ms": (closed[0] - opened[0]) * 1e3 if closed else None,
+         "traffic_syncs_during_capture": during,
+         "errors": [repr(e) for e in errors[:1]], "ok": ok})
+    if not ok:
+        raise AssertionError("a lazy bucket capture beside another "
+                             "thread's forwards failed")
+
+
+def pool_bytes(handle):
+    """Bytes of device memory in the segments of one graph memory pool
+    (``torch.cuda.memory_snapshot``), or "not measured" when the
+    snapshot does not name pools."""
+    if handle is None:
+        return 0
+    segments = torch.cuda.memory_snapshot()
+    if segments and "segment_pool_id" not in segments[0]:
+        return "not measured"
+    return sum(s["total_size"] for s in segments
+               if tuple(s["segment_pool_id"]) == tuple(handle))
+
+
+# host-side operations that put work on the card (CUDA API calls that
+# launch a kernel or a graph, or copy)
+_HOST_LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel", "cudaGraphLaunch",
+                  "cudaMemcpyAsync", "cudaMemsetAsync", "cudaMemcpy",
+                  "cudaLaunchKernelExC", "cuLaunchKernelEx")
+
+
+def _device_profile(prof, calls: int, wall_us: float,
+                    plain_wall_us: float) -> dict:
+    """Per call of a profiled window: device busy time, idle share of the
+    profiled wall (``wall_us``) and of the same window's wall without the
+    profiler (``plain_wall_us``), device operations, host launches
+    (``_HOST_LAUNCHES``, from the profiler's CPU activity), and the top
+    device operations."""
+    events = prof.key_averages()
+    kernels = [e for e in events if str(e.device_type).endswith("CUDA")]
+    host = sum(e.count for e in events
+               if not str(e.device_type).endswith("CUDA")
+               and e.key in _HOST_LAUNCHES)
+    busy_us = sum(e.self_device_time_total for e in kernels) / calls
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    return {"profiled_wall_us": wall_us, "wall_us": plain_wall_us,
+            "device_busy_us": busy_us if kernels else "not measured",
+            "device_idle_share": (1 - busy_us / wall_us) if kernels
+            else "not measured",
+            "device_idle_share_unprofiled": (1 - busy_us / plain_wall_us)
+            if kernels else "not measured",
+            "kernels_per_call": sum(e.count for e in kernels) / calls,
+            "host_launches_per_call": host / calls,
+            "f64_gemm_us": sum(e.self_device_time_total for e in kernels
+                               if "f64" in e.key or "dgemm" in e.key.lower()
+                               ) / calls if kernels else "not measured",
+            "top_kernels": [{"name": e.key[:80],
+                             "us": e.self_device_time_total / calls,
+                             "calls": e.count / calls} for e in top]}
+
+
+def profile_dispatch(model, state, engine, req, n: int, reps: int = 20
+                     ) -> None:
+    """Where a dispatch's time goes (information, not a check), graphed
+    (``engine.predict``: copy in, one bucket graph replay, copy out) and
+    eager (``model.predict`` on the request padded to the same bucket,
+    the dispatch before this port's graphs): the host wall per dispatch
+    without and with torch.profiler, then ``_device_profile``; the graph
+    replays in the window and the engine's pool."""
     from torch.profiler import ProfilerActivity, profile
-    engine.predict(req)
-    t0 = time.perf_counter()
-    for _ in range(reps):
-        engine.predict(req)
-    wall_us = (time.perf_counter() - t0) * 1e6 / reps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    b = engine.bucket_for(n)
+
+    def eager():
+        padded = {k: engine._pad(np.asarray(v), n, b)
+                  for k, v in req.items()}
+        return model.predict(state, padded)[:n].cpu().numpy()
+
+    for mode, fn in (("graphed", lambda: engine.predict(req)),
+                     ("eager", eager)):
+        fn()
         t0 = time.perf_counter()
         for _ in range(reps):
-            engine.predict(req)
-        prof_wall_us = (time.perf_counter() - t0) * 1e6 / reps
-    kernels = [e for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")]
-    busy_us = sum(e.self_device_time_total for e in kernels) / reps
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    log({"phase": "profile", "rows": n, "bucket": engine.bucket_for(n),
-         "wall_us": wall_us, "profiled_wall_us": prof_wall_us,
-         "device_busy_us": busy_us if kernels else "not measured",
-         "device_idle_share": (1 - busy_us / prof_wall_us) if kernels
-         else "not measured",
-         "kernels_per_dispatch": sum(e.count for e in kernels) / reps,
-         "top_kernels": [{"name": e.key[:70],
-                          "us": e.self_device_time_total / reps,
-                          "calls": e.count / reps} for e in top]})
+            fn()
+        wall_us = (time.perf_counter() - t0) * 1e6 / reps
+        replays0 = engine.graph_replays
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            prof_wall_us = (time.perf_counter() - t0) * 1e6 / reps
+        log({"phase": "profile", "config": "serving", "dispatch": mode,
+             "rows": n, "bucket": b,
+             "graph_replays": engine.graph_replays - replays0,
+             "pool_bytes": pool_bytes(engine._pool),
+             **_device_profile(prof, reps, prof_wall_us, wall_us)})
 
 
 # --------------------------------------------------------------- phase 5
@@ -917,43 +1098,104 @@ def _same_step(model, state, inputs, labels, module, name, plain_fn,
     return same, err
 
 
-def _log_profile(prof, config: str, steps: int, wall_us: float) -> None:
-    """Log a profiled window per step: the device kernel time from the
-    profiler's CUDA activity, the device's idle share of the profiled
-    wall, the share of f64 GEMM kernels (the Linear layers' f64
-    accumulation), and the kernels that took the most device time."""
-    kernels = [e for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA")]
-    busy_us = sum(e.self_device_time_total for e in kernels) / steps
-    f64_us = sum(e.self_device_time_total for e in kernels
-                 if "f64" in e.key or "dgemm" in e.key.lower()) / steps
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
-    log({"phase": "profile", "config": config, "steps": steps,
-         "profiled_step_wall_us": wall_us,
-         "device_busy_us": busy_us if kernels else "not measured",
-         "device_idle_share": (1 - busy_us / wall_us) if kernels
-         else "not measured",
-         "f64_gemm_us": f64_us if kernels else "not measured",
-         "kernels_per_step": sum(e.count for e in kernels) / steps,
-         "top_kernels": [{"name": e.key[:80],
-                          "us": e.self_device_time_total / steps,
-                          "calls": e.count / steps} for e in top]})
+@contextlib.contextmanager
+def _eager_steps(model):
+    """Run the model's donated steps on the eager body: the dispatch
+    before the compiled step, for the comparisons and eager profiles."""
+    model._step = model._step_body
+    try:
+        yield
+    finally:
+        del model._step
+
+
+def _graph_counts(model) -> dict:
+    return {"captures": model.graph_captures,
+            "replays": model.graph_replays}
+
+
+def check_graphed_vs_eager(model, state, inputs, labels, config: str,
+                           k: int = 4) -> None:
+    """``k`` donated steps from a clone of ``state`` (the first eager, the
+    second captured, the rest replayed; the first captures at once when
+    the clone lands where an earlier state stepped eagerly) against ``k``
+    eager steps (``donate=False``) from another clone: every parameter,
+    both step counts and every metric of every step bit for bit."""
+    eager, graphed = state.clone(), state.clone()
+    before = _graph_counts(model)
+    same, err = True, 0.0
+    for i in range(k):
+        x, y = {n: v[i] for n, v in inputs.items()}, labels[i]
+        eager, em = model.train_step(eager, x, y, False)
+        graphed, gm = model.train_step(graphed, x, y)
+        torch.cuda.synchronize()
+        same = same and all(torch.equal(em[m], gm[m]) for m in em)
+        err = max([err] + [float((em[m] - gm[m]).abs()) for m in em])
+    for op, params in graphed.params.items():
+        for name, v in params.items():
+            same = same and torch.equal(v, eager.params[op][name])
+            err = max(err, float((v - eager.params[op][name]).abs().max()))
+    same = (same and int(graphed.step) == int(eager.step)
+            and torch.equal(graphed.opt_state["step"],
+                            eager.opt_state["step"]))
+    after = _graph_counts(model)
+    log({"phase": "graph_vs_eager", "config": config, "steps": k,
+         "captures": after["captures"] - before["captures"],
+         "replays": after["replays"] - before["replays"],
+         "bit_identical": same, "max_abs_err": err})
+    del eager, graphed
+    if (not same or after["captures"] - before["captures"] != 1
+            or after["replays"] - before["replays"] not in (k - 1, k)):
+        raise AssertionError(f"{config}: {k} graphed steps != {k} eager "
+                             f"steps, or not replayed")
+
+
+def _log_profile(prof, config: str, dispatch: str, steps: int,
+                 wall_us: float, plain_wall_us: float, model,
+                 counts0) -> None:
+    """Log a profiled window per step (``_device_profile``), with the
+    graph captures and replays in the window and the model's graph
+    pool."""
+    counts = _graph_counts(model)
+    log({"phase": "profile", "config": config, "dispatch": dispatch,
+         "steps": steps, "profiled_step_wall_us": wall_us,
+         "graph_captures": counts["captures"] - counts0["captures"],
+         "graph_replays": counts["replays"] - counts0["replays"],
+         "pool_bytes": pool_bytes(model._graph_pool),
+         **_device_profile(prof, steps, wall_us, plain_wall_us)})
 
 
 def profile_steps(model, state, inputs, labels, config: str, reps: int = 5):
-    """Where a training step's time goes (information, not a check): the
-    host wall per step and ``_log_profile`` over ``reps`` steps."""
+    """Where a training step's time goes (information, not a check):
+    ``reps`` donated steps timed without the profiler, then the same
+    under it (``_log_profile``), graphed (two steps before the windows:
+    the eager one and the capture) and then eager (``_eager_steps``)."""
     from torch.profiler import ProfilerActivity, profile
     batches = [({k: v[i] for k, v in inputs.items()}, labels[i])
-               for i in range(reps)]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+               for i in range(reps + 2)]
+    for x, y in batches[:2]:
+        state, _ = model.train_step(state, x, y)
+    torch.cuda.synchronize()
+
+    def window():
+        nonlocal state
         t0 = time.perf_counter()
-        for x, y in batches:
+        for x, y in batches[2:]:
             state, _ = model.train_step(state, x, y)
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6 / reps
-    _log_profile(prof, config, reps, wall_us)
+        return (time.perf_counter() - t0) * 1e6 / reps
+
+    for dispatch in ("graphed", "eager"):
+        ctx = (_eager_steps(model) if dispatch == "eager"
+               else contextlib.nullcontext())
+        with ctx:
+            plain_wall_us = window()
+            counts0 = _graph_counts(model)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                wall_us = window()
+        _log_profile(prof, config, dispatch, reps, wall_us, plain_wall_us,
+                     model, counts0)
     return state
 
 
@@ -973,6 +1215,7 @@ def train_headline(inputs, labels):
     if not same:
         raise AssertionError("headline step through the row-update kernel "
                              "!= the same step on row_update_ref")
+    check_graphed_vs_eager(model, state, inputs, labels, "headline")
     touched = np.unique(op.flat_ids(torch.from_numpy(inputs["sparse"])
                                     ).numpy().reshape(-1))
     rng = np.random.default_rng(6)
@@ -981,12 +1224,15 @@ def train_headline(inputs, labels):
     hot = torch.from_numpy(rng.choice(touched, 2048, replace=False)).cuda()
     cold_before, hot_before = flat[cold].clone(), flat[hot].clone()
     nb = labels.shape[0]
+    graphs0 = _graph_counts(model)
     reset_counts()  # the main path starts here
     t0 = time.perf_counter()
     state, folded = model.train_epoch(state, inputs, labels)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     epoch_counts = read_counts()  # ... and ends here
+    epoch_graphs = {k: v - graphs0[k]
+                    for k, v in _graph_counts(model).items()}
     flat = state.params["emb"]["embedding"].view(-1, DIM)
     changed = float((flat[hot] != hot_before).any(dim=1).float().mean())
     cold_same = bool(torch.equal(flat[cold], cold_before))
@@ -999,6 +1245,7 @@ def train_headline(inputs, labels):
     row = {"phase": "train", "config": "headline", "graph": "classic cat",
            "compute_dtype": "bfloat16", "steps": nb,
            "launches": epoch_counts, "fit_launches": fit_counts,
+           "graphs": epoch_graphs,
            "loss": float(folded["loss"]),
            "accuracy": float(folded["train_correct"] / folded["train_all"]),
            "untouched_sampled_rows": int(cold.numel()),
@@ -1014,11 +1261,14 @@ def train_headline(inputs, labels):
     if epoch_counts["row_update"] != nb or fit_counts["row_update"] != 9:
         raise AssertionError(f"row_update launched {epoch_counts} times in "
                              f"{nb} steps and {fit_counts} in fit's 9")
+    if epoch_graphs != {"captures": 1, "replays": nb - 1}:
+        raise AssertionError(f"train_epoch did not replay its captured "
+                             f"step: {epoch_graphs}")
     if not cold_same or changed < 0.99:
         raise AssertionError(f"rows: untouched identical {cold_same}, "
                              f"touched changed {changed}")
     del model, state
-    torch.cuda.empty_cache()
+    _free()
     return row, {k: epoch_counts[k] + fit_counts[k] for k in epoch_counts}
 
 
@@ -1026,19 +1276,24 @@ def train_fused_sparse(inputs, labels):
     """(ii) The fused graph on the row-sparse path: rows injected, pooled
     and interacted in PyTorch, the row-update kernel on every step."""
     model, state = _train_model(True, "bfloat16")
+    check_graphed_vs_eager(model, state, inputs, labels, "fused_sparse")
     nb = 4
     part = ({k: v[:nb] for k, v in inputs.items()}, labels[:nb])
+    graphs0 = _graph_counts(model)
     reset_counts()  # the main path starts here
     state, folded = model.train_epoch(state, *part)
     torch.cuda.synchronize()
     counts = read_counts()  # ... and ends here
+    graphs = {k: v - graphs0[k] for k, v in _graph_counts(model).items()}
     log({"phase": "train", "config": "fused_sparse", "steps": nb,
-         "launches": counts, "loss": float(folded["loss"])})
-    if not _finite(folded) or counts["row_update"] != nb:
+         "launches": counts, "graphs": graphs,
+         "loss": float(folded["loss"])})
+    if (not _finite(folded) or counts["row_update"] != nb
+            or graphs["replays"] != nb - 1):
         raise AssertionError(f"fused sparse path: launches {counts}, "
                              f"finite {_finite(folded)}")
     del model, state
-    torch.cuda.empty_cache()
+    _free()
     return counts
 
 
@@ -1056,24 +1311,28 @@ def train_fused_dense(inputs, labels):
     if not same:
         raise AssertionError("fused dense step through the backward kernel "
                              "!= the same step on fused_interact_bwd_ref")
-    state, _ = model.train_step(state, *step0)  # warm
+    check_graphed_vs_eager(model, state, inputs, labels, "fused_dense")
+    state, _ = model.train_step(state, *step0)  # the eager step: warm
     torch.cuda.synchronize()
     nb = 4
     part = ({k: v[1:1 + nb] for k, v in inputs.items()}, labels[1:1 + nb])
+    graphs0 = _graph_counts(model)
     reset_counts()  # the main path starts here
     t0 = time.perf_counter()
     state, folded = model.train_epoch(state, *part)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()  # ... and ends here
+    graphs = {k: v - graphs0[k] for k, v in _graph_counts(model).items()}
     row = {"phase": "train", "config": "fused_dense", "graph": "fused cat",
            "compute_dtype": "float32", "steps": nb, "launches": counts,
+           "graphs": graphs, "pool_bytes": pool_bytes(model._graph_pool),
            "loss": float(folded["loss"]), "step_wall_ms": wall * 1e3 / nb,
            "samples_per_s": nb * BATCH / wall,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "note": "walls are information, not a claim"}
     log(row)
-    if (not _finite(folded)
+    if (not _finite(folded) or graphs != {"captures": 1, "replays": nb}
             or min(counts[k] for k in ("fused_interact_fwd",
                                        "fused_interact_bwd",
                                        "row_update")) < nb):
@@ -1081,7 +1340,7 @@ def train_fused_dense(inputs, labels):
                              f"finite {_finite(folded)}")
     profile_steps(model, state, inputs, labels, "fused_dense", reps=3)
     del model, state
-    torch.cuda.empty_cache()
+    _free()
     return row, counts
 
 
@@ -1104,23 +1363,27 @@ def train_fused_dense_dot(inputs, labels):
         raise AssertionError("fused dense dot step through the backward "
                              "kernel != the same step on "
                              "fused_interact_bwd_ref")
-    state, _ = model.train_step(state, *step0)  # warm
+    check_graphed_vs_eager(model, state, inputs, labels, "fused_dense_dot")
+    state, _ = model.train_step(state, *step0)  # the eager step: warm
     torch.cuda.synchronize()
     nb = 4
     part = ({k: v[1:1 + nb] for k, v in inputs.items()}, labels[1:1 + nb])
+    graphs0 = _graph_counts(model)
     reset_counts()  # the main path starts here
     t0 = time.perf_counter()
     state, folded = model.train_epoch(state, *part)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()  # ... and ends here
+    graphs = {k: v - graphs0[k] for k, v in _graph_counts(model).items()}
     row = {"phase": "train", "config": "fused_dense_dot", "graph": "fused dot",
            "compute_dtype": "float32", "steps": nb, "launches": counts,
-           "loss": float(folded["loss"]), "step_wall_ms": wall * 1e3 / nb,
+           "graphs": graphs, "loss": float(folded["loss"]),
+           "step_wall_ms": wall * 1e3 / nb,
            "samples_per_s": nb * BATCH / wall,
            "note": "walls are information, not a claim"}
     log(row)
-    if (not _finite(folded)
+    if (not _finite(folded) or graphs != {"captures": 1, "replays": nb}
             or min(counts[k] for k in ("fused_interact_fwd",
                                        "fused_interact_bwd",
                                        "row_update")) < nb):
@@ -1128,7 +1391,7 @@ def train_fused_dense_dot(inputs, labels):
                              f"finite {_finite(folded)}")
     profile_steps(model, state, inputs, labels, "fused_dense_dot", reps=3)
     del model, state
-    torch.cuda.empty_cache()
+    _free()
     return counts
 
 
@@ -1361,7 +1624,7 @@ def check_row_set(table) -> float:
                 failed.append(case)
             del got, want
     del others
-    torch.cuda.empty_cache()
+    _free()
     if failed:
         raise AssertionError(f"{len(failed)} row_set case(s) disagree with "
                              f"the plain version")
@@ -1444,6 +1707,7 @@ def _staged_fit(model, batches, epochs=2):
     loader = SyntheticDLRMLoader(batches * BATCH, BOT, [ROWS] * TABLES, 1,
                                  BATCH, seed=0)
     torch.cuda.synchronize()
+    graphs0 = _graph_counts(model)
     reset_counts()  # the main path starts here
     t0 = time.perf_counter()
     state, thpt = model.fit(state, loader, epochs=epochs, verbose=False)
@@ -1454,7 +1718,10 @@ def _staged_fit(model, batches, epochs=2):
            "staged": model._last_fit_used_scan,
            "cache": model._epoch_cache_active,
            "chunks": model._epoch_chunk_bounds(batches),
-           "launches": counts, "fit_samples_per_s": thpt, "wall_s": wall,
+           "launches": counts,
+           "graphs": {k: v - graphs0[k]
+                      for k, v in _graph_counts(model).items()},
+           "fit_samples_per_s": thpt, "wall_s": wall,
            "last_epoch_metrics": means}
     if not np.isfinite(list(means.values())).all():
         raise AssertionError(f"staged fit gave a non-finite metric: {row}")
@@ -1478,14 +1745,27 @@ def train_staged(inputs, labels):
     uncached16, counts_off, row_off = _staged_fit(off, 16)
     with _plain(cache_module, "row_set_cuda", row_set_ref):
         plain16, counts_plain, _ = _staged_fit(model, 16)
+    with _eager_steps(model):
+        eager16, _, row_eager = _staged_fit(model, 16)
+    with _eager_steps(off):
+        eager_off16, _, _ = _staged_fit(off, 16)
     same_off = _states_equal(cached16, uncached16)
     same_plain = _states_equal(cached16, plain16)
-    del cached16, uncached16, plain16
+    same_eager = (_states_equal(cached16, eager16)
+                  and row16["last_epoch_metrics"]
+                  == row_eager["last_epoch_metrics"])
+    same_eager_off = _states_equal(uncached16, eager_off16)
+    del cached16, uncached16, plain16, eager16, eager_off16
     log({"phase": "train_staged", "config": "headline, 16 batches", **row16,
          "uncached": row_off, "vs_uncached_bit_identical": same_off,
-         "vs_row_set_ref_bit_identical": same_plain})
+         "vs_row_set_ref_bit_identical": same_plain,
+         "vs_eager_steps_bit_identical": same_eager,
+         "uncached_vs_eager_steps_bit_identical": same_eager_off})
+    log({"phase": "graph_vs_eager", "config": "staged fit, 16 batches",
+         "cached": same_eager, "uncached": same_eager_off})
     if not (row16["staged"] and row16["cache"] and not row_off["cache"]
-            and same_off and same_plain
+            and same_off and same_plain and same_eager and same_eager_off
+            and row16["graphs"]["captures"] == 1
             and counts16["row_set"] == 5 * n_ops
             and counts_off["row_set"] == 0 == counts_plain["row_set"]):
         raise AssertionError("staged fit at 16 batches: cached != uncached "
@@ -1518,6 +1798,7 @@ def train_staged(inputs, labels):
     log(row)
     finite = all(np.isfinite(v).all() for v in losses.values())
     if not (row["staged"] and row["cache"] and row["chunks"] is None
+            and row["graphs"] == {"captures": 1, "replays": 2 * 64 - 1}
             and counts["row_set"] == 17 * n_ops
             and counts["row_update"] == 1 + 2 * 64 * n_ops
             and chunk_row["chunks"] and chunk_counts["row_set"] == 8 * n_ops
@@ -1528,22 +1809,37 @@ def train_staged(inputs, labels):
         profile_epoch(m, epochs_states[name], inputs, labels,
                       f"staged_{name}")
     del model, off, chunked, main, epochs_states
-    torch.cuda.empty_cache()
+    _free()
     return row, counts
 
 
 def profile_epoch(model, state, inputs, labels, config: str):
     """Where a staged epoch's time goes (information, not a check): one
-    train_epoch under torch.profiler, per step."""
+    train_epoch without the profiler, then one under it, per step,
+    graphed (the state and the caches' buffers are the ones
+    ``train_epochs`` captured against, so the windows only replay) and
+    then eager (``_eager_steps``)."""
     from torch.profiler import ProfilerActivity, profile
     nb = labels.shape[0]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def window():
+        nonlocal state
         t0 = time.perf_counter()
-        model.train_epoch(state, inputs, labels)
+        state, _ = model.train_epoch(state, inputs, labels)
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6 / nb
-    _log_profile(prof, config, nb, wall_us)
+        return (time.perf_counter() - t0) * 1e6 / nb
+
+    for dispatch in ("graphed", "eager"):
+        ctx = (_eager_steps(model) if dispatch == "eager"
+               else contextlib.nullcontext())
+        with ctx:
+            plain_wall_us = window()
+            counts0 = _graph_counts(model)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                wall_us = window()
+        _log_profile(prof, config, dispatch, nb, wall_us, plain_wall_us,
+                     model, counts0)
 
 
 # -------------------------------------------------------------- phase 13
@@ -1592,18 +1888,22 @@ def train_bag_graph():
         b, mb = model.train_step(b, *first)
     step_same = _states_equal(a, b) and torch.equal(ma["loss"], mb["loss"])
     del a, b
+    check_graphed_vs_eager(model, state, inputs, labels, "use_pallas")
     rest = ({k: v[1:] for k, v in inputs.items()}, labels[1:])
     torch.cuda.synchronize()
+    graphs0 = _graph_counts(model)
     reset_counts()  # the main path starts here
     t0 = time.perf_counter()
     state, folded = model.train_epoch(state, *rest)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()  # ... and ends here
+    graphs = {k: v - graphs0[k] for k, v in _graph_counts(model).items()}
     row = {"phase": "train_bag", "config": "Embedding(use_pallas=True)",
            "use_pallas": op.use_pallas,
            "row_sparse_ops": [o.name for o in model._sparse_ops],
-           "steps": nb, "launches": counts, "loss": float(folded["loss"]),
+           "steps": nb, "launches": counts, "graphs": graphs,
+           "loss": float(folded["loss"]),
            "forward_vs_plain_bit_identical": fwd_same,
            "step_vs_plain_bit_identical": step_same,
            "step_wall_ms": wall * 1e3 / nb,
@@ -1611,11 +1911,12 @@ def train_bag_graph():
     log(row)
     if not (op.use_pallas and not model._sparse_ops and fwd_same
             and step_same and _finite(folded)
+            and graphs == {"captures": 1, "replays": nb - 1}
             and counts["embedding_bag"] == nb
             and counts["row_update"] == nb):
         raise AssertionError(f"use_pallas graph: {row}")
     del model, state
-    torch.cuda.empty_cache()
+    _free()
     return row, counts
 
 
@@ -1673,7 +1974,7 @@ def time_row_set(table, sets: int = 4):
         log(row)
         out[shape] = row
         del arg_sets, prepared, lib_sets
-    torch.cuda.empty_cache()
+    _free()
     return out
 
 
@@ -1756,7 +2057,7 @@ def main() -> int:
     set_err = check_row_set(table)
     bag_err, bag_table = check_embedding_bag()
     del model, state, table
-    torch.cuda.empty_cache()
+    _free()
     # phase 8: the training paths
     inputs, labels = _epoch_data(64)
     headline, headline_counts = train_headline(inputs, labels)
@@ -1790,7 +2091,9 @@ def main() -> int:
          "train_step_wall_ms": {"headline": headline["step_wall_ms"],
                                 "fused_dense": dense["step_wall_ms"],
                                 "use_pallas": bag_row["step_wall_ms"]},
-         "staged_fit_samples_per_s": staged["fit_samples_per_s"]})
+         "staged_fit_samples_per_s": staged["fit_samples_per_s"],
+         "staged_fit_graphs": staged["graphs"],
+         "note": "walls include each path's eager step and capture"})
     log({"kernels": [
         _entry("fused_interact_fwd",
                serve_launches + sum(c["fused_interact_fwd"]

@@ -34,21 +34,26 @@ from .ops.slotting import slot_rows
 LadderMeta = List[Tuple[int, Dict[str, int]]]
 
 
-def cache_fetch(parent, rowof):
+def cache_fetch(parent, rowof, out=None):
     """Rows of the flattened ``parent`` at ``rowof`` (JAX ``_cache_fetch``,
     ``mode="clip"``): a sentinel hole reads the last row, which no slot
-    addresses.  Takes a ``(T, R, d)`` table or an ``(R, d)`` cache."""
+    addresses.  Takes a ``(T, R, d)`` table or an ``(R, d)`` cache; fills
+    ``out`` (``(len(rowof), d)``) in place when given."""
     flat = parent.reshape(-1, parent.shape[-1])
-    return flat.index_select(0, rowof.long().clamp(0, flat.shape[0] - 1))
+    return torch.index_select(flat, 0,
+                              rowof.long().clamp(0, flat.shape[0] - 1),
+                              out=out)
 
 
-def build_cache(flat, ids, pack: int):
+def build_cache(flat, ids, pack: int, out=None):
     """The shared-slot cache of the rows ``ids`` touch in the ``(R, d)``
     source ``flat`` (JAX ``build_cache``, logical-row branch):
     ``(cache, slots, rowof)``, or None when the cache, sized by the
     occurrence count and padded to a multiple of the lane pack, would not
     be smaller than the source.  ``rowof`` is padded with the sentinel
-    ``R``, which the fetch clips and the writeback drops."""
+    ``R``, which the fetch clips and the writeback drops.  ``out``, when
+    given, maps the cache's row count to the buffer it is fetched
+    into."""
     size = ids.numel()
     sentinel = flat.shape[0]
     m = -(-size // pack) * pack
@@ -57,7 +62,8 @@ def build_cache(flat, ids, pack: int):
     rowof, slots = slot_rows(ids, sentinel)
     if m > size:
         rowof = torch.cat([rowof, rowof.new_full((m - size,), sentinel)])
-    return cache_fetch(flat, rowof), slots, rowof
+    cache = cache_fetch(flat, rowof, out=None if out is None else out(m))
+    return cache, slots, rowof
 
 
 def cache_writeback(parent, rowof, cache_final):

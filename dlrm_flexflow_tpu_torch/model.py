@@ -3,9 +3,10 @@
 Counterpart of ``dlrm_flexflow_tpu/model.py``.  The graph is a list of
 ops built by the reference's factory API; ``compile`` fixes the loss,
 metrics and optimizer and builds the forward; ``init`` or ``load_params``
-places the parameters on a device.  PyTorch runs eagerly, so there is no
-jit: the forward is one Python sweep over the ops, and no op bakes in the
-batch size, so one graph serves every serving bucket.
+places the parameters on a device.  The forward is one Python sweep over
+the ops, and no op bakes in the batch size, so one graph serves every
+serving bucket; ``predict`` runs it eagerly, and the serving engine
+replays it as one CUDA graph per bucket (``serving/engine.py``).
 
 Training follows the JAX package's step (``model.py:973-1055``).  Under
 plain SGD with ``sparse_embedding_updates`` not "off", every embedding op
@@ -16,18 +17,29 @@ those rows, the dense parameters take the SGD step, and
 (the row-update kernel on the card).  Otherwise every parameter, tables
 included, takes the dense gradient.
 
+The donated step is compiled, as the JAX package jits it
+(``model.py:1932-1942``): ``_step`` captures ``_step_body`` in a CUDA
+graph (``graphs.py``) at its second call for a batch signature and
+state, and replays it after that.
+
 ``train_epoch``, ``train_epochs`` and ``fit``'s staged branch follow the
 JAX package's scanned epoch (``model.py:1891-1928``, ``:2115-2254``,
-``:2314-2566``): a Python loop takes the place of ``lax.scan``, and with
-the epoch row cache active (``epoch_cache.py``) the row-sparse ops step
-against a small cache of the epoch's rows, nested in the cache ladder,
-with every writeback through the row-set kernel on the card.  A mesh
-comes with the scale-out slice; checkpoints and resilient training with
-the durability slice.
+``:2314-2566``): a Python loop takes the place of ``lax.scan`` and
+replays the captured step, and with the epoch row cache active
+(``epoch_cache.py``) the row-sparse ops step against a small cache of
+the epoch's rows, nested in the cache ladder, with every writeback
+through the row-set kernel on the card.  The caches are buffers the
+model keeps, so the one captured step serves every block, chunk and
+epoch of a shape: ``fit(epochs=2)`` of the run_random.sh CLI (64 staged
+batches) captures once.  The prologue, the block fetches and writebacks
+and the epilogue stay eager.  A mesh comes with the scale-out slice;
+checkpoints and resilient training with the durability slice.
 """
 
 from __future__ import annotations
 
+import functools
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Tuple
@@ -40,6 +52,8 @@ from .config import FFConfig
 from .device import resolve_device
 from .epoch_cache import (build_cache, cache_fetch, cache_writeback,
                           ladder_arrays, ladder_meta, named_levels)
+from .graphs import (GraphRunner, StaleGraphError, flatten, run_eager,
+                     state_key)
 from .initializers import derive_seed
 from .losses import get_loss
 from .metrics import MetricsAccumulator, compute_metrics
@@ -115,6 +129,19 @@ class FFModel:
         self._epoch_cache_active = False
         self._last_fit_used_scan = False
         self._last_metrics = MetricsAccumulator(())
+        # the compiled step (_step): a runner per batch signature, the
+        # state key of the eager call that precedes each capture, one
+        # graph pool and one lock for all of the model's step graphs
+        self._step_graphs: Dict[Tuple, GraphRunner] = {}
+        self._step_seen: Dict[Tuple, Tuple] = {}
+        self._graph_pool = None
+        self._graph_lock = threading.Lock()
+        self.graph_captures = 0
+        self.graph_replays = 0
+        self._metric_layout: Tuple = ()
+        # the epoch and block caches, one buffer per (op, level, shape)
+        # (_cache_buffer), so one epoch's step graph serves the next
+        self._cache_buffers: Dict[Tuple, torch.Tensor] = {}
 
     # ------------------------------------------------------------------ utils
     def _name(self, base: str, name: Optional[str] = None) -> str:
@@ -304,6 +331,9 @@ class FFModel:
                 return self._apply(params, inputs)[final_uid].to(final_dtype)
 
         self._forward_fn = forward
+        # the step graphs baked in the old loss, metrics and optimizer
+        self._step_graphs.clear()
+        self._step_seen.clear()
         return self
 
     # ------------------------------------------------------------ parameters
@@ -440,13 +470,20 @@ class FFModel:
         metrics)`` with the batch's metric sums and ``loss`` as 0-dim
         tensors on the device (no host sync).
 
-        ``donate=True`` consumes ``state`` like the JAX package's donated
-        step: the dense parameters and the tables are updated in place,
-        and the returned state holds the same tensors.  ``donate=False``
-        leaves ``state`` as it was: the step runs on
-        ``TrainState.clone()`` of it (every parameter, whole tables
-        included, the optimizer state and the step), and returns the same
-        new state as the donated step.
+        ``donate=True`` consumes ``state`` like the JAX package's donated,
+        jitted step: the dense parameters, the tables, the optimizer
+        state and the step count are updated in place, and the returned
+        state holds the same tensors.  The step is compiled as the JAX
+        package jits it (``_step``): the first call at a given batch
+        signature and state runs eagerly, the second captures a CUDA graph
+        and replays it, later calls replay it.
+
+        ``donate=False`` leaves ``state`` as it was: the step runs eagerly
+        on ``TrainState.clone()`` of it (every parameter, whole tables
+        included, the optimizer state and the step) and returns the same
+        new state as the donated step.  The clone has fresh addresses on
+        every call, so this step is never captured; it runs the same
+        kernels on the same device.
 
         ``slot_override`` (the epoch row cache) maps an op name to this
         batch's cache slots: the op's "embedding" then holds its cache,
@@ -455,11 +492,70 @@ class FFModel:
         self._require_compiled()
         if not donate:
             state = state.clone()
-        params = state.params
-        dev = params_device(params)
-        inputs = self._place_inputs(inputs, dev)
-        labels = self._place_labels(labels, dev)
-        slot_override = slot_override or {}
+        dev = params_device(state.params)
+        step = (state.step if state.step is not None
+                else torch.zeros((), dtype=torch.int32, device=dev))
+        batch = {"inputs": self._place_inputs(inputs, dev),
+                 "labels": self._place_labels(labels, dev),
+                 "slots": dict(slot_override or {})}
+        carried = (state.params, state.opt_state, step)
+        packed = (self._step(batch, carried) if donate
+                  else self._step_body(batch, carried))
+        return (TrainState(state.params, state.opt_state, step),
+                self._unpack_metrics(packed))
+
+    def _step(self, batch, carried):
+        """The donated step through a :class:`~.graphs.GraphRunner`, the
+        counterpart of the JAX package's ``jax.jit(train_step,
+        donate_argnums=...)``.
+
+        A step is keyed by its batch signature (every input's, the
+        labels' and the ``slot_override`` slots' name, shape, dtype and
+        device) and, through the runner's state check, by the addresses
+        of the carried tensors.  The first call at a key runs
+        ``_step_body`` eagerly (``graphs.run_eager``: a real step, on a
+        side stream on the card, and the warm-up a capture needs); the
+        second captures it, in the model's one graph pool, and replays
+        it; later calls replay it.  Capture runs no kernel, so no step is
+        applied twice.  A carried tensor that moved (a parameter replaced,
+        a new state) makes the runner raise; the model then drops that
+        runner and starts over: an eager step, then a new capture.  One
+        runner is kept per signature."""
+        sig = tuple((p, tuple(t.shape), t.dtype, t.device)
+                    for p, t in flatten(batch))
+        runner = self._step_graphs.get(sig)
+        if runner is not None:
+            try:
+                out = runner.run(batch, carried)
+                self.graph_replays += 1
+                return out
+            except StaleGraphError:
+                del self._step_graphs[sig]
+        key = state_key(carried)
+        dev = carried[2].device
+        if self._step_seen.pop(sig, None) != key:
+            self._step_seen[sig] = key
+            return run_eager(self._step_body, batch, carried, device=dev)
+        if dev.type == "cuda" and self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        runner = GraphRunner(self._step_body, batch, carried,
+                             pool=self._graph_pool, lock=self._graph_lock)
+        self._step_graphs[sig] = runner
+        self.graph_captures += 1
+        out = runner.run(batch, carried)
+        self.graph_replays += 1
+        return out
+
+    def _step_body(self, batch, carried):
+        """One step on placed tensors (``batch``: inputs, labels and
+        slots; ``carried``: params, optimizer state and step count), every
+        carried tensor updated in place; the body that ``_step``
+        captures.  Nothing here synchronises with the host or reads a
+        value on it.  Returns the metrics packed into one vector
+        (``_unpack_metrics``), so a replay's result is one small copy."""
+        params, opt_state, step = carried
+        inputs, labels = batch["inputs"], batch["labels"]
+        slot_override = batch["slots"]
         sparse_names = {op.name for op in self._sparse_ops}
         leaves = {op: {k: v.detach().requires_grad_() for k, v in d.items()}
                   for op, d in params.items() if op not in sparse_names}
@@ -486,9 +582,8 @@ class FFModel:
             dgrads: Dict[str, Dict[str, torch.Tensor]] = {}
             for (op, k), g in zip(flat, grads):
                 dgrads.setdefault(op, {})[k] = g
-            _, opt_state = self.optimizer.update(params, dgrads,
-                                                 state.opt_state)
-            neg_lr = -state.opt_state.get("lr", self.optimizer.lr)
+            self.optimizer.update(params, dgrads, opt_state)
+            neg_lr = -opt_state.get("lr", self.optimizer.lr)
             for op, g in zip(self._sparse_ops, grads[len(flat):]):
                 table = params[op.name]["embedding"]
                 slots = slot_override.get(op.name)
@@ -500,9 +595,17 @@ class FFModel:
             mets = compute_metrics(preds.detach(), labels, self.metrics,
                                    self.loss_type)
             mets["loss"] = loss.detach()
-        step = (state.step + 1 if state.step is not None
-                else torch.ones((), dtype=torch.int32, device=dev))
-        return TrainState(params, opt_state, step), mets
+            step.add_(1)
+            self._metric_layout = tuple((k, v.dtype) for k, v in mets.items())
+            dtype = functools.reduce(torch.promote_types,
+                                     (v.dtype for v in mets.values()))
+            return torch.stack([v.to(dtype) for v in mets.values()])
+
+    def _unpack_metrics(self, packed) -> Dict[str, torch.Tensor]:
+        """The metrics dict of a packed step result: views of ``packed``
+        in each metric's own dtype."""
+        return {k: packed[i].to(dt)
+                for i, (k, dt) in enumerate(self._metric_layout)}
 
     def eval_step(self, state: TrainState, inputs, labels):
         """Forward-only metrics and loss on one batch."""
@@ -533,7 +636,8 @@ class FFModel:
         pull the touched rows in (JAX ``cache_prologue``, shared slots).
         Returns ``(state with the caches, slots, writebacks, originals)``;
         an op whose cache would not be smaller than its table stays on
-        the per-step path."""
+        the per-step path.  The caches are the model's buffers
+        (``_cache_buffer``), valid until the next prologue."""
         params = dict(state.params)
         slots_ep, writebacks, originals = {}, [], {}
         cache_ops = self._sparse_ops if self._epoch_cache_active else ()
@@ -541,7 +645,10 @@ class FFModel:
             ids = inputs[op.inputs[0].name].to(torch.int32)
             tb = params[op.name]["embedding"]
             flat = tb.view(-1, tb.shape[-1])
-            built = build_cache(flat, op.flat_ids(ids), lane_pack(op.out_dim))
+            built = build_cache(flat, op.flat_ids(ids), lane_pack(op.out_dim),
+                                out=functools.partial(self._cache_buffer,
+                                                      ("epoch", op.name),
+                                                      like=flat))
             if built is None:
                 continue
             cache, slots, rowof = built
@@ -551,6 +658,21 @@ class FFModel:
             writebacks.append((op.name, rowof))
         return (TrainState(params, state.opt_state, state.step), slots_ep,
                 writebacks, originals)
+
+    def _cache_buffer(self, role, rows: int, like) -> torch.Tensor:
+        """The model's ``(rows, d)`` cache buffer for ``role`` (the epoch
+        cache of an op, or a ladder level's block cache of an op), in the
+        dtype and on the device of ``like``: allocated at its first use,
+        then the same tensor for every epoch of that shape.  The step
+        graph reads its caches by address, so this is what lets one
+        capture serve every block, chunk and epoch."""
+        shape = (int(rows), like.shape[-1])
+        key = (role, shape, like.dtype, like.device)
+        buf = self._cache_buffers.get(key)
+        if buf is None:
+            buf = self._cache_buffers[key] = torch.empty(
+                shape, dtype=like.dtype, device=like.device)
+        return buf
 
     def ladder_plan(self, state: TrainState, slots_ep, nb: int):
         """``(meta, arrays)`` of the ladder (JAX ``ladder_plan``), or
@@ -571,7 +693,10 @@ class FFModel:
         ``ladder_scan``): each level pulls its block's rows from the parent
         cache, recurses against the block cache and sets the final rows
         back, in place; the innermost level runs ``train_step`` by slot.
-        Appends each step's metrics to ``mets``."""
+        Every block of a level is fetched into that level's one buffer
+        (``_cache_buffer``), so the innermost step sees the same tensors
+        in every block and one captured step serves them all.  Appends
+        each step's metrics to ``mets``."""
         if not meta:
             slots = arrs["slots"]
             for i in range(labels.shape[0]):
@@ -585,10 +710,12 @@ class FFModel:
             lo, hi = k * size, (k + 1) * size
             params = dict(state.params)
             parents = {}
-            for name in part:
-                parents[name] = params[name]["embedding"]
+            for name, m in part.items():
+                parents[name] = parent = params[name]["embedding"]
+                buf = self._cache_buffer(("block", len(meta), name), m,
+                                         like=parent)
                 params[name] = {"embedding": cache_fetch(
-                    parents[name], blk["rowof"][name])}
+                    parent, blk["rowof"][name], out=buf)}
             state = self.ladder_scan(
                 TrainState(params, state.opt_state, state.step),
                 {n: v[lo:hi] for n, v in inputs.items()}, labels[lo:hi],

@@ -67,9 +67,10 @@ class SGDOptimizer(Optimizer):
     def update(self, params, grads, opt_state):
         """Apply one step to every parameter that ``grads`` names.
 
-        The f32 parameters and the momentum buffers are updated IN PLACE
-        (the caller's state is consumed, like the JAX package's donated
-        step); returns ``(params, new opt_state)``."""
+        The f32 parameters, the momentum buffers and the step count are
+        updated IN PLACE (the caller's state is consumed, like the JAX
+        package's donated step), so a captured step (graphs.py) finds them
+        at the same addresses; returns ``(params, opt_state)``."""
         mu, wd = self.momentum, self.weight_decay
         lr = opt_state.get("lr", self.lr)
         with torch.no_grad():
@@ -84,7 +85,8 @@ class SGDOptimizer(Optimizer):
                     v = opt_state["v"][op][k]
                     v.mul_(mu).add_(gt)
                     w.sub_(lr * (gt + mu * v if self.nesterov else v))
-        return params, {**opt_state, "step": opt_state["step"] + 1}
+            opt_state["step"].add_(1)
+        return params, opt_state
 
 
 class AdamOptimizer(Optimizer):

@@ -7,9 +7,16 @@ fixed set of batch-size **buckets**.  A partial batch pads with zero rows
 up to the enclosing bucket and the padding is sliced off; a batch past
 the largest bucket runs as top-bucket chunks.  The forward is
 row-independent, so the first ``n`` rows of a padded bucket equal the
-unpadded forward bit for bit.  ``warmup`` runs every bucket once before
-traffic (kernel build and load, allocator), where the JAX package
-AOT-compiles each bucket's program.
+unpadded forward bit for bit.
+
+Each bucket's forward is one CUDA graph (``graphs.GraphRunner``), where
+the JAX package AOT-compiles each bucket's program (``_ensure``): built
+by ``warmup`` (every bucket, in the constructor by default) or at a
+bucket's first dispatch, after one eager run of the forward (the kernel
+build and load, cuBLAS and the allocator).  The buckets' graphs share one
+memory pool and one lock.  A dispatch copies the padded request into the
+bucket's static inputs, replays, and copies the rows back.  On the CPU
+the same runner calls the forward on the same static inputs.
 
 Not ported yet: quantized tables and tiered storage (the
 serving-extras slice), mesh-native serving (the scale-out slice; a model
@@ -23,8 +30,10 @@ import time
 from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
+import torch
 
 from ..device import resolve_device
+from ..graphs import GraphRunner, run_eager
 from ..tensor import numpy_dtype
 from .stats import LatencyStats
 
@@ -98,27 +107,50 @@ class InferenceEngine:
         self.stats = stats or LatencyStats()
         self._in_specs = {t.name: (tuple(t.shape[1:]), numpy_dtype(t.dtype))
                           for t in model._inputs}
-        self._warm: set = set()
+        self._dtypes = {t.name: t.dtype for t in model._inputs}
+        self._graphs: Dict[int, GraphRunner] = {}
+        self._pool = None
         self._lock = threading.Lock()
         if warmup:
             self.warmup()
 
     # ---------------------------------------------------------------- warmup
     def warmup(self) -> None:
-        """Run every bucket once outside the serving path, so steady-state
-        traffic never waits on a kernel build or a first allocation."""
+        """Build every bucket's graph outside the serving path, so
+        steady-state traffic never waits on a kernel build, a capture or
+        a first allocation."""
         for b in self.buckets:
             self._ensure(b)
 
-    def _ensure(self, b: int) -> None:
-        if b in self._warm:
-            return
+    @property
+    def graph_replays(self) -> int:
+        """Dispatches replayed from the buckets' graphs (on the CPU: runs
+        of the runners)."""
+        return sum(r.replays for r in self._graphs.values())
+
+    def _forward(self, static, params):
+        return self.model._forward_fn(params, static)
+
+    def _ensure(self, b: int) -> GraphRunner:
+        """Bucket ``b``'s runner, built under the engine's lock at its
+        first use: one eager forward on zero inputs, then the capture."""
+        runner = self._graphs.get(b)
+        if runner is not None:
+            return runner
         with self._lock:
-            if b not in self._warm:
-                dummy = {name: np.zeros((b,) + shape, dtype)
-                         for name, (shape, dtype) in self._in_specs.items()}
-                self.model.predict(self._params, dummy).cpu()
-                self._warm.add(b)
+            if b not in self._graphs:
+                dummy = {name: torch.zeros((b,) + shape,
+                                           dtype=self._dtypes[name],
+                                           device=self.device)
+                         for name, (shape, _) in self._in_specs.items()}
+                run_eager(self._forward, dummy, self._params,
+                          device=self.device)
+                if self.device.type == "cuda" and self._pool is None:
+                    self._pool = torch.cuda.graph_pool_handle()
+                self._graphs[b] = GraphRunner(
+                    self._forward, dummy, self._params, pool=self._pool,
+                    lock=self._lock)
+            return self._graphs[b]
 
     # --------------------------------------------------------------- serving
     def bucket_for(self, n: int) -> Optional[int]:
@@ -169,11 +201,11 @@ class InferenceEngine:
 
     def _dispatch(self, chunk: Dict[str, np.ndarray], m: int) -> np.ndarray:
         b = self.bucket_for(m)
-        self._ensure(b)
+        runner = self._ensure(b)
         padded = {k: self._pad(v, m, b) for k, v in chunk.items()}
         t0 = time.perf_counter()
         # the device-to-host copy of the result is the fence
-        out = self.model.predict(self._params, padded)[:m].cpu().numpy()
+        out = runner.run(padded, self._params)[:m].cpu().numpy()
         self.stats.record_dispatch(bucket=b,
                                    lat_us=(time.perf_counter() - t0) * 1e6)
         return out
