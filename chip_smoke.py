@@ -26,7 +26,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      their plain versions, bit for bit, over ids uniform, zipf, one id,
      wrapped and dropped, int32 edges, R at a radix digit's bit
      boundary, n from 0 to 65,536, d 16/64/128, f32/bf16 updates and
-     a float or tensor scale, and twice for determinism;
+     a float or tensor scale, and twice for determinism; and on bf16
+     tables (n = 2048 on 1M x 64, uniform and zipf, the small-R and the
+     wrap/drop cases);
   7. hold the fused backward kernel against its plain version, with and
      without the safe ids it writes for the scatter (bit-exact against
      gids.clamp_min(0)): the model's table at B = 1, 7, 256 and bag 0,
@@ -46,9 +48,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      the launch floor; one launch a call, and the op's whole backward
      launches it once and no clamp), and
      the training steps (information, not a claim);
- 10. hold the row-set kernel against its plain version, bit for bit;
+ 10. hold the row-set kernel against its plain version, bit for bit, on
+     f32 tables and on the 8M x 64 table in bf16;
  11. hold the embedding-bag kernel against its plain version, bit for bit,
-     int64 and int32 ids, bags up to 40, d = 128, 256 and 33;
+     int64 and int32 ids, bags up to 40, d = 128, 256 and 33, on f32 and
+     bf16 tables (1M x 128, B = 256, bag 8, sum and avg among them);
  12. train the classic graph through fit's staged branch with the epoch
      row cache (fit(epochs=2) over 64 batches: one train_epochs, the
      ladder [8], 17 row-set launches, one capture), held bit for bit
@@ -56,11 +60,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
      chunked, and through train_epochs;
  13. train a graph of Embedding(use_pallas=True) (the bag kernel forward,
      its row-update backward) a few steps, its forward and one step held
-     against the plain versions;
+     against the plain versions, on an f32 and on a bf16 table;
  14. time the row-set kernel at the epilogue and block shapes, the bag
      kernel at every serving bucket (int64 and int32 ids, launches per
      call, the launch floor), and profile the cached and uncached staged
-     epochs, graphed and eager (information, not a claim).
+     epochs, graphed and eager (information, not a claim);
+ 15. (vii) train the run_random.sh classic graph on bf16 tables
+     (embedding_dtype="bfloat16", 1,024,000,000 B): one step against
+     row_update_ref, graphed steps against eager ones, 64 batches through
+     train_epoch, then the staged cached fit(epochs=2) against the same
+     fit uncached, all bit for bit;
+ 16. (viii) serve the fused model with its tables quantized at load, int8
+     and bf16, through the batcher on the f32 engine's requests: within
+     1e-2 of it, padding and graph-vs-eager bit for bit, the f32-only
+     fused kernel never launched, the byte report checked;
+ 17. the serving path and one staged fit inside an event log with the
+     /metrics endpoint up on 127.0.0.1: every event valid, one compile
+     event per capture, the engine, batcher and train families scraped;
+     walls with telemetry on and off (information);
+ 18. time the bag, row-update and row-set kernels on bf16 storage beside
+     their bounds, plain versions and library calls (information).
 Profile lines carry the graph replays in their window, the graph pool's
 bytes and the host's launches per dispatch or step.
 The line before the last is the kernels' JSON record; the last line is
@@ -70,6 +89,7 @@ Without a CUDA device it exits with code 2 and prints no result.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import gc
 import json
@@ -77,6 +97,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.request
 from types import SimpleNamespace
 
 import numpy as np
@@ -86,6 +107,7 @@ from dlrm_flexflow_tpu_torch import (FFConfig, FFModel, SGDOptimizer,
                                      SyntheticDLRMLoader, ZipfDLRMLoader,
                                      _cuda)
 from dlrm_flexflow_tpu_torch import epoch_cache as cache_module
+from dlrm_flexflow_tpu_torch import telemetry as tele
 from dlrm_flexflow_tpu_torch.apps.dlrm import DLRMConfig, build_dlrm
 from dlrm_flexflow_tpu_torch.data.loader import zipf_ids
 from dlrm_flexflow_tpu_torch.ops import Embedding, FusedEmbedInteract
@@ -93,6 +115,7 @@ from dlrm_flexflow_tpu_torch.ops import embedding as emb_module
 from dlrm_flexflow_tpu_torch.ops import fused_interact as fused_module
 from dlrm_flexflow_tpu_torch.ops.bag_kernel import (embedding_bag_cuda,
                                                    embedding_bag_ref)
+from dlrm_flexflow_tpu_torch.ops.quantized import BF16_ATOL, INT8_ATOL
 from dlrm_flexflow_tpu_torch.ops.fused_interact_kernel import (
     empty_launch_cuda, fused_embed_interact_cuda, fused_embed_interact_ref,
     fused_interact_bwd_cuda, fused_interact_bwd_ref, fused_interact_cuda,
@@ -104,9 +127,15 @@ from dlrm_flexflow_tpu_torch.ops.row_update_kernel import (
     row_update_cuda, row_update_ref)
 from dlrm_flexflow_tpu_torch.ops.slotting import slot_rows
 from dlrm_flexflow_tpu_torch.serving import DynamicBatcher, InferenceEngine
+from dlrm_flexflow_tpu_torch.telemetry import exporter as tele_exporter
+from dlrm_flexflow_tpu_torch.telemetry import schema as tele_schema
 from dlrm_flexflow_tpu_torch.tools.cuda_timing import (graph_ms,
                                                     launches_per_call,
                                                     wall_ms)
+
+#: the JAX package's pinned absolute tolerances of quantized serving on
+#: the sigmoid outputs (scripts/check_kernels.py:16-18, :57-58, :164)
+QUANT_ATOL = {"int8": INT8_ATOL, "bf16": BF16_ATOL}
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth and the
 # f32 rate outside the tensor cores, which the fused kernel's adds and
@@ -192,8 +221,10 @@ def build_kernels() -> None:
     t0 = time.perf_counter()
     built = _cuda.build()
     for name, (secs, out) in _cuda.build_log.items():
+        # each kernel's properties, under its (mangled) name
         ptxas = [ln.strip() for ln in out.splitlines()
-                 if "registers" in ln or "smem" in ln or "spill" in ln]
+                 if "registers" in ln or "smem" in ln or "spill" in ln
+                 or "Function properties for" in ln]
         log({"phase": "build", "source": f"csrc/{name}.cu",
              "nvcc_s": round(secs, 3), "ptxas": ptxas})
     log({"phase": "build", "built": sorted(built),
@@ -825,8 +856,9 @@ def _longest_run(ids, rows) -> int:
 
 
 def _row_update_cases():
-    """(kind, n, rows, d, id dtype, update dtype, scale) of phase 6;
-    rows None means the headline's 8M-row table."""
+    """(kind, n, rows, d, id dtype, update dtype, scale, table dtype) of
+    phase 6; rows None means the headline's 8M-row table (for a bf16
+    table, a 1M-row one)."""
     f32, bf16 = torch.float32, torch.bfloat16
     cases = [(k, n, None, DIM, torch.int64, f32, "tensor")
              for k in ("uniform", "one_id", "zipf", "wrap_drop")
@@ -848,6 +880,15 @@ def _row_update_cases():
                dt, sc)
               for d in (16, DIM, 128) for dt in (f32, bf16)
               for sc in ("tensor", "float")]
+    cases = [c + (f32,) for c in cases]
+    # bf16 tables (the (vii) path): n = 2048 on a 1M x 64 table, uniform
+    # and zipf ids with bf16 and f32 updates, then the small-R and the
+    # wrap/drop cases above
+    cases += [(k, 2048, None, DIM, torch.int64, dt, "tensor", bf16)
+              for k in ("uniform", "zipf") for dt in (bf16, f32)]
+    cases += [c[:7] + (bf16,) for c in cases
+              if c[0] == "wrap_drop" and c[7] == f32
+              and c[2] in (None, 255, 256, 257, 2 ** 16, 2 ** 16 + 1)]
     return cases
 
 
@@ -873,17 +914,18 @@ def check_row_update(table) -> float:
     rng = np.random.default_rng(3)
     tables = {}
 
-    def base_for(rows, d):
-        if rows is None:
+    def base_for(rows, d, dtype):
+        if rows is None and dtype == torch.float32:
             return table
-        if (rows, d) not in tables:
-            tables[rows, d] = _rows_tensor(gen, rows, d)
-        return tables[rows, d]
+        rows = ROWS if rows is None else rows
+        if (rows, d, dtype) not in tables:
+            tables[rows, d, dtype] = _rows_tensor(gen, rows, d).to(dtype)
+        return tables[rows, d, dtype]
 
     failed, worst, prep_worst = [], 0.0, 0.0
-    for kind, n, rows_n, d, id_dtype, upd_dtype, scale_kind in (
+    for kind, n, rows_n, d, id_dtype, upd_dtype, scale_kind, tdt in (
             _row_update_cases()):
-        base = base_for(rows_n, d)
+        base = base_for(rows_n, d, tdt)
         rows = base.shape[0]
         ids = _case_ids(kind, n, rows, gen, rng, id_dtype)
         upd = torch.randn((n, d), generator=gen, device="cuda").to(upd_dtype)
@@ -900,7 +942,7 @@ def check_row_update(table) -> float:
                    and torch.equal(order, want_order))
         ok = prep_ok and torch.equal(got, want)
         deterministic = again is None or torch.equal(got, again)
-        err = float((got - want).abs().max()) if n else 0.0
+        err = float((got.float() - want.float()).abs().max()) if n else 0.0
         worst = max(worst, err)
         if n:
             prep_worst = max(prep_worst, float(max(
@@ -916,6 +958,7 @@ def check_row_update(table) -> float:
                 "ids": kind, "n": n, "rows": rows, "d": d,
                 "id_dtype": str(id_dtype).split(".")[-1],
                 "upd_dtype": str(upd_dtype).split(".")[-1],
+                "table_dtype": str(tdt).split(".")[-1],
                 "scale": scale_kind, "wrapped": wrapped, "dropped": dropped,
                 "longest_run": _longest_run(i64, rows),
                 "prep_exact": bool(prep_ok), "max_abs_err": err,
@@ -1403,23 +1446,29 @@ def _bound(nbytes, flops):
             "bytes" if bytes_ms >= ops_ms else "operations")
 
 
-def time_row_update(table, sets: int = 64):
+def time_row_update(table, sets: int = 64, extras: bool = True):
     """Kernel A at the training step's shape (n = 256 * 8 updates of
-    d = 64 on the 8M-row table), uniform and zipf ids, from CUDA graphs:
+    d = 64 on the 8M-row table, f32 or bf16, with updates in the table's
+    dtype, as the step's row grads are), uniform and zipf ids, from CUDA
+    graphs:
     the prepare-and-sort kernel alone, the update kernel alone on its
     prepared keys and order, and the whole ``row_update_cuda`` call;
     beside them the plain versions (``prepare_row_update_ref`` from a
     graph; ``row_update_ref`` host-synchronising, so timed eagerly), the
     library calls (``torch.sort`` for the sort, ``index_add_``, the same
     sum in an atomic order, for the update), launches per call from
-    torch.profiler, the bytes bound and the add chain's serial floor."""
+    torch.profiler, the bytes bound and the add chain's serial floor.
+    ``extras``: also the sort by its passes and the update by run
+    length."""
     gen = torch.Generator(device="cuda").manual_seed(7)
     rng = np.random.default_rng(7)
     rows, n = table.shape[0], BATCH * TABLES
+    esize = table.element_size()
     out = {}
     for kind in ("uniform", "zipf"):
         arg_sets = [(table, _row_ids(kind, n, rows, gen, rng),
-                     torch.randn((n, DIM), generator=gen, device="cuda"),
+                     torch.randn((n, DIM), generator=gen,
+                                 device="cuda").to(table.dtype),
                      torch.tensor(-0.01, device="cuda"))
                     for _ in range(sets)]
         id_sets = [(i, rows) for _, i, _, _ in arg_sets]
@@ -1429,11 +1478,12 @@ def time_row_update(table, sets: int = 64):
         longest = sum(_longest_run(a[1], rows) for a in arg_sets) / sets
         # the call: ids (8 B) and updates read, each touched row read and
         # written; the sort alone: ids read, keys and order written
-        nbytes = 2 * uniq * DIM * 4 + n * DIM * 4 + n * 8
+        nbytes = 2 * uniq * DIM * esize + n * DIM * esize + n * 8
         bound_ms, bound_by = _bound(nbytes, 2 * n * DIM)
         prep_bytes = n * 8 + n * 8
         prep_bound_ms, prep_bound_by = _bound(prep_bytes, 0)
         row = {"phase": "timing", "kernel": "row_update", "ids": kind,
+               "table_dtype": str(table.dtype).split(".")[-1],
                "n": n, "d": DIM, "rows": rows, "distinct_rows": uniq,
                "mean_longest_run": longest, "bytes": nbytes,
                "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1458,6 +1508,8 @@ def time_row_update(table, sets: int = 64):
         row["share_of_bound"] = bound_ms / row["ms"]
         log(row)
         out[kind] = row
+    if not extras:
+        return out
     # the sort's cost by its passes (R's bit length: 8, 16, 23 bits), and
     # the update kernel's by the length of one run among uniform ids
     log({"phase": "timing", "kernel": "row_update_prep", "n": n,
@@ -1586,33 +1638,44 @@ def _set_ids(gen, n, rows):
 
 def check_row_set(table) -> float:
     """The row-set kernel against ``row_set_ref`` on clones of ``table``
-    (the headline's 8M x 64 flat table) and of 1M-row tables of d = 16
-    and 128, bit for bit; sampled untouched rows must be unchanged and
-    the live rows set."""
+    (the headline's 8M x 64 flat table), of 1M-row tables of d = 16 and
+    128 and of the headline table in bf16 (f32 rows cast to it, at the
+    epilogue's and a ladder block's n among others), bit for bit;
+    sampled untouched rows must be unchanged and the live rows set."""
     gen = torch.Generator(device="cuda").manual_seed(10)
     others = {d: _rows_tensor(gen, ROWS, d) for d in (16, 128)}
+    others["bf16"] = table.to(torch.bfloat16)
+    # a ladder block's writeback: 16,384 rows into the 131,072-row cache
+    others["bf16_block"] = _rows_tensor(gen, 64 * BATCH * TABLES,
+                                        DIM).to(torch.bfloat16)
+    ns = (0, 1, 7, 4096, 16_384, 131_072)
     failed, worst = [], 0.0
-    for d in (16, DIM, 128):
-        base = table if d == DIM else others[d]
+    for d, key, sizes in ((16, 16, ns), (DIM, None, ns), (128, 128, ns),
+                          (DIM, "bf16", ns), (DIM, "bf16_block", (16_384,))):
+        base = table if key is None else others[key]
         rows = base.shape[0]
-        for n in (0, 1, 7, 4096, 16_384, 131_072):
+        for n in sizes:
             ids, live = _set_ids(gen, n, rows)
             vals = torch.randn((n, d), generator=gen, device="cuda")
             got = row_set_cuda(base.clone(), ids, vals)
             want = row_set_ref(base.clone(), ids, vals)
             torch.cuda.synchronize()
             ok = torch.equal(got, want)
-            err = float((got - want).abs().max()) if n else 0.0
+            err = (float((got.float() - want.float()).abs().max()) if n
+                   else 0.0)
             worst = max(worst, err)
             sample = torch.randint(0, rows, (8192,), generator=gen,
                                    device="cuda")
             cold = sample[~torch.isin(sample, live)]
             untouched = torch.equal(got[cold], base[cold])
             hit = (ids >= 0) & (ids < rows)
-            set_ok = torch.equal(got[ids[hit].long()], vals[hit])
+            set_ok = torch.equal(got[ids[hit].long()],
+                                 vals[hit].to(got.dtype))
             ok = ok and untouched and set_ok
             case = {"phase": "kernel_vs_plain", "kernel": "row_set", "n": n,
-                    "rows": rows, "d": d, "live": int(hit.sum()),
+                    "rows": rows, "d": d,
+                    "table_dtype": str(base.dtype).split(".")[-1],
+                    "live": int(hit.sum()),
                     "dropped_negative": int((ids < 0).sum()),
                     "dropped_past_end": int((ids >= rows).sum()),
                     "untouched_sampled_rows": int(cold.numel()),
@@ -1646,18 +1709,25 @@ def check_embedding_bag():
     another; then the paths the redesign added: int32 ids, a bag of 40
     (longer than a warp's ids and a lane's register chunk) and d = 33
     (the scalar path, on a 100k-row table), with a wrapped id (-5) and
-    one out of range (a NaN row).  Returns (max abs error, the d = 128
-    table)."""
+    one out of range (a NaN row); and a bf16 table of 1M x 128 (bags 1,
+    3 and 8, the scalar d = 33 path and the edges), its output in bf16.
+    Returns (max abs error, the d = 128 table)."""
     gen = torch.Generator(device="cuda").manual_seed(11)
     tables = {d: _rows_tensor(gen, ROWS, d) for d in (128, 256)}
     tables[33] = _rows_tensor(gen, 100_000, 33)
+    tables["bf16", 128] = tables[128].to(torch.bfloat16)
+    tables["bf16", 33] = tables[33].to(torch.bfloat16)
     cases = [(d, bag, torch.int64, False) for d in (128, 256)
              for bag in (1, 3, 8)]
     cases += [(d, bag, dt, True) for d in (128, 33) for bag in (1, 8, 40)
               for dt in (torch.int32, torch.int64)]
+    cases += [(("bf16", 128), bag, torch.int64, False) for bag in (1, 3, 8)]
+    cases += [(("bf16", d), bag, torch.int32, True) for d in (128, 33)
+              for bag in (8, 40)]
     failed, worst = [], 0.0
-    for d, bag, dtype, edges in cases:
-        table = tables[d]
+    for key, bag, dtype, edges in cases:
+        table = tables[key]
+        d = table.shape[1]
         rows = table.shape[0]
         for bsz in BUCKETS:
             ids = torch.randint(0, rows, (bsz, bag), generator=gen,
@@ -1672,12 +1742,14 @@ def check_embedding_bag():
                 k = embedding_bag_cuda(table, ids, mode)
                 r = embedding_bag_ref(table, ids, mode)
                 torch.cuda.synchronize()
-                ok = _same_bits(k, r) and k.shape == (bsz, d)
+                ok = (_same_bits(k, r) and k.shape == (bsz, d)
+                      and k.dtype == table.dtype)
                 live = ~torch.isnan(r)
-                err = float((k[live] - r[live]).abs().max())
+                err = float((k[live].float() - r[live].float()).abs().max())
                 worst = max(worst, err)
                 case = {"phase": "kernel_vs_plain", "kernel": "embedding_bag",
                         "B": bsz, "bag": bag, "d": d, "rows": rows,
+                        "table_dtype": str(table.dtype).split(".")[-1],
                         "ids": str(dtype)[6:], "mode": mode,
                         "wrapped_and_nan_ids": edges and bsz > 2,
                         "max_abs_err": err, "tolerance": "exact",
@@ -1846,16 +1918,17 @@ def profile_epoch(model, state, inputs, labels, config: str):
 BAG_ROWS, BAG_DIM, BAG = 1_000_000, 128, 8
 
 
-def _bag_graph():
-    """One 1M x 128 Embedding(use_pallas=True), bag 8, B = 256,
-    concatenated with a dense input of width 128, then Linear 256-1, MSE,
-    SGD lr 0.01 (FFModel.embedding never passes the flag, as in the JAX
-    package, so the op is added directly)."""
+def _bag_graph(table_dtype=torch.float32):
+    """One 1M x 128 Embedding(use_pallas=True), bag 8, B = 256, its table
+    in ``table_dtype``, concatenated with a dense input of width 128, then
+    Linear 256-1, MSE, SGD lr 0.01 (FFModel.embedding never passes the
+    flag, as in the JAX package, so the op is added directly)."""
     model = FFModel(FFConfig(batch_size=BATCH))
     ids = model.create_tensor((BATCH, BAG), "int64", name="ids")
     dense = model.create_tensor((BATCH, BAG_DIM), "float32", name="dense")
     emb = model._add(Embedding(model._name("embedding"), ids, BAG_ROWS,
-                               BAG_DIM, "sum", use_pallas=True))
+                               BAG_DIM, "sum", use_pallas=True,
+                               table_dtype=table_dtype))
     model.dense(model.concat([emb, dense], axis=1), 1, name="out")
     model.compile(optimizer=SGDOptimizer(lr=0.01),
                   loss_type="mean_squared_error",
@@ -1863,12 +1936,13 @@ def _bag_graph():
     return model, model.init(seed=0)
 
 
-def train_bag_graph():
+def train_bag_graph(table_dtype=torch.float32):
     """A few training steps of the use_pallas graph through train_epoch:
     the bag kernel forward and its backward's row update into a zero
-    table, every step.  Its forward is held against the plain forward
-    and one step against the same step on the plain versions."""
-    model, state = _bag_graph()
+    table, every step, on an f32 or a bf16 table.  Its forward is held
+    against the plain forward and one step against the same step on the
+    plain versions."""
+    model, state = _bag_graph(table_dtype)
     op = model.get_op("embedding")
     rng = np.random.default_rng(13)
     nb = 4
@@ -1888,7 +1962,8 @@ def train_bag_graph():
         b, mb = model.train_step(b, *first)
     step_same = _states_equal(a, b) and torch.equal(ma["loss"], mb["loss"])
     del a, b
-    check_graphed_vs_eager(model, state, inputs, labels, "use_pallas")
+    check_graphed_vs_eager(model, state, inputs, labels,
+                           f"use_pallas, {table_dtype}")
     rest = ({k: v[1:] for k, v in inputs.items()}, labels[1:])
     torch.cuda.synchronize()
     graphs0 = _graph_counts(model)
@@ -1899,8 +1974,10 @@ def train_bag_graph():
     wall = time.perf_counter() - t0
     counts = read_counts()  # ... and ends here
     graphs = {k: v - graphs0[k] for k, v in _graph_counts(model).items()}
-    row = {"phase": "train_bag", "config": "Embedding(use_pallas=True)",
-           "use_pallas": op.use_pallas,
+    dtype = str(table_dtype).split(".")[-1]
+    row = {"phase": "train_bag",
+           "config": f"Embedding(use_pallas=True), {dtype} table",
+           "table_dtype": dtype, "use_pallas": op.use_pallas,
            "row_sparse_ops": [o.name for o in model._sparse_ops],
            "steps": nb, "launches": counts, "graphs": graphs,
            "loss": float(folded["loss"]),
@@ -1911,6 +1988,7 @@ def train_bag_graph():
     log(row)
     if not (op.use_pallas and not model._sparse_ops and fwd_same
             and step_same and _finite(folded)
+            and state.params[op.name]["embedding"].dtype == table_dtype
             and graphs == {"captures": 1, "replays": nb - 1}
             and counts["embedding_bag"] == nb
             and counts["row_update"] == nb):
@@ -1943,14 +2021,18 @@ def time_row_set(table, sets: int = 4):
     plain version (host-synchronising, so timed eagerly) and
     ``index_copy_`` on the live ids (the library call).  The bound counts
     this run's live rows: each read once from the rows and written once,
-    plus the n int32 ids."""
+    plus the n int32 ids.  ``table`` is f32 or bf16; the rows are in its
+    dtype, as the cache's are."""
     gen = torch.Generator(device="cuda").manual_seed(14)
+    esize = table.element_size()
     out = {}
     for shape, rowofs in _epoch_rowofs(sets, gen).items():
         parent = (table if shape == "epilogue"
-                  else _rows_tensor(gen, 64 * BATCH * TABLES, DIM))
+                  else _rows_tensor(gen, 64 * BATCH * TABLES,
+                                    DIM).to(table.dtype))
         arg_sets = [(parent, r, torch.randn((r.numel(), DIM), generator=gen,
-                                            device="cuda")) for r in rowofs]
+                                            device="cuda").to(table.dtype))
+                    for r in rowofs]
         prepared = [(t,) + prepare_row_set(t, i, v) for t, i, v in arg_sets]
         lib_sets = []
         for t, i, v in arg_sets:
@@ -1958,9 +2040,10 @@ def time_row_set(table, sets: int = 4):
             lib_sets.append((t, i[hit].long(), v[hit].contiguous()))
         n = rowofs[0].numel()
         live = sum(int(a[1].numel()) for a in lib_sets) / sets
-        nbytes = 2 * live * DIM * 4 + n * 4
+        nbytes = 2 * live * DIM * esize + n * 4
         bound_ms, bound_by = _bound(nbytes, 0)
         row = {"phase": "timing", "kernel": "row_set", "shape": shape,
+               "table_dtype": str(table.dtype).split(".")[-1],
                "n": n, "d": DIM, "rows": parent.shape[0],
                "live_rows": live, "bytes": nbytes, "bound_ms": bound_ms,
                "bound_by": bound_by,
@@ -1984,10 +2067,12 @@ def time_embedding_bag(table, sets: int = 256):
     (mode "sum", the library call), from CUDA graphs cycling many id
     sets, with int64 ids (8 bytes each in the bound) and int32 ids, on a
     table that fits the L2 (50k x 128), the launches per call, and the
-    launch floor.  Returns the B = 256 row."""
+    launch floor.  ``table`` is f32 or bf16 (then the output is bf16 and
+    the library call runs on bf16).  Returns the B = 256 row."""
     gen = torch.Generator(device="cuda").manual_seed(15)
     floor_ms = _launch_floor_ms(sets)
-    l2_table = _rows_tensor(gen, L2_ROWS // 2, BAG_DIM)
+    l2_table = _rows_tensor(gen, L2_ROWS // 2, BAG_DIM).to(table.dtype)
+    esize = table.element_size()
     rows = {}
     for bsz in BUCKETS:
         arg_sets = [(table, torch.randint(0, BAG_ROWS, (bsz, BAG),
@@ -1995,9 +2080,11 @@ def time_embedding_bag(table, sets: int = 256):
                     for _ in range(sets)]
         i32_sets = [(t, i.to(torch.int32)) for t, i in arg_sets]
         l2_sets = [(l2_table, i % (L2_ROWS // 2)) for _, i in arg_sets]
-        nbytes = 4 * bsz * BAG * BAG_DIM + 8 * bsz * BAG + 4 * bsz * BAG_DIM
+        nbytes = (esize * bsz * BAG * BAG_DIM + 8 * bsz * BAG
+                  + esize * bsz * BAG_DIM)
         bound_ms, bound_by = _bound(nbytes, bsz * BAG * BAG_DIM)
         row = {"phase": "timing", "kernel": "embedding_bag", "B": bsz,
+               "table_dtype": str(table.dtype).split(".")[-1],
                "bag": BAG, "d": BAG_DIM, "rows": BAG_ROWS, "mode": "sum",
                "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
                "launch_floor_ms": floor_ms,
@@ -2019,6 +2106,275 @@ def time_embedding_bag(table, sets: int = 256):
                          "embedding_bag_kernel", row["launches_per_call"],
                          row["kernels_per_call"])
     return rows[BATCH]
+
+
+# -------------------------------------------------------------- phase 15
+#: the run_random.sh tables: 8 x 1M x 64 f32
+TABLE_BYTES_F32 = TABLES * ROWS * DIM * 4
+
+
+def train_bf16_tables(inputs, labels):
+    """(vii) The bf16-table headline: the run_random.sh classic graph with
+    ``embedding_dtype="bfloat16"`` (8 x 1M x 64 bf16 tables, 1,024,000,000
+    B; cat, bf16 compute, SGD lr 0.01, MSE).  One step held against the
+    same step on ``row_update_ref``; four graphed steps against four
+    eager ones; then the main path: 64 batches through train_epoch, and
+    the staged cached fit(epochs=2) over 64 batches held bit for bit
+    against the same fit uncached.  Returns (row, the main path's
+    launches)."""
+    model, state = _train_model(False, "bfloat16", embedding_dtype="bfloat16")
+    table = state.params["emb"]["embedding"]
+    nbytes = table.numel() * table.element_size()
+    if table.dtype != torch.bfloat16 or nbytes != TABLE_BYTES_F32 // 2:
+        raise AssertionError(f"bf16 tables: {table.dtype}, {nbytes} B")
+    step0 = ({k: v[0] for k, v in inputs.items()}, labels[0])
+    same, err = _same_step(model, state, *step0, emb_module,
+                           "row_update_cuda", row_update_ref)
+    log({"phase": "train_vs_plain", "config": "bf16 tables",
+         "plain": "row_update_ref", "bit_identical": same,
+         "max_abs_err": err})
+    if not same:
+        raise AssertionError("bf16-table step through the row-update kernel "
+                             "!= the same step on row_update_ref")
+    check_graphed_vs_eager(model, state, inputs, labels, "bf16 tables")
+    nb = labels.shape[0]
+    graphs0 = _graph_counts(model)
+    reset_counts()  # the main path starts here
+    t0 = time.perf_counter()
+    state, folded = model.train_epoch(state, inputs, labels)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    epoch_counts = read_counts()  # ... and ends here
+    epoch_graphs = {k: v - graphs0[k]
+                    for k, v in _graph_counts(model).items()}
+    kept = state.params["emb"]["embedding"].dtype == torch.bfloat16
+    del state
+    _free()
+    off, _ = _train_model(False, "bfloat16", embedding_dtype="bfloat16",
+                          epoch_row_cache="off")
+    cached, fit_counts, fit_row = _staged_fit(model, nb)  # the main path
+    uncached, _, off_row = _staged_fit(off, nb)
+    same_cache = _states_equal(cached, uncached)
+    kept = kept and cached.params["emb"]["embedding"].dtype == torch.bfloat16
+    row = {"phase": "train_bf16", "config": "headline, bf16 tables",
+           "table_bytes": nbytes, "f32_table_bytes": TABLE_BYTES_F32,
+           "steps": nb, "launches": epoch_counts, "graphs": epoch_graphs,
+           "loss": float(folded["loss"]),
+           "step_wall_ms": wall * 1e3 / nb,
+           "samples_per_s": nb * BATCH / wall,
+           "staged_fit": fit_row, "staged_fit_uncached": off_row,
+           "cached_vs_uncached_bit_identical": same_cache,
+           "tables_stay_bf16": kept,
+           "note": "walls and samples/s are information, not a claim"}
+    log(row)
+    if not (_finite(folded) and kept and same_cache
+            and fit_row["staged"] and fit_row["cache"]
+            and not off_row["cache"]
+            and epoch_counts["row_update"] == nb
+            and epoch_counts["row_update_prep"] == nb
+            and epoch_graphs == {"captures": 1, "replays": nb - 1}
+            and fit_counts["row_set"] == 17
+            and fit_counts["row_update"] == 1 + 2 * nb):
+        raise AssertionError(f"bf16-table training: {row}")
+    del model, off, cached, uncached
+    _free()
+    return row, {k: epoch_counts[k] + fit_counts[k] for k in epoch_counts}
+
+
+# -------------------------------------------------------------- phase 16
+#: the quantized tables' bytes: int8 codes plus one f32 scale per row,
+#: and bf16 rows
+QUANT_BYTES = {"int8": TABLES * ROWS * DIM + TABLES * ROWS * 4,
+               "bf16": TABLES * ROWS * DIM * 2}
+
+
+def serve_quantized(model, state):
+    """(viii) Quantized serving: the fused serving model's tables
+    re-encoded at engine load, ``int8`` (512,000,000 B of codes and
+    32,000,000 B of scales) and ``bf16`` (1,024,000,000 B), against the
+    f32 engine (2,048,000,000 B), buckets 1, 8, 64 and 256, through the
+    batcher on the same requests.  Held: every answer within the JAX
+    package's pinned absolute tolerance of the f32 engine's (1e-2 for
+    both); a padded request's bits equal the same rows of a full bucket;
+    every bucket's graph equals the eager forward on the quantized
+    params; the fused forward kernel, f32-only, never launches."""
+    rng = np.random.default_rng(16)
+    reqs = [_request(rng, n) for n in (1, 1, 1, 3, 8, 40, 64, 100, 256)]
+    base = InferenceEngine(model, state)
+    want = [base.predict(r) for r in reqs]
+    del base
+    out = {}
+    for mode in ("int8", "bf16"):
+        t0 = time.perf_counter()
+        engine = InferenceEngine(model, state, quantize=mode)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        replays0 = engine.graph_replays
+        reset_counts()  # the quantized engine's traffic starts here
+        batcher = DynamicBatcher(engine)
+        futs = [batcher.submit(r) for r in reqs]
+        got = [f.result(timeout=120) for f in futs]
+        batcher.close()
+        counts = read_counts()  # ... and ends here
+        replays = engine.graph_replays - replays0
+        errs = [float(np.abs(g - w).max()) for g, w in zip(got, want)]
+        sane = all(g.shape == w.shape and np.isfinite(g).all()
+                   and ((g > 0) & (g < 1)).all() for g, w in zip(got, want))
+        full = _request(rng, 256)
+        full_out = engine.predict(full)
+        padding = {n: bool(np.array_equal(
+            engine.predict({k: v[:n] for k, v in full.items()}),
+            full_out[:n])) for n in (1, 3, 40, 200)}
+        vs_eager = {}
+        for b in engine.buckets:
+            for n in sorted({b, max(1, b - 3)}):
+                r = _request(rng, n)
+                vs_eager[f"{b}/{n}"] = bool(np.array_equal(
+                    engine.predict(r),
+                    model.predict(engine._params, r).cpu().numpy()))
+        atol = QUANT_ATOL[mode]
+        rep = engine.quantization
+        row = {"phase": "serve_quantized", "mode": mode,
+               "bytes_before": rep["bytes_before"],
+               "bytes_after": rep["bytes_after"], "tables": rep["tables"],
+               "load_s": load_s, "requests": len(reqs),
+               "rows": sum(r["dense"].shape[0] for r in reqs),
+               "graph_replays": replays, "launches": counts,
+               "max_abs_err_vs_f32_engine": max(errs), "tolerance": atol,
+               "padding_bit_identical": padding,
+               "graph_vs_eager_bit_identical": vs_eager}
+        log(row)
+        if not (sane and max(errs) <= atol and all(padding.values())
+                and all(vs_eager.values()) and replays > 0
+                and counts["fused_interact_fwd"] == 0
+                and rep["bytes_before"] == TABLE_BYTES_F32
+                and rep["bytes_after"] == QUANT_BYTES[mode]):
+            raise AssertionError(f"quantized serving ({mode}): {row}")
+        out[mode] = row
+        del engine, batcher
+        _free()
+    return out
+
+
+# -------------------------------------------------------------- phase 17
+def _timed(fn, reps):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e6 / reps
+
+
+def telemetry_on_the_card(model, state):
+    """The serving path (an engine and a batcher over 80 requests) and one
+    staged fit (the classic headline graph, 16 batches, 2 epochs) inside
+    an event log, with the /metrics endpoint up on 127.0.0.1.  Held:
+    every event valid under the port's schema (equal to the JAX
+    package's); one ``compile`` event per CUDA-graph capture made;
+    /metrics holds the engine, batcher and train families.  Printed: the
+    events by type, and a serving dispatch's and a training step's walls
+    with telemetry on and off (information)."""
+    srv = tele_exporter.MetricsServer(port=0).start()
+    try:
+        rng = np.random.default_rng(17)
+        reqs = [_request(rng, n) for n in [1] * 64 + [3, 8, 40, 64, 256] * 3]
+        with tele.event_log(ring=200_000) as events_log:
+            engine = InferenceEngine(model, state)
+            batcher = DynamicBatcher(engine)
+            for f in [batcher.submit(r) for r in reqs]:
+                f.result(timeout=120)
+            batcher.close()
+            tm, _ = _train_model(False, "bfloat16")
+            _, _, fit_row = _staged_fit(tm, 16)
+        events = events_log.events()
+        invalid = [e for e in events if tele_schema.validate_event(e)]
+        compiles = [e for e in events if e["type"] == "compile"]
+        captures = len(engine._graphs) + tm.graph_captures
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{srv.port}/metrics", timeout=30) as r:
+            body = r.read().decode()
+        # a family's samples on /metrics: the engine's dispatches by
+        # bucket, the batcher's requests and queue, the trainer's steps
+        # and rate; each must be there with a value above 0 (the queue
+        # depth at 0 or more)
+        samples = {}
+        for ln in body.splitlines():
+            if ln and not ln.startswith("#"):
+                name, value = ln.rsplit(" ", 1)
+                samples[name] = float(value)
+        found = {
+            "engine": any(k.startswith("dlrm_serve_dispatches_total{bucket=")
+                          and v > 0 for k, v in samples.items()),
+            "batcher": samples.get("dlrm_serve_requests_total", 0) > 0,
+            "queue": samples.get("dlrm_serve_queue_depth", -1) >= 0,
+            "train": samples.get("dlrm_train_steps_total", 0) > 0,
+            "train_rate": samples.get("dlrm_train_samples_per_s", 0) > 0}
+        served = {k: v for k, v in samples.items()
+                  if k.startswith(("dlrm_serve_requests_total",
+                                   "dlrm_serve_dispatches_total",
+                                   "dlrm_train_steps_total"))}
+        # the walls with telemetry on and off: one-row dispatches, and
+        # the per-batch fit's steps, in turns off, on, on, off
+        one = reqs[0]
+        loader = SyntheticDLRMLoader(16 * BATCH, BOT, [ROWS] * TABLES, 1,
+                                     BATCH, seed=0)
+        tm.config.fit_scan_max_bytes = 0   # the per-batch loop
+        tstate, _ = tm.fit(tm.init(seed=0), loader, epochs=1, verbose=False)
+        walls = {"dispatch_us": {"off": [], "on": []},
+                 "step_us": {"off": [], "on": []}}
+        for which in ("off", "on", "on", "off"):
+            ctx = (tele.event_log(ring=200_000) if which == "on"
+                   else contextlib.nullcontext())
+            with ctx:
+                walls["dispatch_us"][which].append(
+                    _timed(lambda: engine.predict(one), 200))
+                t0 = time.perf_counter()
+                tstate, _ = tm.fit(tstate, loader, epochs=1, verbose=False,
+                                   warmup=False)
+                walls["step_us"][which].append(
+                    (time.perf_counter() - t0) * 1e6 / 16)
+        row = {"phase": "telemetry", "events": len(events),
+               "by_type": dict(collections.Counter(e["type"]
+                                                    for e in events)),
+               "invalid": len(invalid), "compile_events": len(compiles),
+               "graph_captures": captures,
+               "compile_fns": sorted(e.get("fn", "") for e in compiles),
+               "metrics_families": found, "metrics_samples": served,
+               "fit_graphs": fit_row["graphs"],
+               "walls_off_on": walls,
+               "note": "walls are information, not a claim"}
+        log(row)
+        if invalid:
+            raise AssertionError(f"invalid telemetry events: {invalid[:3]}")
+        if len(compiles) != captures or not all(found.values()):
+            raise AssertionError(f"telemetry on the card: {row}")
+        del engine, batcher, tm, tstate
+    finally:
+        srv.stop()
+    _free()
+    return row
+
+
+# -------------------------------------------------------------- phase 18
+def time_bf16_kernels(table, bag_table):
+    """B2, B5 and B1 on bf16 storage (information for PERF.md's kernel
+    table): the row update on the (vii) table, 8M x 64 bf16, n = 2048
+    uniform and zipf ids with bf16 updates; the row set at the epilogue
+    and block shapes into bf16 tables; the bag on a 1M x 128 bf16 table,
+    bag 8, at every serving bucket.  Each beside its bytes bound (2-byte
+    elements), its plain version and its library call on bf16
+    (``index_add_``, ``index_copy_``, ``F.embedding_bag``).  Returns the
+    main-path rows: zipf, the epilogue and B = 256."""
+    tb = table.to(torch.bfloat16)
+    rows = time_row_update(tb, extras=False)
+    sets = time_row_set(tb)
+    bag = time_embedding_bag(bag_table.to(torch.bfloat16))
+    del tb
+    _free()
+    return {"row_update": rows["zipf"], "row_set": sets["epilogue"],
+            "row_set_block": sets["block"], "embedding_bag": bag}
+
 
 
 def _entry(name, launches, err, timing):
@@ -2044,6 +2400,9 @@ def main() -> int:
     fwd_err = check_kernel_cases(table)
     serve_launches, path_err = serve(model, state)
     top = time_kernel(model, state)[-1]  # the top serving bucket, B=256
+    # phases 16-17: quantized serving, and telemetry on the card
+    quantized = serve_quantized(model, state)
+    telemetry = telemetry_on_the_card(model, state)
     # the main path launches the folded call: its time, plain version and
     # whole-call bound
     fwd_time = {"ms": top["op_ms"], "plain_ms": top["op_plain_ms"],
@@ -2067,8 +2426,11 @@ def main() -> int:
     # phases 12-13: the staged, cached epochs and the use_pallas graph
     staged, staged_counts = train_staged(inputs, labels)
     bag_row, bag_counts = train_bag_graph()
+    # phase 15 and 13 on bf16 tables: the (vii) headline and the bag graph
+    bf16_row, bf16_counts = train_bf16_tables(inputs, labels)
+    bag16_row, bag16_counts = train_bag_graph(torch.bfloat16)
     path_counts = (headline_counts, sparse_counts, dense_counts, dot_counts,
-                   staged_counts, bag_counts)
+                   staged_counts, bag_counts, bf16_counts, bag16_counts)
     row_launches = sum(c["row_update"] for c in path_counts)
     prep_launches = sum(c["row_update_prep"] for c in path_counts)
     if prep_launches != row_launches:
@@ -2087,12 +2449,29 @@ def main() -> int:
     bwd_time = time_fused_bwd(table)["cat", BATCH]
     set_time = time_row_set(table)["epilogue"]
     bag_time = time_embedding_bag(bag_table)
+    # phase 18: the bf16 kernels' times
+    bf16_times = time_bf16_kernels(table, bag_table)
+    log({"phase": "bf16_kernels", **{
+        k: {f: v[f] for f in ("ms", "plain_ms", "library_ms", "bound_ms",
+                               "bound_by")}
+        for k, v in bf16_times.items()},
+         "launches": {"row_update": sum(c["row_update"]
+                                        for c in (bf16_counts, bag16_counts)),
+                      "row_set": bf16_counts["row_set"],
+                      "embedding_bag": bag16_counts["embedding_bag"]}})
     log({"phase": "done", "wall_s": round(time.perf_counter() - t0, 3),
          "train_step_wall_ms": {"headline": headline["step_wall_ms"],
                                 "fused_dense": dense["step_wall_ms"],
-                                "use_pallas": bag_row["step_wall_ms"]},
+                                "use_pallas": bag_row["step_wall_ms"],
+                                "bf16_tables": bf16_row["step_wall_ms"],
+                                "use_pallas_bf16": bag16_row["step_wall_ms"]},
          "staged_fit_samples_per_s": staged["fit_samples_per_s"],
          "staged_fit_graphs": staged["graphs"],
+         "bf16_staged_fit_samples_per_s":
+             bf16_row["staged_fit"]["fit_samples_per_s"],
+         "quantized_bytes": {m: r["bytes_after"]
+                             for m, r in quantized.items()},
+         "telemetry_events": telemetry["by_type"],
          "note": "walls include each path's eager step and capture"})
     log({"kernels": [
         _entry("fused_interact_fwd",
@@ -2105,9 +2484,10 @@ def main() -> int:
                bwd_err, bwd_time),
         _entry("row_update", row_launches, row_err, row_time),
         _entry("row_update_prep", prep_launches, prep_err, prep_time),
-        _entry("row_set", staged_counts["row_set"], set_err, set_time),
-        _entry("embedding_bag", bag_counts["embedding_bag"], bag_err,
-               bag_time)]})
+        _entry("row_set", staged_counts["row_set"] + bf16_counts["row_set"],
+               set_err, set_time),
+        _entry("embedding_bag", bag_counts["embedding_bag"]
+               + bag16_counts["embedding_bag"], bag_err, bag_time)]})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

@@ -8,7 +8,8 @@ and a built one is reused.  Nothing here
 runs at import: the first CUDA call of a kernel's wrapper builds and
 loads its library, and :func:`build` builds several at once (one ``nvcc``
 per source, all started together).  A machine without ``nvcc`` gets an
-error at that first call, never a silent fallback.
+error at that first call, never a silent fallback.  Each library built
+is one ``compile`` telemetry event (``kind="nvcc"``, ``torch_hooks``).
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional, Sequence, Tuple
+
+from .telemetry.torch_hooks import record_compile
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -89,6 +92,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
             continue
         os.replace(tmp, out)  # atomic: a reader never sees a partial .so
         times[n] = secs
+        record_compile("nvcc", secs, fn=f"csrc/{n}.cu", backend="cuda")
     if failed:
         raise RuntimeError("\n".join(failed))
     return times

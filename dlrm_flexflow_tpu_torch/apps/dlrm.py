@@ -212,7 +212,11 @@ def run(argv: Sequence[str] = ()) -> float:
     """The reference app's CLI: MSE loss with accuracy and MSE metrics,
     SGD at the config's learning rate and weight decay, synthetic data
     (``cli_loader``), trained by ``fit`` on the CUDA card.  Returns
-    samples/s."""
+    samples/s.  ``--embedding-dtype bfloat16`` stores the tables in bf16;
+    ``--serve-quantize`` is the model config's default for an
+    ``InferenceEngine`` built on it; ``--metrics-port`` starts the
+    ``/metrics`` endpoint at ``compile``; ``--profiling`` prints each op's
+    forward and backward times after training."""
     ffconfig = FFConfig.parse_args(argv)
     cfg = DLRMConfig.parse_args(argv)
     if cfg.dataset:
@@ -225,8 +229,13 @@ def run(argv: Sequence[str] = ()) -> float:
                   loss_type="mean_squared_error",
                   metrics=("accuracy", "mean_squared_error"))
     state = model.init()
-    _, thpt = model.fit(state, cli_loader(cfg, ffconfig),
-                        epochs=ffconfig.epochs)
+    state, thpt = model.fit(state, cli_loader(cfg, ffconfig),
+                            epochs=ffconfig.epochs)
+    if ffconfig.profiling:
+        # the reference's --profiling: per-op times after training
+        from ..profiling import OpTimer
+        timer = OpTimer(model)
+        print(timer.report(timer.profile(state, None)))
     return thpt
 
 

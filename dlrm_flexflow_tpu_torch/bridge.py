@@ -12,7 +12,11 @@ changes the container.  On the JAX side, take host copies with
 installs them, and the SGD state (``jax.tree.map(np.asarray,
 state.opt_state)``), on the port model's device.  Stacked ``(T, R, d)``
 tables and per-table ``(R, d)`` tables cross like any other parameter.
-This module imports no JAX.
+
+bf16 tables arrive as numpy arrays of ``ml_dtypes.bfloat16``, which
+``torch.from_numpy`` does not take: they cross bit for bit as their
+``uint16`` view.  ``params_to_numpy`` is the way back (the tests feed its
+arrays to ``jnp.asarray``).  This module imports no JAX.
 """
 
 from __future__ import annotations
@@ -25,9 +29,28 @@ import torch
 
 def _tensor(name, value) -> torch.Tensor:
     arr = np.array(value)  # a copy: JAX host arrays are read-only
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
     if arr.dtype.kind not in "fiub":
         raise TypeError(f"{name}: unsupported dtype {arr.dtype}")
     return torch.from_numpy(arr)
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # the JAX package's bf16 numpy dtype
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def params_to_numpy(params: Mapping[str, Mapping[str, torch.Tensor]]
+                    ) -> Dict[str, Dict[str, np.ndarray]]:
+    """``{op: {param: tensor}}`` -> ``{op: {param: numpy array}}`` on the
+    host, bf16 as ``ml_dtypes.bfloat16`` bit for bit: the reverse of
+    ``params_from_jax``."""
+    return {op_name: {pname: _array(v) for pname, v in p.items()}
+            for op_name, p in params.items()}
 
 
 def params_from_jax(np_params: Mapping[str, Mapping[str, object]]

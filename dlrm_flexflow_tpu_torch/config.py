@@ -11,6 +11,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Sequence
 
+#: the table storage dtypes ``embedding_dtype`` takes
+EMBEDDING_DTYPES = ("float32", "bfloat16")
+
 
 @dataclasses.dataclass
 class FFConfig:
@@ -20,7 +23,12 @@ class FFConfig:
     weight_decay: float = 0.0001
     # per-op matmul precision: "bfloat16" = bf16 operands, f32 accumulation
     compute_dtype: str = "float32"
-    # embedding-table storage dtype (the port's tables are float32)
+    # per-op forward timing printed after fit (the reference's
+    # --profiling; profiling.OpTimer)
+    profiling: bool = False
+    # embedding-table storage dtype (EMBEDDING_DTYPES): bf16 tables halve
+    # the table bytes and train through the row-update, bag and row-set
+    # kernels on bf16 storage
     embedding_dtype: str = "float32"
     # Row-sparse embedding updates under plain SGD ("auto"|"on"|"off"):
     # gather the looked-up rows outside autograd, differentiate with
@@ -68,10 +76,15 @@ class FFConfig:
     serve_max_wait_us: float = 2000.0
     serve_queue_depth: int = 256
     serve_timeout_us: float = 0.0
-    # "off" only in the port so far (quantized tables come later)
+    # serving-table quantization at InferenceEngine load (ops/quantized.py):
+    # "off" serves the training tables as they are, "int8" as int8 codes
+    # plus a per-row f32 scale, "bf16" as bf16 rows; training is untouched
     serve_quantize: str = "off"
     # "resident" only in the port so far (tiered storage comes later)
     serve_storage: str = "resident"
+    # port of the process-wide Prometheus /metrics + /healthz endpoint
+    # (telemetry/exporter.py), started once by FFModel.compile; 0 = off
+    metrics_port: int = 0
     seed: int = 0
 
     @staticmethod
@@ -96,11 +109,15 @@ class FFConfig:
             ("--serve-storage",): ("serve_storage", str),
             ("--epoch-row-cache",): ("epoch_row_cache", str),
             ("--fit-scan-max-bytes",): ("fit_scan_max_bytes", int),
+            ("--metrics-port",): ("metrics_port", int),
         }
+        switches = {"--profiling": "profiling"}
         by_flag = {f: v for names, v in flags.items() for f in names}
         argv = list(argv)
         i = 0
         while i < len(argv):
+            if argv[i] in switches:
+                setattr(cfg, switches[argv[i]], True)
             hit = by_flag.get(argv[i])
             if hit is not None and i + 1 < len(argv):
                 field, conv = hit

@@ -16,13 +16,19 @@
 // plus the n ids.  At the run_random.sh epilogue (n = 131,072 rows of
 // d = 64 f32 into the 8M-row table) that is 2 * n * 256 B + 4 n = 67.6 MB,
 // 20.2 us at 3.35 TB/s; a ladder block writeback (n = 16,384 into the
-// 131,072-row epoch cache) moves 8.45 MB, 2.52 us.
+// 131,072-row epoch cache) moves 8.45 MB, 2.52 us.  bf16 rows halve both:
+// 33.8 MB (10.1 us) and 4.26 MB (1.27 us).
 //
-// Design: one warp per slot, a coalesced copy of the row (16-byte loads
-// and stores when d % 4 == 0 and both pointers are 16-byte aligned), no
-// atomics and no shared memory.  The TPU kernel's 16-slot blocks of
-// per-row async DMAs and their semaphores are TPU artefacts and are not
-// carried over.
+// The rows are f32 or bf16, in the table's dtype (JAX casts them to it,
+// pallas_scatter.py:538, and so does the wrapper): a pure data move of
+// 4- or 2-byte elements, bit-exact, so the kernel copies a row as words
+// and never looks at an element.  A bf16 table moves half the bytes.
+//
+// Design: one warp per slot, a coalesced copy of the row in the widest
+// words the row's bytes and both pointers allow (16 bytes at d = 64 of
+// either dtype, then 4, then 2), no atomics and no shared memory.  The
+// TPU kernel's 16-slot blocks of per-row async DMAs and their semaphores
+// are TPU artefacts and are not carried over.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -32,26 +38,31 @@ namespace {
 constexpr int kWarpsPerBlock = 8;
 constexpr int kThreads = 32 * kWarpsPerBlock;
 
+// W: the copy word (uint4, uint32_t or uint16_t); a row is `words` of them
+template <typename W>
 __global__ void __launch_bounds__(kThreads) row_set_kernel(
-    float* __restrict__ table, const int32_t* __restrict__ ids,
-    const float* __restrict__ rows, int n, int dim, long long num_rows,
-    int vec4) {
+    W* __restrict__ table, const int32_t* __restrict__ ids,
+    const W* __restrict__ rows, int n, int words, long long num_rows) {
   const int lane = threadIdx.x & 31;
   const long long k =
       static_cast<long long>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
   if (k >= n) return;
   const int32_t id = __ldg(ids + k);
   if (id < 0 || id >= num_rows) return;  // dropped
-  float* dst = table + static_cast<long long>(id) * dim;
-  const float* src = rows + k * dim;
-  if (vec4) {
-    const int nvec = dim >> 2;
-    for (int c = lane; c < nvec; c += 32)
-      reinterpret_cast<float4*>(dst)[c] =
-          __ldg(reinterpret_cast<const float4*>(src) + c);
-  } else {
-    for (int c = lane; c < dim; c += 32) dst[c] = __ldg(src + c);
-  }
+  W* dst = table + static_cast<long long>(id) * words;
+  const W* src = rows + k * words;
+  for (int c = lane; c < words; c += 32) dst[c] = __ldg(src + c);
+}
+
+template <typename W>
+int launch(void* table, const void* ids, const void* rows, int n,
+           int row_bytes, long long num_rows, cudaStream_t stream) {
+  const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  row_set_kernel<W><<<blocks, kThreads, 0, stream>>>(
+      static_cast<W*>(table), static_cast<const int32_t*>(ids),
+      static_cast<const W*>(rows), n,
+      row_bytes / static_cast<int>(sizeof(W)), num_rows);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -60,17 +71,23 @@ extern "C" {
 
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 when the
 // launch was accepted).  The caller checks devices, dtypes and shapes:
-// table (num_rows, dim) f32 contiguous; ids (n,) int32; rows (n, dim) f32
-// contiguous.  `vec4` may be set only when dim % 4 == 0 and table and rows
-// are 16-byte aligned.
-int ff_row_set(void* table, const void* ids, const void* rows, int n, int dim,
-               long long num_rows, int vec4, void* stream) {
+// table (num_rows, d) contiguous; ids (n,) int32; rows (n, d) contiguous
+// in the table's dtype; a row is `row_bytes` bytes.  `word` (16, 4 or 2)
+// must divide row_bytes and both pointers' addresses.
+int ff_row_set(void* table, const void* ids, const void* rows, int n,
+               int row_bytes, long long num_rows, int word, void* stream) {
   if (n <= 0) return 0;
-  const int blocks = (n + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  row_set_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float*>(table), static_cast<const int32_t*>(ids),
-      static_cast<const float*>(rows), n, dim, num_rows, vec4);
-  return static_cast<int>(cudaGetLastError());
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (word) {
+    case 16:
+      return launch<uint4>(table, ids, rows, n, row_bytes, num_rows, s);
+    case 4:
+      return launch<uint32_t>(table, ids, rows, n, row_bytes, num_rows, s);
+    case 2:
+      return launch<uint16_t>(table, ids, rows, n, row_bytes, num_rows, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 const char* ff_cuda_error_string(int code) {

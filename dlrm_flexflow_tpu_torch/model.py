@@ -34,6 +34,22 @@ epoch of a shape: ``fit(epochs=2)`` of the run_random.sh CLI (64 staged
 batches) captures once.  The prologue, the block fetches and writebacks
 and the epilogue stay eager.  A mesh comes with the scale-out slice;
 checkpoints and resilient training with the durability slice.
+
+Tables are stored in ``FFConfig.embedding_dtype`` (f32 or bf16) through
+every path above: a bf16 table's row-sparse step, cache writebacks and
+bag go through the row-update, row-set and bag kernels on bf16 storage.
+
+Telemetry follows the JAX package's trainer (``model.py:2506-2686``):
+with an event log active, ``train_epoch(s)`` and ``fit`` emit ``step``
+events (and ``fit``'s per-batch loop ``phase_time`` events), ``fit``
+opens the span chain ``train.fit`` -> ``train.epoch`` ->
+``train.dispatch``, samples row frequencies and memory, and each capture
+of the step is a ``compile`` event; the train metrics
+(``telemetry/metrics.py``) update after every ``fit``.  All of it runs on
+the host around the step, never inside ``_step_body``, and with no log
+active it costs a global read per call and nothing that allocates or
+synchronises.  ``compile`` starts the ``/metrics`` endpoint when
+``FFConfig.metrics_port`` is set.
 """
 
 from __future__ import annotations
@@ -48,7 +64,7 @@ import numpy as np
 import torch
 
 from . import _cuda
-from .config import FFConfig
+from .config import EMBEDDING_DTYPES, FFConfig
 from .device import resolve_device
 from .epoch_cache import (build_cache, cache_fetch, cache_writeback,
                           ladder_arrays, ladder_meta, named_levels)
@@ -61,8 +77,14 @@ from .ops import (BatchMatmul, Concat, Embedding, Flat, FusedEmbedInteract,
                   Linear, Op, RaggedStackedEmbedding, Reshape,
                   StackedEmbedding, Transpose)
 from .ops.embedding import lane_pack
+from .ops.quantized import QUANT_MODES
 from .ops.row_update_kernel import row_update_cuda
 from .optim import Optimizer, SGDOptimizer
+from .telemetry import active_log, sample_memory
+from .telemetry import metrics as _tmetrics
+from .telemetry import rowfreq as _rowfreq
+from .telemetry.torch_hooks import record_compile
+from .telemetry.trace import NULL_SPAN, start_span
 from .tensor import Tensor, as_dtype, numpy_dtype
 
 EMBEDDING_OPS = (Embedding, StackedEmbedding, RaggedStackedEmbedding)
@@ -177,7 +199,11 @@ class FFModel:
     def _table_dtype(self, table_dtype):
         if table_dtype is not None:
             return as_dtype(table_dtype)
-        return as_dtype(getattr(self.config, "embedding_dtype", "float32"))
+        dt = getattr(self.config, "embedding_dtype", "float32")
+        if dt not in EMBEDDING_DTYPES:
+            raise ValueError(f"embedding_dtype must be one of "
+                             f"{EMBEDDING_DTYPES}, got {dt!r}")
+        return as_dtype(dt)
 
     def embedding(self, input_tensor, num_entries, out_dim, aggr="sum",
                   kernel_initializer=None, name=None, table_dtype=None):
@@ -296,6 +322,16 @@ class FFModel:
             if mode not in _MODES:
                 raise ValueError(f"{name} must be 'auto'|'on'|'off', "
                                  f"got {mode!r}")
+        quantize = getattr(self.config, "serve_quantize", "off")
+        if quantize not in QUANT_MODES:
+            raise ValueError(f"serve_quantize must be one of {QUANT_MODES}, "
+                             f"got {quantize!r}")
+        # the opt-in live-metrics endpoint: one process-wide /metrics and
+        # /healthz server, started at most once (compile is the gate
+        # every training and serving path passes)
+        if int(getattr(self.config, "metrics_port", 0) or 0):
+            from .telemetry.exporter import start_metrics_server
+            start_metrics_server(int(self.config.metrics_port))
         self.optimizer = optimizer or SGDOptimizer(
             lr=self.config.learning_rate,
             weight_decay=self.config.weight_decay)
@@ -538,8 +574,13 @@ class FFModel:
             return run_eager(self._step_body, batch, carried, device=dev)
         if dev.type == "cuda" and self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
+        tc = time.perf_counter()
         runner = GraphRunner(self._step_body, batch, carried,
                              pool=self._graph_pool, lock=self._graph_lock)
+        # the capture is the step's AOT compile (JAX model.py:2460-2470):
+        # one event, its wall and the donated state
+        record_compile("aot", time.perf_counter() - tc, fn="train_step",
+                       donated_args=1, backend=dev.type)
         self._step_graphs[sig] = runner
         self.graph_captures += 1
         out = runner.run(batch, carried)
@@ -802,11 +843,23 @@ class FFModel:
         self._require_compiled()
         dev = params_device(state.params)
         inputs, labels = self.place_dataset(inputs, labels, dev)
+        log = active_log()
+        t0 = time.perf_counter()
         self._resolve_cache(dev)
         bounds = self._epoch_chunk_bounds(labels.shape[0])
         if bounds is None:
-            return self._train_epoch(state, inputs, labels)
-        return self._run_epoch_chunks(state, inputs, labels, bounds)
+            out = self._train_epoch(state, inputs, labels)
+        else:
+            out = self._run_epoch_chunks(state, inputs, labels, bounds)
+        if log is not None:
+            # a dispatch wall (fenced=False): the steps return before the
+            # card finishes, and no device value is read here
+            nb = int(labels.shape[0])
+            log.emit("step", wall_s=time.perf_counter() - t0,
+                     samples=nb * int(labels.shape[1]), steps=nb,
+                     fenced=False, phase="train_epoch")
+            sample_memory(phase="train_epoch", log=log)
+        return out
 
     def train_epochs(self, state: TrainState, inputs, labels, epochs: int):
         """``epochs`` passes over the stacked batches, with one cache
@@ -816,15 +869,27 @@ class FFModel:
         self._require_compiled()
         dev = params_device(state.params)
         inputs, labels = self.place_dataset(inputs, labels, dev)
+        log = active_log()
+        t0 = time.perf_counter()
         self._resolve_cache(dev)
         bounds = self._epoch_chunk_bounds(labels.shape[0])
         if bounds is None:
-            return self._train_epochs(state, inputs, labels, epochs)
-        mets = []
-        for _ in range(int(epochs)):
-            state, m = self._run_epoch_chunks(state, inputs, labels, bounds)
-            mets.append(m)
-        return state, _stack(mets)
+            out = self._train_epochs(state, inputs, labels, epochs)
+        else:
+            mets = []
+            for _ in range(int(epochs)):
+                state, m = self._run_epoch_chunks(state, inputs, labels,
+                                                  bounds)
+                mets.append(m)
+            out = (state, _stack(mets))
+        if log is not None:
+            nb = int(labels.shape[0])
+            log.emit("step", wall_s=time.perf_counter() - t0,
+                     samples=int(epochs) * nb * int(labels.shape[1]),
+                     steps=nb, epochs=int(epochs), fenced=False,
+                     phase="train_epochs")
+            sample_memory(phase="train_epochs", log=log)
+        return out
 
     def _epoch_chunk_bounds(self, nb: int):
         """``(lo, hi)`` chunk slices for a chunked epoch, or None when
@@ -957,40 +1022,145 @@ class FFModel:
             if verbose:
                 print(f"epoch {epoch}: {acc.report()}")
 
+        if scan_data is not None:
+            # row frequencies of the staged ids, sampled once, outside
+            # the timed window (no-op while telemetry is off)
+            _rowfreq.observe_dataset(scan_data[0])
+        # the span chain: train.fit covers the timed region, each epoch
+        # and each dispatched step or epoch program is a child; parents
+        # are explicit, and with telemetry off every span is the null one
+        fit_span = start_span("train.fit", attrs={"epochs": int(epochs)})
         t0 = time.perf_counter()
         samples = 0
+        pstep = 0                 # the per-batch loop's host step count
+        last_iter_t = t0
+        stall_s = 0.0             # host wall waiting on the dataloader
+        dispatch_s = 0.0          # host wall issuing the steps
+        last_loss = None          # the final epoch's loss (step event)
+        fused = False
         if scan_data is not None:
             self._resolve_cache(dev)
             bounds = self._epoch_chunk_bounds(scan_data[1].shape[0])
             samples = epochs * dataloader.num_batches * dataloader.batch_size
-            if bounds is None and epochs > 1:
-                state, stacked = self._train_epochs(state, *scan_data, epochs)
-                for epoch in range(epochs):
-                    report(epoch, {k: v[epoch] for k, v in stacked.items()})
-            else:
-                for epoch in range(epochs):
-                    state, mets = (self._train_epoch(state, *scan_data)
-                                   if bounds is None else
-                                   self._run_epoch_chunks(state, *scan_data,
-                                                          bounds))
-                    report(epoch, mets)
-        else:
+            fused = bounds is None and epochs > 1
+        if fused:
+            # every epoch in one train_epochs: one cache prologue and
+            # epilogue for the whole run
+            dspan = start_span("train.dispatch", parent=fit_span,
+                               attrs={"epochs": int(epochs), "fused": True})
+            state, stacked = self._train_epochs(state, *scan_data, epochs)
+            dspan.end()
+            last_loss = stacked["loss"][-1] if "loss" in stacked else None
             for epoch in range(epochs):
+                report(epoch, {k: v[epoch] for k, v in stacked.items()})
+        for epoch in range(epochs) if not fused else ():
+            ep_span = start_span("train.epoch", parent=fit_span,
+                                 attrs={"epoch": epoch})
+            if scan_data is not None:
+                dspan = start_span("train.dispatch", parent=ep_span,
+                                   attrs={"epoch": epoch})
+                state, mets = (self._train_epoch(state, *scan_data)
+                               if bounds is None else
+                               self._run_epoch_chunks(state, *scan_data,
+                                                      bounds))
+                dspan.end()
+                last_loss = mets.get("loss", last_loss)
+                report(epoch, mets)
+            else:
                 acc.reset()
-                for inputs, labels in dataloader:
+                batches = iter(dataloader)
+                it = -1
+                while True:
+                    ts = time.perf_counter()
+                    try:
+                        inputs, labels = next(batches)
+                    except StopIteration:
+                        break
+                    bstall = time.perf_counter() - ts
+                    stall_s += bstall
+                    it += 1
+                    _rowfreq.observe_batch(inputs)
+                    # the null ep_span (no event log at the epoch's
+                    # start) keeps the step free of span work
+                    dspan = (start_span("train.dispatch", parent=ep_span,
+                                        attrs={"epoch": epoch, "it": it})
+                             if ep_span else NULL_SPAN)
+                    td = time.perf_counter()
                     state, mets = self.train_step(state, inputs, labels)
+                    dwall = time.perf_counter() - td
+                    dispatch_s += dwall
+                    dspan.end()
+                    pstep += 1
+                    log = active_log()
+                    if log is not None:
+                        # per-step phase attribution, no device sync: the
+                        # final fence's wall lands on the summary below
+                        now = time.perf_counter()
+                        log.emit("phase_time", step=pstep, phase="step",
+                                 step_wall_ms=(now - last_iter_t) * 1e3,
+                                 data_wait_ms=bstall * 1e3,
+                                 dispatch_ms=dwall * 1e3,
+                                 samples=int(labels.shape[0]))
+                        last_iter_t = now
                     samples += int(labels.shape[0])
                     acc.update({k: v for k, v in mets.items()
                                 if k != "loss"})
+                    last_loss = mets.get("loss", last_loss)
                 if verbose:
                     print(f"epoch {epoch}: {acc.report()}")
+            ep_span.end()
+        tf = time.perf_counter()
         _synchronize(dev)
+        fence_s = time.perf_counter() - tf
         elapsed = time.perf_counter() - t0
         thpt = samples / max(elapsed, 1e-9)
+        fit_span.set_attr("samples", int(samples))
+        fit_span.end()
+        self._fit_telemetry(scan_data is None, dataloader, epochs, elapsed,
+                            thpt, samples, acc, last_loss, stall_s,
+                            dispatch_s, fence_s, pstep)
         if verbose and show_throughput:
             print(f"ELAPSED TIME = {elapsed:.4f}s, "
                   f"THROUGHPUT = {thpt:.2f} samples/s")
         return state, thpt
+
+    def _fit_telemetry(self, per_batch, dataloader, epochs, elapsed, thpt,
+                       samples, acc, last_loss, stall_s, dispatch_s,
+                       fence_s, pstep) -> None:
+        """``fit``'s closing metrics and events (JAX ``model.py:2636-2686``),
+        after its final device synchronise: the train gauges and step
+        counter always; with an event log active, the fenced ``step``
+        event, the per-batch loop's ``phase_time`` summary, the row
+        frequencies and a memory sample."""
+        _tmetrics.TRAIN_SAMPLES_PER_S.set(thpt)
+        if per_batch:
+            _tmetrics.DATA_STALL_PCT.set(100.0 * stall_s / max(elapsed, 1e-9))
+        nb = getattr(dataloader, "num_batches", None)
+        if nb:
+            _tmetrics.TRAIN_STEPS.inc(int(epochs) * int(nb))
+        log = active_log()
+        if log is None:
+            return
+        pipeline = ({"data_stall_ms": round(stall_s * 1e3, 3),
+                     "dispatch_ms": round(dispatch_s * 1e3, 3)}
+                    if per_batch else {})
+        log.emit("step", wall_s=elapsed, samples=int(samples),
+                 samples_per_s=thpt, epochs=int(epochs), fenced=True,
+                 phase="fit", metrics=acc.finalized_means(),
+                 loss=(float(last_loss) if last_loss is not None else None),
+                 **pipeline)
+        if per_batch:
+            # the per-batch loop runs ahead of the card, so the final
+            # synchronise's wall is the device work the host did not hide
+            exposed = 100.0 * fence_s / max(elapsed, 1e-9)
+            log.emit("phase_time", step=pstep, phase="fit", steps=pstep,
+                     step_wall_ms=elapsed * 1e3, data_wait_ms=stall_s * 1e3,
+                     dispatch_ms=dispatch_s * 1e3,
+                     sync_wait_ms=fence_s * 1e3, exposed_comm_pct=exposed,
+                     samples=int(samples))
+            _tmetrics.EXPOSED_COMM_PCT.set(exposed)
+        _rowfreq.emit_all(log)
+        sample_memory(phase="fit", log=log)
 
 
 def _stack(mets):

@@ -10,6 +10,12 @@ then divides the sum by the bag (a true division).  Ids follow
 (``embedding.take_rows``): an id in ``[-R, 0)`` wraps, any other id
 outside ``[0, R)`` reads a row of NaN.
 
+Tables are f32 or bf16, and the output is in the table's dtype, as the TPU
+kernel's is: on a bf16 table each add rounds to bf16 (the plain version's
+bf16 ``+`` adds in f32 and rounds once, as the kernel does), and ``avg``
+divides and rounds once more.  The op casts the output to its declared
+dtype.
+
 ``embedding_bag_cuda`` launches the kernel (``csrc/embedding_bag.cu``)
 for tensors on a CUDA device and runs ``embedding_bag_ref`` only for
 tensors on the CPU; a CUDA tensor never reaches the plain version
@@ -26,6 +32,7 @@ import torch
 
 from .. import _cuda
 from .fused_interact_kernel import divide
+from .row_update_kernel import TABLE_DTYPES
 
 BAG_MODES = ("sum", "avg")
 
@@ -63,17 +70,17 @@ def embedding_bag_ref(table, ids, mode: str = "sum"):
 _SIGNATURES = {
     "ff_embedding_bag": (
         ctypes.c_int,
-        [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p]
-        + [ctypes.c_int] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 2
-        + [ctypes.c_void_p]),
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+         ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_longlong]
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p]),
     "ff_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 _count_lock = threading.Lock()
 
 
 def embedding_bag_cuda(table, ids, mode: str = "sum"):
-    """The bag forward.  ``table`` (R, d) f32, ``ids`` (B, bag) int32 or
-    int64; returns (B, d) f32.
+    """The bag forward.  ``table`` (R, d) f32 or bf16, ``ids`` (B, bag)
+    int32 or int64; returns (B, d) in the table's dtype.
 
     On CUDA tensors this launches the Hopper kernel (and adds one to
     ``embedding_bag_cuda.launches``) or raises; on CPU tensors it runs
@@ -84,9 +91,9 @@ def embedding_bag_cuda(table, ids, mode: str = "sum"):
         return embedding_bag_ref(table, ids, mode)
     if table.device.type != "cuda":
         raise ValueError(f"no embedding_bag kernel for {table.device}")
-    if table.dtype != torch.float32:
-        raise TypeError(f"embedding_bag kernel takes an f32 table, got "
-                        f"{table.dtype}")
+    if table.dtype not in TABLE_DTYPES:
+        raise TypeError(f"embedding_bag kernel takes an f32 or bf16 table, "
+                        f"got {table.dtype}")
     if not table.is_contiguous():
         raise ValueError("embedding_bag kernel reads a contiguous table")
     rows_n, dim = table.shape
@@ -95,15 +102,18 @@ def embedding_bag_cuda(table, ids, mode: str = "sum"):
                          f"int32 rows")
     bsz, bag = ids.shape
     ids = ids.contiguous()
-    out = torch.empty((bsz, dim), dtype=torch.float32, device=table.device)
+    out = torch.empty((bsz, dim), dtype=table.dtype, device=table.device)
     if bsz == 0 or dim == 0:
         return out
-    vec4 = int(dim % 4 == 0 and table.data_ptr() % 16 == 0
-               and out.data_ptr() % 16 == 0)
+    align = 4 * table.element_size()
+    vec4 = int(dim % 4 == 0 and table.data_ptr() % align == 0
+               and out.data_ptr() % align == 0)
     lib = _cuda.load("embedding_bag", _SIGNATURES)
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.ff_embedding_bag(table.data_ptr(), ids.data_ptr(),
+        err = lib.ff_embedding_bag(table.data_ptr(),
+                                   int(table.dtype == torch.bfloat16),
+                                   ids.data_ptr(),
                                    int(ids.dtype == torch.int64),
                                    out.data_ptr(), bsz, bag, dim, rows_n,
                                    int(mode == "avg"), vec4, stream)

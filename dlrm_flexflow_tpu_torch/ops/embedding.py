@@ -26,6 +26,16 @@ the scatter follows ``.at[].add`` (an id in ``[-R, 0)`` wraps, any other
 out-of-range id is dropped).  The JAX package's lane-packed storage and
 CPU-placed tables are TPU or later-slice features with no counterpart
 here.
+
+Tables are stored in ``table_dtype``, f32 or bf16
+(``FFConfig.embedding_dtype``).  The forward follows the JAX package's
+(``ops/embedding.py:120-148``): the rows are gathered in the table's
+dtype, dequantized when the params carry an int8 serving table's scale
+(``qscale__``, ``ops/quantized.py``), pooled, and cast to the op's
+declared output dtype.  A bf16 bag is pooled as ``jnp.sum`` and
+``jnp.mean`` pool it (``pool``); the bag kernel keeps the TPU kernel's
+own bf16 sum.  An int8 table never takes the bag kernel, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -38,7 +48,8 @@ from ..tensor import ParameterSpec
 from .bag_kernel import embedding_bag_cuda
 from .base import Op
 from .fused_interact_kernel import divide
-from .row_update_kernel import row_update_cuda
+from .quantized import QSCALE_KEY, dequant_rows
+from .row_update_kernel import TABLE_DTYPES, row_update_cuda
 
 AGGR_MODES = ("sum", "avg", "none")
 
@@ -54,34 +65,54 @@ def lane_pack(dim: int) -> int:
 def take_rows(table, ids):
     """``jnp.take(table, ids, axis=0)`` in the JAX package's default mode:
     an id in ``[-R, 0)`` wraps to ``id + R``; any other id outside
-    ``[0, R)`` reads a row of NaN.  Returns ``ids.shape + (d,)``."""
+    ``[0, R)`` reads a row of NaN (of the integer dtype's minimum for an
+    int8 table, ``jnp.take``'s fill).  Returns ``ids.shape + (d,)``."""
     r = table.shape[0]
     ids = ids.long()
     ids = torch.where(ids < 0, ids + r, ids)
     ok = (ids >= 0) & (ids < r)
     rows = table[torch.where(ok, ids, torch.zeros_like(ids))]
+    fill = (float("nan") if table.is_floating_point()
+            else torch.iinfo(table.dtype).min)
     return torch.where(ok[..., None], rows,
-                       torch.full((), float("nan"), dtype=table.dtype,
+                       torch.full((), fill, dtype=table.dtype,
                                   device=table.device))
 
 
 def pool(rows, aggr: str, dim: int):
-    """Sum over the bag axis ``dim``, divided by the bag for ``avg``
-    (a true division: ``torch.mean`` multiplies by the reciprocal and can
-    round differently)."""
-    pooled = rows.sum(dim=dim)
+    """``jnp.sum`` or ``jnp.mean`` over the bag axis ``dim``.  f32 rows
+    sum in f32, ``avg`` divides the sum by the bag (a true division:
+    ``torch.mean`` multiplies by the reciprocal and can round
+    differently).  bf16 rows pool as JAX pools a low-precision bag: the
+    sum in f32 in bag order, ``avg`` divided in f32, rounded to bf16
+    once."""
+    if rows.dtype != torch.bfloat16:
+        pooled = rows.sum(dim=dim)
+        return divide(pooled, rows.shape[dim]) if aggr == "avg" else pooled
+    bag = rows.shape[dim]
+    acc = (rows.select(dim, 0).float() if bag else
+           rows.sum(dim=dim, dtype=torch.float32))
+    for j in range(1, bag):
+        acc = acc + rows.select(dim, j).float()
     if aggr == "avg":
-        pooled = divide(pooled, rows.shape[dim])
-    return pooled
+        acc = divide(acc, bag)
+    return acc.to(rows.dtype)
 
 
-def _f32_table(name, table_dtype):
-    if table_dtype != torch.float32:
-        raise NotImplementedError(
-            f"{name}: {table_dtype} tables are not ported yet (float32 "
-            "only); bf16 and quantized tables come with the "
-            "serving-extras slice in ROADMAP.md")
+def check_table_dtype(name, table_dtype):
+    """``table_dtype`` when the port stores tables in it (f32 or bf16),
+    else TypeError."""
+    if table_dtype not in TABLE_DTYPES:
+        raise TypeError(f"{name}: embedding tables are float32 or "
+                        f"bfloat16, got {table_dtype}")
     return table_dtype
+
+
+def gather_dequant(table, qscale, gids):
+    """``take_rows(table, gids)``, dequantized to f32 when ``qscale`` (an
+    int8 serving table's scale column) is given."""
+    rows = take_rows(table, gids)
+    return rows if qscale is None else dequant_rows(rows, qscale, gids)
 
 
 class EmbeddingBagFn(torch.autograd.Function):
@@ -126,7 +157,7 @@ class Embedding(Op):
         self.num_entries = int(num_entries)
         self.out_dim = int(out_dim)
         self.aggr = aggr
-        self.table_dtype = _f32_table(name, table_dtype)
+        self.table_dtype = check_table_dtype(name, table_dtype)
         # the JAX package's flag and eligibility: the bag kernel's path
         # (the d % 128 rule is the TPU's lane tiling; the Hopper kernel
         # needs none of it, but the op must take the reference's path)
@@ -151,16 +182,17 @@ class Embedding(Op):
     def forward(self, params, xs):
         (idx,) = xs
         rows = params.get("rows__")
+        qscale = params.get(QSCALE_KEY)
         if rows is None:
             # the JAX package's conditions for its bag kernel (no
-            # quantization scale, which the port's tables never carry;
-            # 2-D ids; sum or avg; B % 8 == 0, the TPU's sublane tile)
-            if (self.use_pallas and idx.dim() == 2
+            # quantization scale; 2-D ids; sum or avg; B % 8 == 0, the
+            # TPU's sublane tile)
+            if (self.use_pallas and qscale is None and idx.dim() == 2
                     and self.aggr in ("sum", "avg") and idx.shape[0] % 8 == 0):
                 out = EmbeddingBagFn.apply(params["embedding"], idx,
                                            self.aggr)
                 return [out.to(self.outputs[0].dtype)]
-            rows = take_rows(params["embedding"], idx)
+            rows = gather_dequant(params["embedding"], qscale, idx)
         if idx.dim() >= 2 and self.aggr != "none":
             rows = pool(rows, self.aggr, -2)
         return [rows.to(self.outputs[0].dtype)]
@@ -194,7 +226,7 @@ class StackedEmbedding(Op):
         self.num_entries = int(num_entries)
         self.out_dim = int(out_dim)
         self.aggr = aggr
-        self.table_dtype = _f32_table(name, table_dtype)
+        self.table_dtype = check_table_dtype(name, table_dtype)
         self.kernel_initializer = (kernel_initializer
                                    or UniformInitializer(-0.05, 0.05))
         if input_tensor.shape[1] != num_tables:
@@ -218,7 +250,18 @@ class StackedEmbedding(Op):
     def forward(self, params, xs):
         (idx,) = xs  # (batch, T, bag)
         rows = params.get("rows__")  # sparse-update path: (B, T, bag, d)
-        if rows is None:
+        qscale = params.get(QSCALE_KEY)
+        if rows is None and qscale is not None:
+            # an int8 serving table: local ids clamped into their own
+            # table (int8 codes cannot read NaN, so a stray id must never
+            # land on a neighbouring table's row), one flat gather, the
+            # gathered rows dequantized
+            tables = params["embedding"]
+            t, r, d = tables.shape
+            gids = self.flat_ids(idx.clamp(0, self.num_entries - 1))
+            rows = dequant_rows(take_rows(tables.reshape(t * r, d), gids),
+                                qscale, gids)
+        elif rows is None:
             # each table's own jnp.take (the JAX package vmaps one take
             # per table): wrap and drop per table, then one flat gather
             tables = params["embedding"]
@@ -267,7 +310,7 @@ class RaggedStackedEmbedding(Op):
         self.num_tables = len(self.row_counts)
         self.out_dim = int(out_dim)
         self.aggr = aggr
-        self.table_dtype = _f32_table(name, table_dtype)
+        self.table_dtype = check_table_dtype(name, table_dtype)
         self.kernel_initializer = (kernel_initializer
                                    or UniformInitializer(-0.05, 0.05))
         self.offsets = np.concatenate(
@@ -308,7 +351,8 @@ class RaggedStackedEmbedding(Op):
         (idx,) = xs
         rows = params.get("rows__")
         if rows is None:
-            rows = self.gather_rows(params["embedding"], idx)
+            rows = gather_dequant(params["embedding"],
+                                  params.get(QSCALE_KEY), self.flat_ids(idx))
         return [pool(rows, self.aggr, 2).to(self.outputs[0].dtype)]
 
     def flat_ids(self, idx):

@@ -13,13 +13,21 @@ Forward paths:
 * injected ``rows__`` (the row-sparse training step): mask the dropped
   slots, pool and interact in plain PyTorch, differentiated by autograd
   with respect to the rows;
-* otherwise ``FusedEmbedInteractFn``, the counterpart of the JAX
-  package's ``fused_embed_interact`` custom VJP: the forward kernel at
+* an f32 table with a non-empty bag and ``d % 8 == 0``
+  (``kernel_eligible``): ``FusedEmbedInteractFn``, the counterpart of the
+  JAX package's ``fused_embed_interact`` custom VJP: the forward kernel at
   every batch size on the card, one launch that also masks the local
-  ids (``fused_embed_interact_cuda``), the plain version on the CPU.
-  The JAX package's cost gate (``kernel_costs.fused_interact_wins``)
-  holds TPU v5e constants and is not carried over; re-measuring it on
-  the H100 is queued in ROADMAP.md.
+  ids (``fused_embed_interact_cuda``), the plain version on the CPU;
+* any other table (a bf16 training table, an int8 or bf16 serving
+  table): the JAX package's emitter path in PyTorch, on every device:
+  mask, gather, dequantize an int8 table's rows, ``masked_pool_interact``,
+  differentiated by autograd.
+
+The route is the JAX package's static rule (``_kernel_ok``,
+``fused_interact.py:78-101``), decided from the table's dtype and the
+op's shapes, never by catching an error.  Its cost gate
+(``kernel_costs.fused_interact_wins``) holds TPU v5e constants and is not
+carried over: on the card an eligible table always takes the kernel.
 """
 
 from __future__ import annotations
@@ -31,7 +39,16 @@ from .fused_interact_kernel import (BF16_NAMES, fused_embed_interact_cuda,
                                     fused_interact_bwd_cuda,
                                     fused_interact_ref, interact_width,
                                     mask_local_ids, masked_pool_interact)
+from .quantized import QSCALE_KEY, dequant_rows
 from .row_update_kernel import row_update_cuda
+
+
+def kernel_eligible(table_dtype, dim: int, bag: int) -> bool:
+    """The JAX package's static eligibility of the fused kernels
+    (``pallas_fused_interact.py:271-278``): an f32 table, a non-empty bag
+    and ``d % 8 == 0``.  bf16 and quantized tables take the emitter
+    path."""
+    return table_dtype == torch.float32 and bag > 0 and dim % 8 == 0
 
 
 class FusedEmbedInteractFn(torch.autograd.Function):
@@ -92,10 +109,6 @@ class FusedEmbedInteract(RaggedStackedEmbedding):
                  out_dim: int, interact: str = "cat", aggr: str = "sum",
                  kernel_initializer=None, dtype=torch.float32,
                  table_dtype=torch.float32, compute_dtype=None):
-        if table_dtype != torch.float32:
-            raise NotImplementedError(
-                "FusedEmbedInteract runs f32 tables; bf16 and quantized "
-                "tables come with the serving-extras slice (ROADMAP.md)")
         super().__init__(name, ids_tensor, row_counts, out_dim, aggr,
                          kernel_initializer, dtype, table_dtype)
         self.compute_dtype = compute_dtype  # the dot interaction's precision
@@ -127,8 +140,22 @@ class FusedEmbedInteract(RaggedStackedEmbedding):
             return [masked_pool_interact(rows, gids, bottom, self.interact,
                                          self.aggr, out_dtype,
                                          self.compute_dtype)]
-        out = FusedEmbedInteractFn.apply(
-            params["embedding"], bottom.float().contiguous(),
-            idx.contiguous(), offsets, row_counts, self.interact, self.aggr,
-            self.compute_dtype)
-        return [out.to(out_dtype)]
+        table = params["embedding"]
+        qscale = params.get(QSCALE_KEY)
+        if qscale is None and kernel_eligible(table.dtype, self.out_dim,
+                                              idx.shape[-1]):
+            out = FusedEmbedInteractFn.apply(
+                table, bottom.float().contiguous(), idx.contiguous(),
+                offsets, row_counts, self.interact, self.aggr,
+                self.compute_dtype)
+            return [out.to(out_dtype)]
+        # the emitter path: the same masked tail as fused_interact_ref,
+        # forked only for the int8 table's per-row dequantization
+        gids = mask_local_ids(idx, offsets, row_counts)
+        safe = gids.clamp_min(0)
+        rows = table[safe.long()]
+        if qscale is not None:
+            rows = dequant_rows(rows, qscale, safe)
+        return [masked_pool_interact(rows, gids, bottom, self.interact,
+                                     self.aggr, out_dtype,
+                                     self.compute_dtype)]

@@ -75,13 +75,18 @@ def pool_rows(rows, aggr: str, out_dtype):
     sum (``sum`` reduces in an order of its own, and under bf16 ``dot``
     one ulp of a pooled value can flip its operand's rounding), divided by
     the bag for ``avg``.  An empty bag pools to exact 0.0 in both
-    modes."""
+    modes.  bf16 rows (a bf16 table's path) sum as ``jnp.sum`` sums a
+    bf16 array, in f32 and rounded to bf16 once, and ``avg`` then divides
+    in bf16, as the JAX package's ``pool_rows`` does."""
     b, t, bag, d = rows.shape
     if bag == 0:
         return torch.zeros((b, t, d), dtype=out_dtype, device=rows.device)
-    pooled = rows[:, :, 0]
+    low = rows.dtype == torch.bfloat16
+    pooled = rows[:, :, 0].float() if low else rows[:, :, 0]
     for j in range(1, bag):
-        pooled = pooled + rows[:, :, j]
+        pooled = pooled + (rows[:, :, j].float() if low else rows[:, :, j])
+    if low:
+        pooled = pooled.to(rows.dtype)
     if aggr == "avg":
         pooled = divide(pooled, bag)
     return pooled.to(out_dtype)

@@ -13,6 +13,10 @@ on every id a caller produces (distinct rows in ``[0, R)`` and the
 sentinel ``R``).  Distinct ids are the caller's contract: neither the
 kernel nor the plain version checks it.
 
+Tables are f32 or bf16; the rows are cast to the table's dtype first, as
+the JAX wrapper casts them (``rows.astype(table.dtype)``), and then moved
+bit for bit.
+
 ``row_set_cuda`` launches the kernel (``csrc/row_set.cu``) for tensors on
 a CUDA device and runs ``row_set_ref`` only for tensors on the CPU; a
 CUDA tensor never reaches the plain version through it.
@@ -26,6 +30,7 @@ import threading
 import torch
 
 from .. import _cuda
+from .row_update_kernel import TABLE_DTYPES
 
 
 def prepare_row_set(table, ids, rows):
@@ -87,13 +92,17 @@ def launch_row_set(table, ids, rows) -> None:
     n = ids.numel()
     if n == 0:
         return
-    vec4 = int(dim % 4 == 0 and table.data_ptr() % 16 == 0
-               and rows.data_ptr() % 16 == 0)
+    row_bytes = dim * table.element_size()
+    word = next(w for w in (16, 4, 2)
+                if w == 2 or (row_bytes % w == 0
+                              and table.data_ptr() % w == 0
+                              and rows.data_ptr() % w == 0))
     lib = _cuda.load("row_set", _SIGNATURES)
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ff_row_set(table.data_ptr(), ids.data_ptr(),
-                             rows.data_ptr(), n, dim, rows_n, vec4, stream)
+                             rows.data_ptr(), n, row_bytes, rows_n, word,
+                             stream)
     if err:
         msg = lib.ff_cuda_error_string(err).decode()
         raise RuntimeError(f"row_set kernel launch failed: {msg}")
@@ -103,16 +112,16 @@ def row_set_cuda(table, ids, rows):
     """``table[ids] = rows`` in place for distinct ids, ids ``< 0`` or
     ``>= R`` dropped; returns ``table``.
 
-    ``table`` (R, d) contiguous, ``ids`` (n,) int32 or int64, ``rows``
-    (n, d) float.  On CUDA tensors this launches the Hopper kernel
-    (adding one to ``row_set_cuda.launches``) or raises; on CPU tensors it
-    runs ``row_set_ref``."""
+    ``table`` (R, d) f32 or bf16 contiguous, ``ids`` (n,) int32 or
+    int64, ``rows`` (n, d) float.  On CUDA tensors this launches the
+    Hopper kernel (adding one to ``row_set_cuda.launches``) or raises; on
+    CPU tensors it runs ``row_set_ref``."""
     if table.device.type == "cpu":
         return row_set_ref(table, ids, rows)
     if table.device.type != "cuda":
         raise ValueError(f"no row_set kernel for {table.device}")
-    if table.dtype != torch.float32:
-        raise TypeError(f"row_set kernel takes an f32 table, got "
+    if table.dtype not in TABLE_DTYPES:
+        raise TypeError(f"row_set kernel takes an f32 or bf16 table, got "
                         f"{table.dtype}")
     if not table.is_contiguous():
         raise ValueError("row_set kernel sets rows of a contiguous table")

@@ -21,6 +21,14 @@ with a float scale.  (ATen rounds a 0-dim CUDA tensor scale to a bf16
 update's dtype before it multiplies; the port does not.)  The kernel takes
 f32 and bf16 updates, the dtypes its callers pass.
 
+Tables are f32 or bf16 (``FFConfig.embedding_dtype``).  On a bf16 table
+the scaled update is rounded to bf16, as the JAX wrapper's
+``(scale * updates).astype(table.dtype)`` rounds it, and each add of a
+duplicate run is rounded to bf16, as the TPU kernel's bf16 accumulator
+rounds it: the plain version's ``index_add_`` on a bf16 table adds in f32
+and rounds once per add, and it adds a run's slots one rank at a time, so
+it gives the same bits.  Any other table dtype raises on the card.
+
 On the card ``row_update_cuda`` makes two launches: the prepare-and-sort
 kernel (``csrc/row_update_prep.cu``), which applies the id contract and
 sorts the ids stably, and the update kernel (``csrc/row_update.cu``),
@@ -38,6 +46,10 @@ import torch
 
 from .. import _cuda
 
+#: the dtypes an embedding table is stored in; the row-update, bag and
+#: row-set kernels each take a table of either
+TABLE_DTYPES = (torch.float32, torch.bfloat16)
+#: the kernel's code for a table or an update dtype
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -126,9 +138,9 @@ _PREP_SIGNATURES = {
 _SIGNATURES = {
     "ff_row_update": (
         ctypes.c_int,
-        [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p,
-                                 ctypes.c_float] + [ctypes.c_int] * 4
-        + [ctypes.c_void_p]),
+        [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3
+        + [ctypes.c_int, ctypes.c_void_p, ctypes.c_float]
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p]),
     "ff_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 _count_lock = threading.Lock()
@@ -217,15 +229,16 @@ def launch_row_update(table, keys, order, upd, scale) -> None:
 def _launch_update(table, keys, order, upd, ptr, value) -> None:
     rows_n, dim = table.shape
     n = keys.numel()
-    esize = upd.element_size()
+    esize, tsize = upd.element_size(), table.element_size()
     vec = next(v for v in (4, 2, 1)
                if v == 1 or (dim >= 32 * v and dim % v == 0
-                             and table.data_ptr() % (4 * v) == 0
+                             and table.data_ptr() % (tsize * v) == 0
                              and upd.data_ptr() % (esize * v) == 0))
     lib = _cuda.load("row_update", _SIGNATURES)
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.ff_row_update(table.data_ptr(), keys.data_ptr(),
+        err = lib.ff_row_update(table.data_ptr(),
+                                _KERNEL_DTYPES[table.dtype], keys.data_ptr(),
                                 order.data_ptr(), upd.data_ptr(),
                                 _KERNEL_DTYPES[upd.dtype], ptr, value, n,
                                 dim, rows_n, vec, stream)
@@ -235,9 +248,9 @@ def _launch_update(table, keys, order, upd, ptr, value) -> None:
 def row_update_cuda(table, ids, upd, scale=1.0):
     """``table[ids] += scale * upd`` in place; returns ``table``.
 
-    ``table`` (R, d) f32 contiguous, ``ids`` (...) int32 or int64, ``upd``
-    (..., d) f32 or bf16; ``scale`` a number or a 0-dim tensor (f32
-    when on the card).  On CUDA tensors this launches the prepare-and-sort
+    ``table`` (R, d) f32 or bf16 contiguous, ``ids`` (...) int32 or int64,
+    ``upd`` (..., d) f32 or bf16; ``scale`` a number or a 0-dim tensor
+    (f32 when on the card).  On CUDA tensors this launches the prepare-and-sort
     kernel and the update kernel (adding one to
     ``row_update_cuda.launches``) or raises; on CPU tensors it runs
     ``row_update_ref``."""
@@ -245,9 +258,10 @@ def row_update_cuda(table, ids, upd, scale=1.0):
         return row_update_ref(table, ids, upd, scale)
     if table.device.type != "cuda":
         raise ValueError(f"no row_update kernel for {table.device}")
-    if table.dtype != torch.float32 or upd.dtype not in _KERNEL_DTYPES:
-        raise TypeError(f"row_update kernel takes an f32 table and f32 "
-                        f"or bf16 updates, got {table.dtype}, {upd.dtype}")
+    if table.dtype not in TABLE_DTYPES or upd.dtype not in _KERNEL_DTYPES:
+        raise TypeError(f"row_update kernel takes an f32 or bf16 table and "
+                        f"f32 or bf16 updates, got {table.dtype}, "
+                        f"{upd.dtype}")
     if not table.is_contiguous():
         raise ValueError("row_update kernel updates a contiguous table")
     flat, upd = validate_row_update(table, ids, upd)

@@ -1,6 +1,5 @@
 """Dynamic micro-batching request queue (counterpart of
-``dlrm_flexflow_tpu/serving/batcher.py``, without telemetry and trace
-spans).
+``dlrm_flexflow_tpu/serving/batcher.py``).
 
 Online DLRM traffic arrives one small request at a time; the card wants
 bucket-sized batches.  :class:`DynamicBatcher` sits between them: a
@@ -13,7 +12,16 @@ Overload is explicit, never silent: a full queue rejects at ``submit``
 (:class:`Rejected`), and a request older than its deadline when popped
 completes with :class:`DeadlineExceeded`.  ``close`` drains: submissions
 stop, every queued request still gets its response, then the dispatcher
-exits.
+exits and a ``serve`` summary event is emitted.
+
+Telemetry: every shed, deadline miss and dispatcher death is an event,
+and ``/metrics`` scrapes the queue depth and counters while the batcher
+lives (``telemetry.metrics.track_batcher``).  With an event log active,
+each request is a span chain (``serve.request`` -> ``serve.queue_wait``,
+``serve.forward``) with a tail exemplar, and each micro-batch a
+``serve.dispatch`` span under which the engine's ``serve.pad`` and
+``serve.engine_forward`` nest; with none, a request or a dispatch pays
+one ``active_log()`` read for them.
 """
 
 from __future__ import annotations
@@ -22,11 +30,16 @@ import queue
 import sys
 import threading
 import time
+import traceback
 from typing import Any, Dict, List, Optional
 
 import numpy as np
 
 from ..concurrency import CloseOnce
+from ..telemetry import active_log, emit
+from ..telemetry import metrics as _metrics
+from ..telemetry.trace import (NULL_SPAN, pop_span, push_span, record_span,
+                               start_span)
 from .stats import LatencyStats
 
 
@@ -43,25 +56,52 @@ class ServeFuture:
     """Per-request result slot: ``result(timeout)`` blocks until the
     dispatcher delivers the output array or an exception.  Completion is
     first-write-wins: the dispatcher and a racing close() never flip a
-    delivered result."""
+    delivered result.  Done callbacks run exactly once, outside the
+    lock."""
 
     def __init__(self):
         self._ev = threading.Event()
         self._lk = threading.Lock()
         self._value = None
         self._exc: Optional[BaseException] = None
+        self._cbs: List[Any] = []
+
+    def _run_cbs(self, cbs) -> None:
+        # a raising callback must not unwind the completing thread (it
+        # would strand the rest of a batch's futures): report, carry on
+        for cb in cbs:
+            try:
+                cb(self)
+            except Exception:
+                traceback.print_exc()
 
     def _set(self, value) -> None:
         with self._lk:
-            if not self._ev.is_set():
-                self._value = value
-                self._ev.set()
+            if self._ev.is_set():
+                return
+            self._value = value
+            cbs, self._cbs = self._cbs, []
+            self._ev.set()
+        self._run_cbs(cbs)
 
     def _set_exception(self, exc: BaseException) -> None:
         with self._lk:
+            if self._ev.is_set():
+                return
+            self._exc = exc
+            cbs, self._cbs = self._cbs, []
+            self._ev.set()
+        self._run_cbs(cbs)
+
+    def add_done_callback(self, cb) -> None:
+        """Run ``cb(future)`` once the result or exception lands (at
+        once when already done).  A raising callback is reported and
+        swallowed, never propagated into the completing thread."""
+        with self._lk:
             if not self._ev.is_set():
-                self._exc = exc
-                self._ev.set()
+                self._cbs.append(cb)
+                return
+        self._run_cbs([cb])
 
     def done(self) -> bool:
         return self._ev.is_set()
@@ -76,7 +116,8 @@ class ServeFuture:
 
 
 class _Request:
-    __slots__ = ("inputs", "rows", "future", "t_submit", "deadline_us")
+    __slots__ = ("inputs", "rows", "future", "t_submit", "deadline_us",
+                 "span", "qspan")
 
     def __init__(self, inputs: Dict[str, np.ndarray], rows: int,
                  deadline_us: float):
@@ -85,6 +126,10 @@ class _Request:
         self.future = ServeFuture()
         self.t_submit = time.perf_counter()
         self.deadline_us = deadline_us  # 0 = no deadline
+        # the request's root span and its queue-wait child (NULL_SPAN
+        # while no event log is active); Span.end is first-close-wins
+        self.span = NULL_SPAN
+        self.qspan = NULL_SPAN
 
 
 _STOP = object()
@@ -129,6 +174,12 @@ class DynamicBatcher:
         # one request held over from a batch it would have overflowed
         self._carry: Optional[_Request] = None
         self._cancelling = False  # close(drain=False) in progress
+        # health, under _intake_lock: the exception that killed the
+        # dispatcher (None while healthy) and the engine failures since
+        # the last success (written by the dispatcher thread only)
+        self._dispatch_exc: Optional[BaseException] = None
+        self._engine_failures = 0
+        _metrics.track_batcher(self)
         if autostart:
             self.start()
 
@@ -147,7 +198,12 @@ class DynamicBatcher:
         :class:`Rejected` at once when the queue is full or the batcher
         is closed."""
         if self._closed:
-            self.stats.record_reject()
+            # record_shed_late: the batcher may already be retired from
+            # /metrics, its stats folded
+            _metrics.record_shed_late(self.stats, cause="shutdown")
+            emit("serve", phase="reject", reason="shutdown")
+            start_span("serve.request").set_attr(
+                "reason", "shutdown").end(status="shed")
             raise Rejected("batcher is shut down")
         arrs = {}
         rows = None
@@ -176,6 +232,11 @@ class DynamicBatcher:
         req = _Request(arrs, rows,
                        self.timeout_us if timeout_us is None
                        else float(timeout_us))
+        if active_log() is not None:
+            # opened before the enqueue, so a shed request still leaves
+            # one closed span with status="shed"
+            req.span = start_span("serve.request", attrs={"rows": rows})
+            req.qspan = start_span("serve.queue_wait", parent=req.span)
         shed = None
         with self._intake_lock:
             if self._closed:
@@ -186,7 +247,12 @@ class DynamicBatcher:
                 except queue.Full:
                     shed = "queue_full"
         if shed is not None:
-            self.stats.record_reject()
+            # either reason can race past the batcher's retire
+            _metrics.record_shed_late(self.stats, cause=shed)
+            emit("serve", phase="reject", reason=shed)
+            req.qspan.end(status="shed")
+            req.span.set_attr("reason", shed)
+            req.span.end(status="shed")
             raise Rejected(
                 "batcher is shut down" if shed == "shutdown" else
                 f"request queue full ({self._q.maxsize} waiting) — "
@@ -198,6 +264,15 @@ class DynamicBatcher:
                 result_timeout_s: Optional[float] = None):
         """Blocking convenience: submit + wait for the result."""
         return self.submit(inputs, timeout_us).result(result_timeout_s)
+
+    def queue_depth(self) -> int:
+        """Requests waiting now (``Queue.qsize``, approximate)."""
+        return self._q.qsize()
+
+    def queue_full(self) -> bool:
+        """Whether the bounded queue is full now (approximate, like
+        :meth:`queue_depth`; ``submit`` stays the authority)."""
+        return self._q.full()
 
     # ------------------------------------------------------------- dispatch
     def _expired(self, req: _Request, now: float) -> bool:
@@ -218,6 +293,7 @@ class DynamicBatcher:
             if self._expired(head, time.perf_counter()):
                 self._miss(head)
                 continue
+            head.qspan.end()  # queue wait ends when the batch forms
             batch, rows = [head], head.rows
             t0 = time.perf_counter()
             while rows < self.max_batch_size:
@@ -247,16 +323,26 @@ class DynamicBatcher:
                         else:
                             self._carry = req
                     if cancel:
-                        self.stats.record_reject()
-                        req.future._set_exception(Rejected(
-                            "batcher closed without drain"))
+                        self._cancel(req)
                     break
+                req.qspan.end()
                 batch.append(req)
                 rows += req.rows
             return batch
 
+    def _cancel(self, req: _Request) -> None:
+        self.stats.record_reject()
+        emit("serve", phase="reject", reason="shutdown")
+        req.qspan.end(status="cancelled")
+        req.span.set_attr("reason", "shutdown")
+        req.span.end(status="cancelled")
+        req.future._set_exception(Rejected("batcher closed without drain"))
+
     def _miss(self, req: _Request) -> None:
         self.stats.record_deadline_miss()
+        emit("serve", phase="reject", reason="deadline")
+        req.qspan.end(status="deadline")
+        req.span.end(status="deadline")
         req.future._set_exception(DeadlineExceeded(
             f"request waited past its {req.deadline_us:.0f} us deadline"))
 
@@ -279,19 +365,84 @@ class DynamicBatcher:
         joined = {name: np.concatenate([r.inputs[name] for r in batch],
                                        axis=0)
                   for name in self.engine._in_specs}
+        traced = active_log() is not None
+        dsp = NULL_SPAN
+        if traced:
+            # the micro-batch's span becomes this thread's current one,
+            # so the engine's pad and forward spans nest under it
+            rows = sum(r.rows for r in batch)
+            dsp = push_span(start_span(
+                "serve.dispatch", attrs={"requests": len(batch),
+                                         "rows": rows}))
+            fwd_start_s = time.time()
+            t_fwd = time.perf_counter()
+            timings = {}  # the engine fills bucket, pad_us, compute_us
         try:
-            out = self.engine.predict(joined)
+            out = (self.engine.predict(
+                joined, queue_wait_us=(t_fwd - min(
+                    r.t_submit for r in batch)) * 1e6, timings=timings)
+                if traced else self.engine.predict(joined))
         except Exception as e:  # deliver the failure, keep serving
+            pop_span(dsp)
+            dsp.end(status="error")
             for r in batch:
+                r.span.end(status="error")
                 r.future._set_exception(e)
+            with self._intake_lock:  # the router's circuit breaker
+                self._engine_failures += 1
             return
+        if self._engine_failures:  # only this thread writes it
+            with self._intake_lock:
+                self._engine_failures = 0
+        pop_span(dsp)
         self.stats.record_dispatch()
         done = time.perf_counter()
         lo = 0
         for r in batch:
             r.future._set(out[lo:lo + r.rows])
-            self.stats.record((done - r.t_submit) * 1e6)
+            lat_us = (done - r.t_submit) * 1e6
+            self.stats.record(lat_us)
+            if traced:
+                self._trace_request(r, lat_us, int(timings.get(
+                    "bucket", rows)), timings, t_fwd, fwd_start_s, done)
             lo += r.rows
+        dsp.end()
+
+    def _trace_request(self, r: _Request, lat_us: float, bucket: int,
+                       timings: Dict[str, float], t_fwd: float,
+                       fwd_start_s: float, done: float) -> None:
+        """A delivered request's tail exemplar (its wall split into queue
+        wait and the engine's pad / forward / stall, with its trace id)
+        and its ``serve.forward`` span, which shares the batch's one
+        engine wall."""
+        fwd_us = (done - t_fwd) * 1e6
+        self.stats.record_exemplar(
+            bucket=bucket, lat_us=lat_us,
+            trace_id=r.span.trace_id or "",
+            queue_wait_us=(t_fwd - r.t_submit) * 1e6,
+            pad_us=timings.get("pad_us", 0.0),
+            compute_us=timings.get("compute_us", fwd_us),
+            stall_us=timings.get("stall_us", 0.0))
+        record_span("serve.forward", fwd_start_s, fwd_us, parent=r.span,
+                    attrs={"rows": r.rows})
+        r.span.end()
+
+    # --------------------------------------------------------------- health
+    def dispatcher_dead(self) -> bool:
+        """Whether the dispatcher died unexpectedly: it recorded a fatal
+        exception, or it was started, is no longer alive, and the
+        batcher was never closed."""
+        with self._intake_lock:
+            if self._dispatch_exc is not None:
+                return True
+            dead_thread = (self._thread is not None
+                           and not self._thread.is_alive())
+            return dead_thread and not self._closed
+
+    def consecutive_engine_failures(self) -> int:
+        """Failed ``engine.predict`` dispatches since the last success."""
+        with self._intake_lock:
+            return self._engine_failures
 
     def fail_pending(self, exc: BaseException, extra=()) -> List[ServeFuture]:
         """Fail every pending request (the carry, the queue, and
@@ -300,6 +451,8 @@ class DynamicBatcher:
         with self._intake_lock:
             self._closed = True
             self._cancelling = True
+            if self._dispatch_exc is None:
+                self._dispatch_exc = exc
             pending = [self._carry] if self._carry is not None else []
             self._carry = None
         while True:
@@ -315,27 +468,35 @@ class DynamicBatcher:
             if req.future.done():
                 continue
             self.stats.record_reject()
+            emit("serve", phase="reject", reason="replica_dead")
+            req.qspan.end(status="error")
+            req.span.set_attr("reason", "replica_dead")
+            req.span.end(status="error")
             req.future._set_exception(exc)
             failed.append(req.future)
         return failed
 
     def _dispatcher_died(self, exc: BaseException, inflight) -> None:
         failed = self.fail_pending(exc, extra=inflight)
+        emit("recovery", phase="dispatcher_died", error=repr(exc),
+             failed=len(failed))
         print(f"# serve batcher: dispatcher thread died ({exc!r}) — "
               f"failed {len(failed)} pending request(s) loudly",
               file=sys.stderr)
         sys.stderr.flush()
 
     # ------------------------------------------------------------- shutdown
-    def close(self, drain: bool = True) -> Dict[str, float]:
+    def close(self, drain: bool = True,
+              emit_summary: bool = True) -> Dict[str, float]:
         """Stop intake and shut the dispatcher down.  ``drain=True``: every
         queued request is dispatched and delivered first.
         ``drain=False``: pending requests complete with :class:`Rejected`.
-        Returns the latency summary; idempotent (a second close returns
+        Returns the latency summary, and emits it as ``serve`` events
+        unless ``emit_summary=False``; idempotent (a second close returns
         the first summary)."""
-        return self._closer.run(lambda: self._close(drain))
+        return self._closer.run(lambda: self._close(drain, emit_summary))
 
-    def _close(self, drain: bool) -> Dict[str, float]:
+    def _close(self, drain: bool, emit_summary: bool) -> Dict[str, float]:
         with self._intake_lock:
             self._closed = True
         # from here no submit can enqueue, so the sentinel is the queue's
@@ -353,9 +514,7 @@ class DynamicBatcher:
                 if req is not _STOP:
                     cancelled.append(req)
             for req in cancelled:
-                self.stats.record_reject()
-                req.future._set_exception(
-                    Rejected("batcher closed without drain"))
+                self._cancel(req)
         if self._thread is None or not self._thread.is_alive():
             # never started: with drain, bring the dispatcher up so close()
             # keeps its deliver-everything contract
@@ -366,7 +525,10 @@ class DynamicBatcher:
         if self._thread is not None and self._thread.is_alive():
             self._q.put(_STOP)
             self._thread.join()
-        return self.stats.summary()
+        summary = (self.stats.emit_summary() if emit_summary
+                   else self.stats.summary())
+        _metrics.retire_batcher(self)
+        return summary
 
     def __enter__(self):
         return self

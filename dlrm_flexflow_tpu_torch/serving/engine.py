@@ -18,9 +18,20 @@ memory pool and one lock.  A dispatch copies the padded request into the
 bucket's static inputs, replays, and copies the rows back.  On the CPU
 the same runner calls the forward on the same static inputs.
 
-Not ported yet: quantized tables and tiered storage (the
-serving-extras slice), mesh-native serving (the scale-out slice; a model
-compiled here has no mesh), see ROADMAP.md.
+``quantize="int8"|"bf16"`` (default ``FFConfig.serve_quantize``)
+re-encodes the tables of a copy of the params at load
+(``ops/quantized.py``; ``engine.quantization`` is the JAX package's byte
+report), and every bucket's graph captures the quantized forward.
+
+Every dispatch emits one ``serve`` ``phase="dispatch"`` event and, under
+the caller's span, the ``serve.pad`` and ``serve.engine_forward`` spans;
+every bucket's capture emits a ``compile`` event (``kind="aot"``,
+``fn="serve[bucket=b]"``), and the engine's per-bucket dispatch counts
+are scraped by ``/metrics`` (``telemetry.metrics.track_engine``).
+
+Not ported yet: tiered storage (ROADMAP.md Queue A item 5) and
+mesh-native serving (the scale-out slice; a model compiled here has no
+mesh).
 """
 
 from __future__ import annotations
@@ -34,6 +45,11 @@ import torch
 
 from ..device import resolve_device
 from ..graphs import GraphRunner, run_eager
+from ..ops.quantized import QUANT_MODES, quantize_embedding_params
+from ..telemetry import active_log, emit
+from ..telemetry import metrics as _metrics
+from ..telemetry.torch_hooks import record_compile
+from ..telemetry.trace import NULL_SPAN, span as trace_span
 from ..tensor import numpy_dtype
 from .stats import LatencyStats
 
@@ -66,7 +82,10 @@ class InferenceEngine:
     ``params_or_state``: a ``TrainState`` or a bare ``{op: {param:
     tensor}}`` dict; the parameters are moved to ``device`` (no copy when
     they are already there).  ``buckets`` overrides
-    ``model.config.serve_buckets``.
+    ``model.config.serve_buckets``; ``quantize`` overrides
+    ``model.config.serve_quantize`` ("off", "int8" or "bf16"): the tables
+    are quantized on a copy of the params, so the training state is
+    never touched.
     """
 
     def __init__(self, model, params_or_state=None,
@@ -86,21 +105,23 @@ class InferenceEngine:
                 "params dict")
         quantize = (quantize or getattr(model.config, "serve_quantize", "off")
                     or "off").strip().lower()
-        if quantize != "off":
-            raise NotImplementedError(
-                f"serve_quantize={quantize!r}: quantized tables come with "
-                "the serving-extras slice in ROADMAP.md")
+        if quantize not in QUANT_MODES:
+            raise ValueError(f"unknown quantize mode {quantize!r} "
+                             f"(have {QUANT_MODES})")
         storage = (storage or getattr(model.config, "serve_storage",
                                       "resident") or "resident").strip().lower()
         if storage != "resident":
             raise NotImplementedError(
-                f"serve_storage={storage!r}: tiered storage comes with the "
-                "serving-extras slice in ROADMAP.md")
+                f"serve_storage={storage!r}: tiered storage is not ported "
+                "yet (ROADMAP.md Queue A item 5)")
         self.device = resolve_device(device)
         self.model = model
         params = getattr(params_or_state, "params", params_or_state)
         self._params = {op: {k: v.to(self.device) for k, v in d.items()}
                         for op, d in params.items()}
+        # the tables re-encoded on a copy of the params tree, on the card
+        self._params, self.quantization = quantize_embedding_params(
+            model.layers, self._params, quantize)
         if buckets is None:
             buckets = getattr(model.config, "serve_buckets", None)
         self.buckets = parse_buckets(buckets)
@@ -111,6 +132,9 @@ class InferenceEngine:
         self._graphs: Dict[int, GraphRunner] = {}
         self._pool = None
         self._lock = threading.Lock()
+        # /metrics scrapes the per-bucket dispatch counts that
+        # stats.record_dispatch keeps under its own lock
+        _metrics.track_engine(self)
         if warmup:
             self.warmup()
 
@@ -133,12 +157,16 @@ class InferenceEngine:
 
     def _ensure(self, b: int) -> GraphRunner:
         """Bucket ``b``'s runner, built under the engine's lock at its
-        first use: one eager forward on zero inputs, then the capture."""
+        first use: one eager forward on zero inputs, then the capture,
+        timed together as the bucket's ``compile`` event (emitted outside
+        the lock)."""
         runner = self._graphs.get(b)
         if runner is not None:
             return runner
+        built = None
         with self._lock:
             if b not in self._graphs:
+                t0 = time.perf_counter()
                 dummy = {name: torch.zeros((b,) + shape,
                                            dtype=self._dtypes[name],
                                            device=self.device)
@@ -150,7 +178,12 @@ class InferenceEngine:
                 self._graphs[b] = GraphRunner(
                     self._forward, dummy, self._params, pool=self._pool,
                     lock=self._lock)
-            return self._graphs[b]
+                built = time.perf_counter() - t0
+            runner = self._graphs[b]
+        if built is not None:
+            record_compile("aot", built, fn=f"serve[bucket={b}]",
+                           donated_args=0, backend=self.device.type)
+        return runner
 
     # --------------------------------------------------------------- serving
     def bucket_for(self, n: int) -> Optional[int]:
@@ -168,11 +201,17 @@ class InferenceEngine:
         pad = np.zeros((b - n,) + arr.shape[1:], dtype=arr.dtype)
         return np.concatenate([arr, pad], axis=0)
 
-    def predict(self, inputs: Dict[str, Any]) -> np.ndarray:
+    def predict(self, inputs: Dict[str, Any], queue_wait_us: float = 0.0,
+                timings: Optional[Dict[str, float]] = None) -> np.ndarray:
         """Run the labels-free forward on ``inputs`` (dict name -> (n, ...)
         array), padding to the enclosing bucket and slicing the padding
         back off; batches larger than the top bucket run as top-bucket
-        chunks.  Returns a host numpy array."""
+        chunks.  Returns a host numpy array.
+
+        ``queue_wait_us`` rides the dispatch event; ``timings`` (an
+        optional out-param) receives the last chunk's ``bucket``,
+        ``pad_us``, ``compute_us`` and ``stall_us`` (0: no tiered store),
+        the batcher's tail-exemplar decomposition."""
         arrs = {}
         n = None
         for name, (_shape, dtype) in self._in_specs.items():
@@ -194,18 +233,42 @@ class InferenceEngine:
         for lo in range(0, n, top):
             m = min(n - lo, top)
             chunks.append(self._dispatch(
-                {k: v[lo:lo + m] for k, v in arrs.items()}, m))
+                {k: v[lo:lo + m] for k, v in arrs.items()}, m,
+                queue_wait_us, timings))
         if len(chunks) == 1:
             return chunks[0]
         return np.concatenate(chunks, axis=0)
 
-    def _dispatch(self, chunk: Dict[str, np.ndarray], m: int) -> np.ndarray:
+    def _dispatch(self, chunk: Dict[str, np.ndarray], m: int,
+                  queue_wait_us: float,
+                  timings: Optional[Dict[str, float]] = None) -> np.ndarray:
+        # with an event log active the spans nest under the caller's
+        # current span (the batcher's serve.dispatch) and the dispatch
+        # is one event; with none, the spans are the no-op NULL_SPAN.
+        # The bucket's build stays outside the pad span: it has its own
+        # compile event
         b = self.bucket_for(m)
         runner = self._ensure(b)
-        padded = {k: self._pad(v, m, b) for k, v in chunk.items()}
+        traced = active_log() is not None
+        attrs = {"batch": m, "bucket": b} if traced else None
+        t_pad = time.perf_counter()
+        with (trace_span("serve.pad", attrs=attrs) if traced
+              else NULL_SPAN):
+            padded = {k: self._pad(v, m, b) for k, v in chunk.items()}
         t0 = time.perf_counter()
-        # the device-to-host copy of the result is the fence
-        out = runner.run(padded, self._params)[:m].cpu().numpy()
-        self.stats.record_dispatch(bucket=b,
-                                   lat_us=(time.perf_counter() - t0) * 1e6)
+        with (trace_span("serve.engine_forward", attrs=attrs) if traced
+              else NULL_SPAN):
+            # the device-to-host copy of the result is the fence
+            out = runner.run(padded, self._params)[:m].cpu().numpy()
+        compute_us = (time.perf_counter() - t0) * 1e6
+        self.stats.record_dispatch(bucket=b, lat_us=compute_us)
+        if timings is not None:
+            timings["bucket"] = float(b)
+            timings["pad_us"] = (t0 - t_pad) * 1e6
+            timings["compute_us"] = compute_us
+            timings["stall_us"] = 0.0
+        if traced:
+            emit("serve", phase="dispatch", batch=m, bucket=b, padded=b - m,
+                 fill=m / b, queue_wait_us=float(queue_wait_us),
+                 compute_us=compute_us)
         return out

@@ -301,7 +301,7 @@ def test_unported_paths_raise_not_implemented():
     pm = _port_model("float32")
     state = pm.init(seed=0, device="cpu")
     for call in (lambda: _port_model("float32").compile(mesh=object()),
-                 lambda: InferenceEngine(pm, state, quantize="int8",
+                 lambda: InferenceEngine(pm, state, storage="tiered",
                                          device="cpu"),
                  lambda: fft.AdamOptimizer(lr=0.001),
                  lambda: fft.SGDOptimizer(lr=0.1, lazy_embeddings=True),
