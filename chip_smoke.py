@@ -49,7 +49,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      launches it once and no clamp), and
      the training steps (information, not a claim);
  10. hold the row-set kernel against its plain version, bit for bit, on
-     f32 tables and on the 8M x 64 table in bf16;
+     f32 tables and on the 8M x 64 table in bf16, and on the edges of
+     its design: n = 1, 31, 33 and 131,067, rows of 64 B to 4,000 B,
+     the 4- and 2-byte words (bf16 d = 3, f32 d = 5, rows 4 and 2 bytes
+     into their storage), a warp tile all dropped, a dense touch;
  11. hold the embedding-bag kernel against its plain version, bit for bit,
      int64 and int32 ids, bags up to 40, d = 128, 256 and 33, on f32 and
      bf16 tables (1M x 128, B = 256, bag 8, sum and avg among them);
@@ -61,7 +64,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
  13. train a graph of Embedding(use_pallas=True) (the bag kernel forward,
      its row-update backward) a few steps, its forward and one step held
      against the plain versions, on an f32 and on a bf16 table;
- 14. time the row-set kernel at the epilogue and block shapes, the bag
+ 14. time the row-set kernel at the epilogue and block shapes (one
+     launch a call, by its counter and the profiler), the bag
      kernel at every serving bucket (int64 and int32 ids, launches per
      call, the launch floor), and profile the cached and uncached staged
      epochs, graphed and eager (information, not a claim);
@@ -121,7 +125,7 @@ from dlrm_flexflow_tpu_torch.ops.fused_interact_kernel import (
     fused_interact_bwd_cuda, fused_interact_bwd_ref, fused_interact_cuda,
     fused_interact_ref, interact_width, mask_local_ids)
 from dlrm_flexflow_tpu_torch.ops.row_set_kernel import (
-    launch_row_set, prepare_row_set, row_set_cuda, row_set_ref)
+    launch_row_set, prepare_row_set, row_set_cuda, row_set_plan, row_set_ref)
 from dlrm_flexflow_tpu_torch.ops.row_update_kernel import (
     launch_row_update, prepare_row_update_cuda, prepare_row_update_ref,
     row_update_cuda, row_update_ref)
@@ -1636,12 +1640,95 @@ def _set_ids(gen, n, rows):
     return ids.to(torch.int32)[perm], live
 
 
+def _row_set_plan(table, rows, n):
+    """The word and grid ``launch_row_set`` picks for ``n`` rows (``rows``
+    as prepared, in the table's dtype) into ``table``."""
+    return row_set_plan(n, table.shape[1] * table.element_size(),
+                        table.data_ptr(), rows.data_ptr(),
+                        torch.cuda.get_device_properties(
+                            0).multi_processor_count)
+
+
+def _row_set_case(gen, base, ids, vals, live, **tags):
+    """One phase-10 case: the kernel against ``row_set_ref`` on clones of
+    ``base``, bit for bit; sampled untouched rows must be unchanged and
+    the live rows set.  Returns the logged case."""
+    rows, d = base.shape
+    n = ids.numel()
+    got = base.clone()
+    plan = n and _row_set_plan(got, prepare_row_set(base, ids, vals)[1], n)
+    row_set_cuda(got, ids, vals)
+    want = row_set_ref(base.clone(), ids, vals)
+    torch.cuda.synchronize()
+    ok = torch.equal(got, want)
+    err = float((got.float() - want.float()).abs().max()) if n else 0.0
+    sample = torch.randint(0, rows, (8192,), generator=gen, device="cuda")
+    cold = sample[~torch.isin(sample, live)]
+    untouched = torch.equal(got[cold], base[cold])
+    hit = (ids >= 0) & (ids < rows)
+    set_ok = torch.equal(got[ids[hit].long()], vals[hit].to(got.dtype))
+    case = {"phase": "kernel_vs_plain", "kernel": "row_set", **tags,
+            "n": n, "rows": rows, "d": d,
+            "table_dtype": str(base.dtype).split(".")[-1],
+            "word": plan and plan.word, "blocks": plan and plan.blocks,
+            "live": int(hit.sum()),
+            "dropped_negative": int((ids < 0).sum()),
+            "dropped_past_end": int((ids >= rows).sum()),
+            "untouched_sampled_rows": int(cold.numel()),
+            "untouched_bit_identical": untouched,
+            "live_rows_set": set_ok, "max_abs_err": err,
+            "tolerance": "exact", "ok": bool(ok and untouched and set_ok)}
+    log(case)
+    return case
+
+
+def _row_set_edges(gen, table):
+    """The edges of the kernel's design (csrc/row_set.cu): partial and
+    single tiles, rows of 64 B to 4,000 B (one to several warp passes a
+    row), the 4- and 2-byte words (odd widths, rows that start 4 and 2
+    bytes into their storage), a tile whose every slot is dropped, and a
+    fully dense touch.  Yields (case name, base table, ids, rows, live)."""
+    for n in (1, 31, 33, 131_072 - 5):
+        ids, live = _set_ids(gen, n, table.shape[0])
+        yield (f"n={n}", table, ids,
+               torch.randn((n, DIM), generator=gen, device="cuda"), live)
+    for d, rows, dtype in ((1000, 20_000, torch.float32),
+                           (3, 100_000, torch.bfloat16),
+                           (5, 100_000, torch.float32)):
+        base = _rows_tensor(gen, rows, d).to(dtype)
+        for n in (1, 31, 33, 4097):
+            ids, live = _set_ids(gen, n, rows)
+            yield (f"d={d}", base, ids,
+                   torch.randn((n, d), generator=gen, device="cuda"), live)
+    for dtype in (torch.float32, torch.bfloat16):
+        # rows one element (4 or 2 bytes) into their storage, in the
+        # table's dtype, so the wrapper passes them as they are
+        base = table[:1_000_000].to(dtype)
+        n = 4096
+        ids, live = _set_ids(gen, n, base.shape[0])
+        store = torch.randn((n * DIM + 1,), generator=gen,
+                            device="cuda").to(dtype)
+        yield (f"rows {base.element_size()} bytes in", base, ids,
+               store[1:].view(n, DIM), live)
+    # slots 32-63, the second warp tile, all dropped
+    live = torch.randperm(table.shape[0], generator=gen, device="cuda")[:64]
+    drop = torch.tensor([table.shape[0], -1, INT32_MIN, table.shape[0] + 5],
+                        device="cuda").repeat(8)
+    ids = torch.cat([live[:32], drop, live[32:]]).to(torch.int32)
+    yield ("a tile all dropped", table, ids,
+           torch.randn((96, DIM), generator=gen, device="cuda"), live)
+    rows = 4096
+    ids = torch.randperm(rows, generator=gen, device="cuda")
+    yield ("dense touch", _rows_tensor(gen, rows, DIM), ids.to(torch.int32),
+           torch.randn((rows, DIM), generator=gen, device="cuda"), ids)
+
+
 def check_row_set(table) -> float:
     """The row-set kernel against ``row_set_ref`` on clones of ``table``
     (the headline's 8M x 64 flat table), of 1M-row tables of d = 16 and
     128 and of the headline table in bf16 (f32 rows cast to it, at the
-    epilogue's and a ladder block's n among others), bit for bit;
-    sampled untouched rows must be unchanged and the live rows set."""
+    epilogue's and a ladder block's n among others), and on the design's
+    edges (``_row_set_edges``), bit for bit."""
     gen = torch.Generator(device="cuda").manual_seed(10)
     others = {d: _rows_tensor(gen, ROWS, d) for d in (16, 128)}
     others["bf16"] = table.to(torch.bfloat16)
@@ -1649,49 +1736,25 @@ def check_row_set(table) -> float:
     others["bf16_block"] = _rows_tensor(gen, 64 * BATCH * TABLES,
                                         DIM).to(torch.bfloat16)
     ns = (0, 1, 7, 4096, 16_384, 131_072)
-    failed, worst = [], 0.0
+    cases = []
     for d, key, sizes in ((16, 16, ns), (DIM, None, ns), (128, 128, ns),
                           (DIM, "bf16", ns), (DIM, "bf16_block", (16_384,))):
         base = table if key is None else others[key]
-        rows = base.shape[0]
         for n in sizes:
-            ids, live = _set_ids(gen, n, rows)
+            ids, live = _set_ids(gen, n, base.shape[0])
             vals = torch.randn((n, d), generator=gen, device="cuda")
-            got = row_set_cuda(base.clone(), ids, vals)
-            want = row_set_ref(base.clone(), ids, vals)
-            torch.cuda.synchronize()
-            ok = torch.equal(got, want)
-            err = (float((got.float() - want.float()).abs().max()) if n
-                   else 0.0)
-            worst = max(worst, err)
-            sample = torch.randint(0, rows, (8192,), generator=gen,
-                                   device="cuda")
-            cold = sample[~torch.isin(sample, live)]
-            untouched = torch.equal(got[cold], base[cold])
-            hit = (ids >= 0) & (ids < rows)
-            set_ok = torch.equal(got[ids[hit].long()],
-                                 vals[hit].to(got.dtype))
-            ok = ok and untouched and set_ok
-            case = {"phase": "kernel_vs_plain", "kernel": "row_set", "n": n,
-                    "rows": rows, "d": d,
-                    "table_dtype": str(base.dtype).split(".")[-1],
-                    "live": int(hit.sum()),
-                    "dropped_negative": int((ids < 0).sum()),
-                    "dropped_past_end": int((ids >= rows).sum()),
-                    "untouched_sampled_rows": int(cold.numel()),
-                    "untouched_bit_identical": untouched,
-                    "live_rows_set": set_ok, "max_abs_err": err,
-                    "tolerance": "exact", "ok": bool(ok)}
-            log(case)
-            if not ok:
-                failed.append(case)
-            del got, want
+            cases.append(_row_set_case(gen, base, ids, vals, live))
     del others
     _free()
-    if failed:
+    for name, base, ids, vals, live in _row_set_edges(gen, table):
+        cases.append(_row_set_case(gen, base, ids, vals, live, case=name))
+    _free()
+    failed = [c for c in cases if not c["ok"]]
+    words = {c["word"] for c in cases if c.get("case")}
+    if failed or not {16, 4, 2} <= words:
         raise AssertionError(f"{len(failed)} row_set case(s) disagree with "
-                             f"the plain version")
-    return worst
+                             f"the plain version; words {sorted(words)}")
+    return max(c["max_abs_err"] for c in cases)
 
 
 # -------------------------------------------------------------- phase 11
@@ -2019,12 +2082,15 @@ def time_row_set(table, sets: int = 4):
     """The row-set kernel at the epilogue and block shapes: the kernel
     alone on prepared inputs and the whole wrapper from CUDA graphs, the
     plain version (host-synchronising, so timed eagerly) and
-    ``index_copy_`` on the live ids (the library call).  The bound counts
+    ``index_copy_`` on the live ids (the library call), the launch
+    floor, the launch's word and grid, and one launch a call (the
+    wrapper's counter and the profiler must agree).  The bound counts
     this run's live rows: each read once from the rows and written once,
     plus the n int32 ids.  ``table`` is f32 or bf16; the rows are in its
     dtype, as the cache's are."""
     gen = torch.Generator(device="cuda").manual_seed(14)
     esize = table.element_size()
+    floor_ms = _launch_floor_ms(64)
     out = {}
     for shape, rowofs in _epoch_rowofs(sets, gen).items():
         parent = (table if shape == "epilogue"
@@ -2052,9 +2118,18 @@ def time_row_set(table, sets: int = 4):
                "plain_ms": wall_ms(row_set_ref, arg_sets),
                "library_ms": graph_ms(
                    lambda t, i, v: t.index_copy_(0, i, v), lib_sets),
-               "call_ms": wall_ms(row_set_cuda, arg_sets)}
+               "call_ms": wall_ms(row_set_cuda, arg_sets),
+               "launch_floor_ms": floor_ms}
         row["share_of_bound"] = bound_ms / row["ms"]
+        plan = _row_set_plan(prepared[0][0], prepared[0][2], n)
+        row.update(word=plan.word, blocks=plan.blocks)
+        # 16 calls on each set: the tracer's reading of one launch a call
+        row["launches_per_call"], row["kernels_per_call"] = (
+            launches_per_call(row_set_cuda, arg_sets * 16))
         log(row)
+        check_one_launch("row_set_cuda", row_set_cuda, arg_sets * 16,
+                         row_set_cuda, "row_set_kernel",
+                         row["launches_per_call"], row["kernels_per_call"])
         out[shape] = row
         del arg_sets, prepared, lib_sets
     _free()

@@ -26,6 +26,8 @@ from __future__ import annotations
 
 import ctypes
 import threading
+from fractions import Fraction
+from typing import NamedTuple
 
 import torch
 
@@ -75,12 +77,55 @@ def row_set_ref(table, ids, rows):
 _SIGNATURES = {
     "ff_row_set": (
         ctypes.c_int,
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_longlong,
-                                                      ctypes.c_int,
-                                                      ctypes.c_void_p]),
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_longlong]
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p]),
     "ff_cuda_error_string": (ctypes.c_char_p, [ctypes.c_int]),
 }
 _count_lock = threading.Lock()
+
+#: slots of a warp tile (one id a lane), warps of a block, and the blocks
+#: an SM holds at once (csrc/row_set.cu: kWarpsPerBlock, kMinBlocksPerSM)
+TILE = 32
+WARPS_PER_BLOCK = 4
+BLOCKS_PER_SM = 4
+
+
+class RowSetPlan(NamedTuple):
+    """How ``csrc/row_set.cu`` moves ``n`` rows: each thread loads and
+    stores ``word`` bytes at a time, a row is ``words`` words, and lane
+    ``j`` of a warp moves words ``j, j + 32, ...`` of its tile's 32 rows,
+    so a pass of the warp covers ``rows_per_pass`` rows (a fraction when
+    a row is wider than 32 words or ``words`` does not divide 32) with
+    ``lanes_per_row`` lanes on each.  ``blocks`` blocks of
+    ``WARPS_PER_BLOCK`` warps loop over the tiles."""
+    word: int
+    words: int
+    lanes_per_row: int
+    rows_per_pass: Fraction
+    blocks: int
+
+
+def row_set_plan(n: int, row_bytes: int, table_ptr: int, rows_ptr: int,
+                 sm_count: int) -> RowSetPlan:
+    """The launch of ``n`` rows of ``row_bytes`` bytes (``n``,
+    ``row_bytes`` > 0) between the table at address ``table_ptr`` and
+    the rows at ``rows_ptr`` on a card of ``sm_count`` SMs.  The word is
+    the widest of 16, 4 and 2 bytes that divides the row's bytes and
+    both addresses; the grid is one block per ``WARPS_PER_BLOCK`` tiles,
+    at most ``BLOCKS_PER_SM`` a SM."""
+    if n <= 0 or row_bytes <= 0:
+        raise ValueError(f"no launch for {n} rows of {row_bytes} bytes")
+    word = next((w for w in (16, 4, 2)
+                 if row_bytes % w == 0 and table_ptr % w == 0
+                 and rows_ptr % w == 0), None)
+    if word is None:
+        raise ValueError(f"rows of {row_bytes} bytes at {table_ptr:#x} and "
+                         f"{rows_ptr:#x} fit no 2-byte word")
+    words = row_bytes // word
+    tiles = -(-n // TILE)
+    blocks = min(-(-tiles // WARPS_PER_BLOCK), sm_count * BLOCKS_PER_SM)
+    return RowSetPlan(word, words, min(32, words), Fraction(32, words),
+                      blocks)
 
 
 def launch_row_set(table, ids, rows) -> None:
@@ -90,19 +135,18 @@ def launch_row_set(table, ids, rows) -> None:
     timed alone."""
     rows_n, dim = table.shape
     n = ids.numel()
-    if n == 0:
+    if n == 0 or dim == 0:
         return
     row_bytes = dim * table.element_size()
-    word = next(w for w in (16, 4, 2)
-                if w == 2 or (row_bytes % w == 0
-                              and table.data_ptr() % w == 0
-                              and rows.data_ptr() % w == 0))
+    plan = row_set_plan(
+        n, row_bytes, table.data_ptr(), rows.data_ptr(),
+        torch.cuda.get_device_properties(table.device).multi_processor_count)
     lib = _cuda.load("row_set", _SIGNATURES)
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.ff_row_set(table.data_ptr(), ids.data_ptr(),
-                             rows.data_ptr(), n, row_bytes, rows_n, word,
-                             stream)
+                             rows.data_ptr(), n, row_bytes, rows_n,
+                             plan.word, plan.blocks, stream)
     if err:
         msg = lib.ff_cuda_error_string(err).decode()
         raise RuntimeError(f"row_set kernel launch failed: {msg}")

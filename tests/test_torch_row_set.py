@@ -11,7 +11,10 @@ values and rounds nothing.
 
 The CUDA kernel runs only on the card; chip_smoke.py holds it against the
 plain version there.  Here the wrapper receives CPU tensors, so it runs
-the plain version and launches nothing.
+the plain version and launches nothing.  What the wrapper decides for
+the kernel, its launch plan (``row_set_plan``: the word, the lanes on a
+row, the rows a warp pass covers, the grid), is pure Python and is
+checked here.
 """
 
 import numpy as np
@@ -21,9 +24,14 @@ import torch
 import jax.numpy as jnp
 
 from dlrm_flexflow_tpu.ops.pallas_scatter import _row_set_pallas
-from dlrm_flexflow_tpu_torch.ops.row_set_kernel import (row_set_cuda,
+from dlrm_flexflow_tpu_torch.ops.row_set_kernel import (BLOCKS_PER_SM,
+                                                       row_set_cuda,
+                                                       row_set_plan,
                                                        row_set_ref)
 from dlrm_flexflow_tpu_torch.ops.slotting import slot_rows
+
+#: the H100 SXM's streaming multiprocessors
+H100_SMS = 132
 
 
 def _port(table, ids, rows, fn=row_set_ref):
@@ -142,3 +150,91 @@ def test_wrapper_validates_its_inputs(case, exc):
         rows = rows.to("meta")
     with pytest.raises(exc):
         row_set_cuda(table, ids, rows)
+
+
+def _bits(a):
+    """The raw bits of an f32 or bf16 array, for exact compares."""
+    a = np.asarray(a)
+    return a.view(np.uint16 if a.dtype.itemsize == 2 else np.uint32)
+
+
+@pytest.mark.parametrize("dtype,d", [
+    ("bfloat16", 64), ("bfloat16", 16), ("bfloat16", 1000),
+    ("float32", 16), ("float32", 1000), ("bfloat16", 3), ("float32", 5)])
+def test_plain_matches_interpret_kernel_on_bf16_and_wide_rows(dtype, d):
+    """bf16 tables, rows of 64 B to 4,000 B and the odd widths that take
+    the kernel's 2- and 4-byte words: ``row_set_ref`` against the
+    interpret-mode kernel and ``.at[].set(mode="drop")``, bit for bit.
+    Interpret mode takes every width here, so both references run."""
+    rng = np.random.default_rng(d)
+    rows_n, n = 300, 70
+    np_dtype = jnp.dtype(dtype)
+    table = rng.standard_normal((rows_n, d)).astype(np_dtype)
+    ids = np.full((n,), rows_n, np.int32)
+    ids[:50] = rng.choice(rows_n, size=50, replace=False)
+    rng.shuffle(ids)
+    rows = rng.standard_normal((n, d)).astype(np_dtype)
+    t = torch.from_numpy(_bits(table).copy()).view(getattr(torch, dtype))
+    v = torch.from_numpy(_bits(rows).copy()).view(getattr(torch, dtype))
+    assert row_set_ref(t, torch.from_numpy(ids), v) is t
+    port = t.view(torch.int16 if np_dtype.itemsize == 2
+                  else torch.int32).numpy().view(_bits(table).dtype)
+    np.testing.assert_array_equal(port, _bits(_interpret(table, ids, rows)))
+    want = jnp.asarray(table).at[jnp.asarray(ids)].set(jnp.asarray(rows),
+                                                       mode="drop")
+    np.testing.assert_array_equal(port, _bits(want))
+
+
+@pytest.mark.parametrize("d", [3, 5, 16, 64, 128, 1000])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows_offset", [0, 1, 2])
+def test_launch_plan(d, dtype, rows_offset):
+    """The kernel's launch plan for rows that start 0, 1 or 2 elements
+    into their storage: the widest word (16, 4, 2 bytes) that divides
+    the row's bytes and both addresses, never one that does not; every
+    lane of a warp on a pass of 32 words; one block per four 32-slot
+    tiles, at most ``BLOCKS_PER_SM`` blocks an SM."""
+    table = torch.zeros((64, d), dtype=dtype)
+    rows = torch.zeros((40 * d + rows_offset,), dtype=dtype)[rows_offset:]
+    rows = rows.view(40, d)
+    row_bytes = d * table.element_size()
+    ptrs = (table.data_ptr(), rows.data_ptr())
+    for n, blocks in ((1, 1), (31, 1), (33, 1), (129, 2), (16_384, 128),
+                      (131_072, H100_SMS * BLOCKS_PER_SM),
+                      (131_071, H100_SMS * BLOCKS_PER_SM)):
+        plan = row_set_plan(n, row_bytes, *ptrs, H100_SMS)
+        assert plan.blocks == blocks
+    want = max(w for w in (16, 4, 2)
+               if row_bytes % w == 0 and all(p % w == 0 for p in ptrs))
+    assert plan.word == want
+    assert plan.words * plan.word == row_bytes
+    assert plan.lanes_per_row == min(32, plan.words)
+    assert plan.rows_per_pass * plan.words == 32
+    if rows_offset == 0 and row_bytes % 16 == 0:
+        assert plan.word == 16
+    if rows_offset and dtype == torch.float32:
+        assert plan.word == 4  # 4 or 8 bytes in, on a 4-byte row multiple
+    if rows_offset == 1 and dtype == torch.bfloat16:
+        assert plan.word == 2
+    if d == 64 and rows_offset == 0:  # the main path: every lane works
+        assert plan.lanes_per_row * plan.rows_per_pass == 32
+        assert plan.rows_per_pass == (4 if dtype == torch.bfloat16 else 2)
+
+
+@pytest.mark.parametrize("row_bytes,table_ptr,rows_ptr,word", [
+    (256, 0x1000, 0x2000, 16), (256, 0x1000, 0x2004, 4),
+    (256, 0x1004, 0x2000, 4), (256, 0x1002, 0x2000, 2),
+    (6, 0x1000, 0x2000, 2), (20, 0x1000, 0x2000, 4),
+    (4000, 0x1000, 0x2000, 16), (4000, 0x1000, 0x2008, 4)])
+def test_launch_plan_word_divides_bytes_and_both_addresses(
+        row_bytes, table_ptr, rows_ptr, word):
+    plan = row_set_plan(100, row_bytes, table_ptr, rows_ptr, H100_SMS)
+    assert plan.word == word
+    assert row_bytes % word == table_ptr % word == rows_ptr % word == 0
+
+
+@pytest.mark.parametrize("args", [(0, 256, 0, 0), (8, 0, 0, 0),
+                                  (8, 3, 0, 0), (8, 256, 1, 0)])
+def test_launch_plan_refuses_what_no_word_moves(args):
+    with pytest.raises(ValueError):
+        row_set_plan(*args, H100_SMS)
