@@ -83,7 +83,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
      event per capture, the engine, batcher and train families scraped;
      walls with telemetry on and off (information);
  18. time the bag, row-update and row-set kernels on bf16 storage beside
-     their bounds, plain versions and library calls (information).
+     their bounds, plain versions and library calls (information);
+ 19. durability: the headline model (classic graph, bf16 compute, seed
+     0) through fit's resilient loop over 2 epochs x 8 batches of a
+     shuffling ArrayDataLoader, every step through the row-update kernel:
+     (a) the plain per-batch fit; (b) CheckpointManager(keep_n=2) saving
+     every 8 steps, killed by preempt@step=10; (c) resumed from (b)'s
+     directory at step 9; (d) an uninterrupted twin; (e) (d) with
+     prefetch_depth=2 (pinned staging, a prefetch stream); (f)
+     nan_grads@step=5 under NaNSentinel("skip"): 15 adopted steps, one
+     anomaly.  (c) = (d) in loss trace and parameters, (d) = (a) and
+     (e) = (d) in parameters, bit for bit; verify_checkpoint clean on
+     every directory before and after; each save's and the restore's
+     wall, bytes and GB/s, the free disk, and the step wall with and
+     without the sentinel (information).  It writes under a directory
+     beside this script (at most two run directories, about 8.3 GB, at
+     once) and removes it.
 Profile lines carry the graph replays in their window, the graph pool's
 bytes and the host's launches per dispatch or step.
 The line before the last is the kernels' JSON record; the last line is
@@ -97,8 +112,11 @@ import collections
 import contextlib
 import gc
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -113,7 +131,7 @@ from dlrm_flexflow_tpu_torch import (FFConfig, FFModel, SGDOptimizer,
 from dlrm_flexflow_tpu_torch import epoch_cache as cache_module
 from dlrm_flexflow_tpu_torch import telemetry as tele
 from dlrm_flexflow_tpu_torch.apps.dlrm import DLRMConfig, build_dlrm
-from dlrm_flexflow_tpu_torch.data.loader import zipf_ids
+from dlrm_flexflow_tpu_torch.data.loader import ArrayDataLoader, zipf_ids
 from dlrm_flexflow_tpu_torch.ops import Embedding, FusedEmbedInteract
 from dlrm_flexflow_tpu_torch.ops import embedding as emb_module
 from dlrm_flexflow_tpu_torch.ops import fused_interact as fused_module
@@ -130,6 +148,10 @@ from dlrm_flexflow_tpu_torch.ops.row_update_kernel import (
     launch_row_update, prepare_row_update_cuda, prepare_row_update_ref,
     row_update_cuda, row_update_ref)
 from dlrm_flexflow_tpu_torch.ops.slotting import slot_rows
+from dlrm_flexflow_tpu_torch.resilience import (CheckpointManager,
+                                                NaNSentinel, Preemption,
+                                                faultinject,
+                                                verify_checkpoint)
 from dlrm_flexflow_tpu_torch.serving import DynamicBatcher, InferenceEngine
 from dlrm_flexflow_tpu_torch.telemetry import exporter as tele_exporter
 from dlrm_flexflow_tpu_torch.telemetry import schema as tele_schema
@@ -2452,6 +2474,236 @@ def time_bf16_kernels(table, bag_table):
 
 
 
+# --------------------------------------------------------------- phase 19
+def _durability_loader():
+    """2 epochs x 8 batches: the first 8 batches of SyntheticDLRMLoader
+    (seed 0) behind a shuffling ArrayDataLoader (seed 1)."""
+    base = SyntheticDLRMLoader(8 * BATCH, BOT, [ROWS] * TABLES, 1, BATCH,
+                               seed=0)
+    return ArrayDataLoader(base.inputs, base.labels, BATCH, shuffle=True,
+                           seed=1)
+
+
+def _durability_run(name, root, faults=None, prefetch=0, resume=False,
+                    save=True, sentinel=None, plain=False):
+    """One run of phase 19 on a fresh headline model (seed 0): the plain
+    per-batch fit, or fit with a CheckpointManager on ``root/name`` (saves
+    every 8 steps), inside an event log.  Returns (final params, model,
+    events, wall_s, raised); the model's tables are released."""
+    model, state = _train_model(False, "bfloat16", prefetch_depth=prefetch)
+    kw = {}
+    if not plain:
+        kw = {"checkpoint_manager": CheckpointManager(
+                  os.path.join(root, name), keep_n=2, use_orbax=False)
+              if save else None,
+              "checkpoint_every_n_steps": 8 if save else None,
+              "resume": resume, "sentinel": sentinel}
+    if faults:
+        faultinject.install(faults)
+    raised = None
+    t0 = time.perf_counter()
+    with tele.event_log() as elog:
+        try:
+            state, _ = model.fit(state, _durability_loader(), epochs=2,
+                                 verbose=False, warmup=False, **kw)
+        except Preemption as e:
+            raised = e
+        finally:
+            faultinject.clear()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    events = elog.events()
+    params = None if raised else state.params
+    del state
+    return params, model, events, wall, raised
+
+
+def _same_params(a, b) -> bool:
+    return all(torch.equal(v, b[op][k]) for op, d in a.items()
+               for k, v in d.items())
+
+
+def _ckpt_events(events, root):
+    """Each save's and restore's wall, bytes and rate, from the manager's
+    ``checkpoint`` events (the committed directory's files, on disk)."""
+    out = []
+    for e in events:
+        if e["type"] != "checkpoint" or e["action"] not in ("save",
+                                                            "restore"):
+            continue
+        path = e["path"]
+        nbytes = sum(os.path.getsize(os.path.join(path, f))
+                     for f in os.listdir(path))
+        out.append({"action": e["action"], "step": e.get("step"),
+                    "dir": os.path.relpath(path, root),
+                    "wall_s": e["duration_s"], "bytes": nbytes,
+                    "gb_per_s": nbytes / e["duration_s"] / 1e9})
+    return out
+
+
+def _step_walls(events) -> list:
+    return [e["step_wall_ms"] for e in events
+            if e["type"] == "phase_time" and e.get("phase") == "step"]
+
+
+def _verify(root, name):
+    d = os.path.join(root, name)
+    errs = {c: verify_checkpoint(os.path.join(d, c))
+            for c in sorted(os.listdir(d)) if c.startswith("ckpt-")}
+    if not errs or any(errs.values()):
+        raise AssertionError(f"verify_checkpoint on {d}: {errs}")
+    return sorted(errs)
+
+
+def _save_breakdown(state, root):
+    """Where one save's and one restore's wall goes, by stage, on a copy
+    of the manager's work for ``state``: the device-to-host copies, the
+    npz write, the manifest's SHA-256, the fsync; then the npz read and
+    the host-to-device copies (information)."""
+    from dlrm_flexflow_tpu_torch import checkpoint as ckpt
+    from dlrm_flexflow_tpu_torch.resilience import manager as mgr
+    path = os.path.join(root, "breakdown.npz")
+    t = [time.perf_counter()]
+    host = {k: ckpt._host(v) for k, v in ckpt._flat_state(state).items()}
+    t.append(time.perf_counter())
+    np.savez(path, **host)
+    t.append(time.perf_counter())
+    mgr._sha256(path)
+    t.append(time.perf_counter())
+    mgr._fsync_file(path)
+    t.append(time.perf_counter())
+    del host
+    with np.load(path) as data:
+        arrs = {k: ckpt._tensor(data[k]) for k in data.files}
+    t.append(time.perf_counter())
+    on_card = {k: v.to(state.step.device) for k, v in arrs.items()}
+    torch.cuda.synchronize()
+    t.append(time.perf_counter())
+    del arrs, on_card
+    os.remove(path)
+    stages = ("d2h", "npz_write", "sha256", "fsync", "npz_read", "h2d")
+    return {k: t[i + 1] - t[i] for i, k in enumerate(stages)}
+
+
+def durability(root):
+    """Phase 19: the run_random.sh headline (classic graph, bf16 compute,
+    SGD lr 0.01, seed 0) through fit's resilient loop on the card.  (a)
+    the plain per-batch fit; (b) checkpoints every 8 steps, killed at step
+    10 (Preemption); (c) resumed from its directory; (d) an uninterrupted
+    twin through the same loop; (e) (d) with prefetch_depth=2; (f)
+    nan_grads@step=5 under NaNSentinel("skip").  (c) = (d) in trace and
+    parameters, (d) = (a) and (e) = (d) in parameters, bit for bit;
+    verify_checkpoint clean before and after each pair; at most two run
+    directories on disk at once.  Returns (row, launch counts)."""
+    free = shutil.disk_usage(root)
+    log({"phase": "durability", "disk_free_bytes": free.free,
+         "disk_total_bytes": free.total, "dir": root})
+    reset_counts()  # the main path starts here (every run below)
+    runs = {}
+    a, model, ev_a, wall_a, _ = _durability_run("a", root, plain=True)
+    runs["a"] = {"wall_s": wall_a, "last_fit_used_scan":
+                 model._last_fit_used_scan}
+    del model
+    _free()
+    _, model, ev_b, wall_b, raised = _durability_run(
+        "b", root, faults="preempt@step=10")
+    if not isinstance(raised, Preemption):
+        raise AssertionError("(b) was not preempted at step 10")
+    flight = os.listdir(os.path.join(root, "flight"))
+    runs["b"] = {"wall_s": wall_b, "preempted": str(raised),
+                 "flight_records": flight}
+    if len(flight) != 1:
+        raise AssertionError(f"(b) left flight records {flight}")
+    del model
+    _free()
+    runs["b"]["verified"] = _verify(root, "b")
+    c, model_c, ev_c, wall_c, _ = _durability_run("b", root, resume=True)
+    runs["c"] = {"wall_s": wall_c,
+                 "first_step": int(model_c._fit_loss_steps[0])}
+    if runs["c"]["first_step"] != 9:
+        raise AssertionError(f"(c) resumed at {runs['c']['first_step']}")
+    runs["c"]["verified"] = _verify(root, "b")
+    d, model_d, ev_d, wall_d, _ = _durability_run("d", root)
+    runs["d"] = {"wall_s": wall_d, "verified": _verify(root, "d")}
+    ref = dict(zip(model_d._fit_loss_steps.tolist(),
+                   model_d._fit_loss_trace.tolist()))
+    trace_same = all(ref[s_] == l_ for s_, l_ in
+                     zip(model_c._fit_loss_steps.tolist(),
+                         model_c._fit_loss_trace.tolist()))
+    checks = {"c_trace_eq_d": trace_same,
+              "c_params_eq_d": _same_params(c, d),
+              "d_params_eq_a": _same_params(d, a)}
+    ckpts = _ckpt_events(ev_b + ev_c + ev_d, root)
+    shutil.rmtree(os.path.join(root, "b"))
+    breakdown = _save_breakdown(model_d._fit_state, root)
+    del a, c, model_c
+    _free()
+    e, model, ev_e, wall_e, _ = _durability_run("e", root, prefetch=2)
+    runs["e"] = {"wall_s": wall_e, "verified": _verify(root, "e")}
+    checks["e_params_eq_d"] = _same_params(e, d)
+    checks["e_trace_eq_d"] = bool(np.array_equal(model._fit_loss_trace,
+                                                 model_d._fit_loss_trace))
+    ckpts += _ckpt_events(ev_e, root)
+    shutil.rmtree(os.path.join(root, "d"))
+    shutil.rmtree(os.path.join(root, "e"))
+    del d, e, model
+    _free()
+    f, model, ev_f, wall_f, _ = _durability_run(
+        "f", root, faults="nan_grads@step=5", save=False,
+        sentinel=NaNSentinel(policy="skip"))
+    anomalies = [x for x in ev_f if x["type"] == "anomaly"]
+    runs["f"] = {"wall_s": wall_f, "adopted": len(model._fit_loss_trace),
+                 "anomalies": [{k: x.get(k) for k in ("kind", "step",
+                                                      "action")}
+                               for x in anomalies],
+                 "finite": bool(np.isfinite(model._fit_loss_trace).all())}
+    checks["f_adopted_15"] = runs["f"]["adopted"] == 15
+    checks["f_one_anomaly"] = (len(anomalies) == 1
+                               and anomalies[0]["step"] == 5)
+    checks["f_finite"] = runs["f"]["finite"]
+    del f, model
+    _free()
+    counts = read_counts()  # ... and ends here
+    walls = {"sentinel_off": _step_walls(ev_d), "sentinel_on":
+             _step_walls(ev_f)}
+    saves = [x for x in ckpts if x["action"] == "save"]
+    row = {"phase": "durability", "runs": runs, "checks": checks,
+           "saves": saves,
+           "restores": [x for x in ckpts if x["action"] == "restore"],
+           "bytes_written": sum(x["bytes"] for x in saves),
+           "save_restore_stages_s": breakdown,
+           "step_wall_ms_median": {k: float(np.median(v))
+                                   for k, v in walls.items()},
+           "step_wall_ms": walls, "launches": counts,
+           "note": "walls are information, not a claim"}
+    log(row)
+    if not all(checks.values()):
+        raise AssertionError(f"durability checks failed: {checks}")
+    want = 16 + 10 + 8 + 16 + 16 + 17  # (a)-(f); (f) discards one step
+    if counts["row_update"] != want or counts["row_update_prep"] != want:
+        raise AssertionError(f"row update launched {counts}, want {want} "
+                             f"(a 16, b 10, c 8, d 16, e 16, f 17)")
+    return row, counts
+
+
+def durability_phase():
+    """Phase 19 in a directory of its own beside this script, removed
+    afterwards (the checkpoints hold 2.06 GB each); the flight records
+    that the killed run dumps land there too."""
+    root = tempfile.mkdtemp(prefix=".durability-",
+                            dir=os.path.dirname(os.path.abspath(__file__)))
+    old = os.environ.get("FF_FLIGHT_DIR")
+    os.environ["FF_FLIGHT_DIR"] = os.path.join(root, "flight")
+    try:
+        return durability(root)
+    finally:
+        if old is None:
+            del os.environ["FF_FLIGHT_DIR"]
+        else:
+            os.environ["FF_FLIGHT_DIR"] = old
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def _entry(name, launches, err, timing):
     source, replaces, _ = KERNELS[name]
     return {"name": name, "route": "cuda", "source": source,
@@ -2504,13 +2756,6 @@ def main() -> int:
     # phase 15 and 13 on bf16 tables: the (vii) headline and the bag graph
     bf16_row, bf16_counts = train_bf16_tables(inputs, labels)
     bag16_row, bag16_counts = train_bag_graph(torch.bfloat16)
-    path_counts = (headline_counts, sparse_counts, dense_counts, dot_counts,
-                   staged_counts, bag_counts, bf16_counts, bag16_counts)
-    row_launches = sum(c["row_update"] for c in path_counts)
-    prep_launches = sum(c["row_update_prep"] for c in path_counts)
-    if prep_launches != row_launches:
-        raise AssertionError(f"{prep_launches} prepare-and-sort launches "
-                             f"for {row_launches} row updates")
     # phases 9 and 14: timings at the paths' shapes
     gen = torch.Generator(device="cuda").manual_seed(9)
     table = _rows_tensor(gen, TABLES * ROWS, DIM)
@@ -2534,6 +2779,19 @@ def main() -> int:
                                         for c in (bf16_counts, bag16_counts)),
                       "row_set": bf16_counts["row_set"],
                       "embedding_bag": bag16_counts["embedding_bag"]}})
+    # phase 19: durability (resilient fit: saves, kill, resume, sentinel),
+    # after the timings: its host I/O stays out of their process history
+    del table
+    _free()
+    durable, durable_counts = durability_phase()
+    path_counts = (headline_counts, sparse_counts, dense_counts, dot_counts,
+                   staged_counts, bag_counts, bf16_counts, bag16_counts,
+                   durable_counts)
+    row_launches = sum(c["row_update"] for c in path_counts)
+    prep_launches = sum(c["row_update_prep"] for c in path_counts)
+    if prep_launches != row_launches:
+        raise AssertionError(f"{prep_launches} prepare-and-sort launches "
+                             f"for {row_launches} row updates")
     log({"phase": "done", "wall_s": round(time.perf_counter() - t0, 3),
          "train_step_wall_ms": {"headline": headline["step_wall_ms"],
                                 "fused_dense": dense["step_wall_ms"],
@@ -2547,6 +2805,11 @@ def main() -> int:
          "quantized_bytes": {m: r["bytes_after"]
                              for m, r in quantized.items()},
          "telemetry_events": telemetry["by_type"],
+         "durability": {
+             "save_wall_s": [x["wall_s"] for x in durable["saves"]],
+             "restore_wall_s": [x["wall_s"] for x in durable["restores"]],
+             "save_gb_per_s": [x["gb_per_s"] for x in durable["saves"]],
+             "step_wall_ms_median": durable["step_wall_ms_median"]},
          "note": "walls include each path's eager step and capture"})
     log({"kernels": [
         _entry("fused_interact_fwd",

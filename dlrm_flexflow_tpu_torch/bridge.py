@@ -16,15 +16,24 @@ tables and per-table ``(R, d)`` tables cross like any other parameter.
 bf16 tables arrive as numpy arrays of ``ml_dtypes.bfloat16``, which
 ``torch.from_numpy`` does not take: they cross bit for bit as their
 ``uint16`` view.  ``params_to_numpy`` is the way back (the tests feed its
-arrays to ``jnp.asarray``).  This module imports no JAX.
+arrays to ``jnp.asarray``).
+
+A whole training state crosses the same way: ``state_from_jax`` takes a
+JAX ``TrainState`` (or any object with its five fields, leaves anything
+``np.asarray`` reads) and returns the port's :class:`TrainState` of CPU
+tensors, ``state_to_numpy`` gives the five fields back as host arrays.
+The npz checkpoints (``checkpoint.py``) are the other way across.  This
+module imports no JAX.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
+
+from .model import TrainState
 
 
 def _tensor(name, value) -> torch.Tensor:
@@ -75,3 +84,39 @@ def opt_state_from_jax(np_opt_state: Mapping[str, object]) -> Dict[str, object]:
     if "v" in np_opt_state:
         out["v"] = params_from_jax(np_opt_state["v"])
     return out
+
+
+def _tree(fn, tree, name=""):
+    if isinstance(tree, Mapping):
+        return {k: _tree(fn, v, f"{name}/{k}") for k, v in tree.items()}
+    return fn(name, tree)
+
+
+def state_from_jax(jax_state) -> TrainState:
+    """A JAX ``TrainState`` (fields ``params, opt_state, bn_state, rng,
+    step``; leaves JAX or numpy arrays) -> the port's :class:`TrainState`
+    of CPU tensors with the same names, dtypes and values (bf16 bit for
+    bit, the key as uint32).  Place it with ``model.load_params(
+    state.params, device=..., opt_state=state.opt_state)`` or move its
+    tensors yourself."""
+    def conv(name, leaf):
+        return None if leaf is None else _tensor(name, leaf)
+    return TrainState(_tree(conv, jax_state.params, "params"),
+                      _tree(conv, jax_state.opt_state, "opt_state"),
+                      _tree(conv, jax_state.bn_state or {}, "bn_state"),
+                      conv("rng", jax_state.rng), conv("step", jax_state.step))
+
+
+def state_to_numpy(state: TrainState) -> Dict[str, Any]:
+    """The five fields of a port :class:`TrainState` as host numpy trees,
+    in the JAX package's field order (``params``, ``opt_state``,
+    ``bn_state``, ``rng``, ``step``), bf16 as ``ml_dtypes.bfloat16``:
+    ``TrainState(*(jax.tree.map(jnp.asarray, v) for v in
+    state_to_numpy(s).values()))`` is the JAX state."""
+    def conv(_name, leaf):
+        return _array(leaf) if isinstance(leaf, torch.Tensor) else leaf
+    return {"params": _tree(conv, state.params),
+            "opt_state": _tree(conv, state.opt_state),
+            "bn_state": _tree(conv, state.bn_state or {}),
+            "rng": conv("rng", state.rng),
+            "step": conv("step", state.step)}

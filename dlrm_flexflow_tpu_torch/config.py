@@ -2,7 +2,8 @@
 
 Counterpart of ``dlrm_flexflow_tpu/config.py``: the same field names,
 defaults and flags for the fields the serving and training slices (the
-staged epoch and its row cache included) read.
+staged epoch and its row cache included) and the durability slice
+(``prefetch_depth``, ``faults``) read.
 The other fields arrive with the slices that read them.
 """
 
@@ -64,6 +65,12 @@ class FFConfig:
     fit_scan_max_bytes: int = 2 * 1024 * 1024 * 1024
     # inter-op activation storage dtype (float32 only in the port)
     activation_dtype: str = "float32"
+    # Asynchronous input prefetch for fit's per-batch loops
+    # (data/prefetch.py): a worker thread slices and places the next
+    # prefetch_depth batches on the device while the current step runs.
+    # 0 = the synchronous loop.  The numbers are bit-identical either way,
+    # and a checkpoint's loader cursor stays the last batch consumed.
+    prefetch_depth: int = 0
     # --- online serving (serving/) ---------------------------------------
     # batch-size buckets the InferenceEngine warms up; requests pad up to
     # the enclosing bucket (comma-separated, sorted/deduped at parse)
@@ -85,6 +92,11 @@ class FFConfig:
     # port of the process-wide Prometheus /metrics + /healthz endpoint
     # (telemetry/exporter.py), started once by FFModel.compile; 0 = off
     metrics_port: int = 0
+    # Fault-injection spec (resilience/faultinject.py), e.g.
+    # "nan_grads@step=3,preempt@step=7": drives the recovery paths end to
+    # end; also settable via the FF_FAULTS environment variable.  Empty =
+    # no injected faults.
+    faults: str = ""
     seed: int = 0
 
     @staticmethod
@@ -110,6 +122,8 @@ class FFConfig:
             ("--epoch-row-cache",): ("epoch_row_cache", str),
             ("--fit-scan-max-bytes",): ("fit_scan_max_bytes", int),
             ("--metrics-port",): ("metrics_port", int),
+            ("--prefetch",): ("prefetch_depth", int),
+            ("--faults",): ("faults", str),
         }
         switches = {"--profiling": "profiling"}
         by_flag = {f: v for names, v in flags.items() for f in names}

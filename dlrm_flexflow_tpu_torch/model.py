@@ -32,8 +32,12 @@ through the row-set kernel on the card.  The caches are buffers the
 model keeps, so the one captured step serves every block, chunk and
 epoch of a shape: ``fit(epochs=2)`` of the run_random.sh CLI (64 staged
 batches) captures once.  The prologue, the block fetches and writebacks
-and the epilogue stay eager.  A mesh comes with the scale-out slice;
-checkpoints and resilient training with the durability slice.
+and the epilogue stay eager.  A mesh comes with the scale-out slice.
+
+Checkpoints and resilient training are the durability slice
+(``checkpoint.py``, ``resilience/``, ``data/prefetch.py``): ``fit``
+hands any of its checkpoint, resume or sentinel options, and installed
+faults, to ``resilience.loop.resilient_fit``.
 
 Tables are stored in ``FFConfig.embedding_dtype`` (f32 or bf16) through
 every path above: a bf16 table's row-sparse step, cache writebacks and
@@ -79,6 +83,7 @@ from .ops import (BatchMatmul, Concat, Embedding, Flat, FusedEmbedInteract,
 from .ops.embedding import lane_pack
 from .ops.quantized import QUANT_MODES
 from .ops.row_update_kernel import row_update_cuda
+from .data.prefetch import BatchPlacer, PrefetchLoader
 from .optim import Optimizer, SGDOptimizer
 from .telemetry import active_log, sample_memory
 from .telemetry import metrics as _tmetrics
@@ -90,9 +95,6 @@ from .tensor import Tensor, as_dtype, numpy_dtype
 EMBEDDING_OPS = (Embedding, StackedEmbedding, RaggedStackedEmbedding)
 _CCE = ("sparse_categorical_crossentropy", "sparse_crossentropy",
         "categorical_crossentropy", "crossentropy")
-_DURABILITY = ("checkpointed and resilient training (checkpoint_manager, "
-               "checkpoint cadences, resume, sentinel) is not ported yet: "
-               "it comes with the durability slice in ROADMAP.md")
 _CALLBACKS = ("fit(callbacks=...) is not ported yet: keras-style callbacks "
               "come with the optimizer, schedules and data item of "
               "ROADMAP.md (Queue A item 7)")
@@ -102,7 +104,15 @@ _MODES = ("auto", "on", "off")
 @dataclass
 class TrainState:
     """Parameters ``{op: {param: tensor}}``, the optimizer state (``step``,
-    ``lr`` and, under momentum, ``v``) and the step count, on one device.
+    ``lr`` and, under momentum, ``v``), the batch-norm state, the PRNG key
+    and the step count, on one device: the JAX package's fields in its
+    order (``model.py:76-84``), so a checkpoint holds the same leaves.
+
+    ``bn_state`` is ``{}`` for every graph the port builds (batch norm
+    comes with the op set, ROADMAP.md Queue A item 9).  ``rng`` is an
+    opaque uint32 ``(2,)`` key the port carries and checkpoints but never
+    draws from until dropout is ported: a step leaves it as it was, as the
+    JAX step does for a graph with no stochastic op (``model.py:979-981``).
 
     ``FFModel.train_step`` consumes its input state, as the JAX package's
     donated step does: the tables and dense parameters are updated in
@@ -111,6 +121,8 @@ class TrainState:
 
     params: Dict[str, Dict[str, torch.Tensor]]
     opt_state: Dict[str, Any] = field(default_factory=dict)
+    bn_state: Dict[str, Any] = field(default_factory=dict)
+    rng: Optional[torch.Tensor] = None
     step: Optional[torch.Tensor] = None
 
     def clone(self) -> "TrainState":
@@ -119,7 +131,17 @@ class TrainState:
                 return {k: copy(v) for k, v in x.items()}
             return x.clone() if isinstance(x, torch.Tensor) else x
         return TrainState(copy(self.params), copy(self.opt_state),
+                          copy(self.bn_state), copy(self.rng),
                           copy(self.step))
+
+
+def initial_rng(seed: int, device) -> torch.Tensor:
+    """The uint32 ``(2,)`` key ``init`` puts in a state: ``[0, seed]``,
+    the layout of ``jax.random.PRNGKey(seed)``.  It is not the key the JAX
+    package's ``init`` keeps (that one is split from it); nothing in the
+    port draws from it."""
+    key = np.array([0, int(seed) & 0xFFFFFFFF], dtype=np.uint32)
+    return torch.from_numpy(key).to(device)
 
 
 def params_device(params) -> torch.device:
@@ -397,15 +419,15 @@ class FFModel:
                 derive_seed(seed, i, op.name))
             params[op.name] = op.init_params(gen)
         self.device = dev
-        return self._state(params, None, dev)
+        return self._state(params, None, dev, seed)
 
-    def _state(self, params, opt_state, dev) -> TrainState:
+    def _state(self, params, opt_state, dev, seed) -> TrainState:
         if opt_state is None:
             opt_state = (self.optimizer.init(params)
                          if self.optimizer is not None else {})
         else:
             opt_state = self._place_opt_state(opt_state, dev)
-        return TrainState(params, opt_state,
+        return TrainState(params, opt_state, {}, initial_rng(seed, dev),
                           torch.zeros((), dtype=torch.int32, device=dev))
 
     def load_params(self, params, device=None, opt_state=None) -> TrainState:
@@ -438,7 +460,7 @@ class FFModel:
                         f"expected {spec.shape} {spec.dtype}")
                 out[op_name][pname] = v.to(dev).contiguous()
         self.device = dev
-        return self._state(out, opt_state, dev)
+        return self._state(out, opt_state, dev, self.config.seed)
 
     def get_weights(self, state: TrainState, op_name: str, param_name: str
                     ) -> np.ndarray:
@@ -453,7 +475,8 @@ class FFModel:
             device=tgt.device, dtype=tgt.dtype).reshape(tgt.shape)
         params = dict(state.params)
         params[op_name] = {**params[op_name], param_name: arr}
-        return TrainState(params, state.opt_state, state.step)
+        return TrainState(params, state.opt_state, state.bn_state, state.rng,
+                          state.step)
 
     # ------------------------------------------------------------- inference
     def _place_inputs(self, inputs, device) -> Dict[str, torch.Tensor]:
@@ -474,6 +497,27 @@ class FFModel:
         if "sparse" in (self.loss_type or ""):
             return labels.to(device=device, dtype=torch.int64)
         return labels.to(device=device, dtype=self.final_tensor.dtype)
+
+    def shard_batch(self, arr) -> torch.Tensor:
+        """One array of a batch as a tensor on the model's device (the JAX
+        package's ``shard_batch``; the port has no mesh to shard over):
+        the ``place_fn`` a caller may hand a ``PrefetchLoader``."""
+        dev = self.device if self.device is not None else resolve_device()
+        if not isinstance(arr, torch.Tensor):
+            arr = torch.from_numpy(np.asarray(arr))
+        return arr.to(dev)
+
+    def batch_placer(self) -> BatchPlacer:
+        """The placement ``fit`` gives its own ``PrefetchLoader``: a whole
+        batch cast to the graph's input and label dtypes on the host and
+        copied to the model's device, on the card through pinned staging
+        buffers on a stream of its own (``data/prefetch.py``)."""
+        self._require_compiled()
+        dev = self.device if self.device is not None else resolve_device()
+        labels = (torch.int64 if "sparse" in (self.loss_type or "")
+                  else self.final_tensor.dtype)
+        return BatchPlacer(dev, {t.name: t.dtype for t in self._inputs},
+                           labels)
 
     def predict(self, params_or_state, inputs) -> torch.Tensor:
         """Labels-free inference: the public forward for serving.
@@ -537,7 +581,8 @@ class FFModel:
         carried = (state.params, state.opt_state, step)
         packed = (self._step(batch, carried) if donate
                   else self._step_body(batch, carried))
-        return (TrainState(state.params, state.opt_state, step),
+        return (TrainState(state.params, state.opt_state, state.bn_state,
+                           state.rng, step),
                 self._unpack_metrics(packed))
 
     def _step(self, batch, carried):
@@ -697,8 +742,8 @@ class FFModel:
             params[op.name] = {"embedding": cache}
             slots_ep[op.name] = slots
             writebacks.append((op.name, rowof))
-        return (TrainState(params, state.opt_state, state.step), slots_ep,
-                writebacks, originals)
+        return (TrainState(params, state.opt_state, state.bn_state, state.rng,
+                           state.step), slots_ep, writebacks, originals)
 
     def _cache_buffer(self, role, rows: int, like) -> torch.Tensor:
         """The model's ``(rows, d)`` cache buffer for ``role`` (the epoch
@@ -758,7 +803,8 @@ class FFModel:
                 params[name] = {"embedding": cache_fetch(
                     parent, blk["rowof"][name], out=buf)}
             state = self.ladder_scan(
-                TrainState(params, state.opt_state, state.step),
+                TrainState(params, state.opt_state, state.bn_state,
+                           state.rng, state.step),
                 {n: v[lo:hi] for n, v in inputs.items()}, labels[lo:hi],
                 rest, blk["next"], mets)
             params = dict(state.params)
@@ -766,7 +812,8 @@ class FFModel:
                 cache_writeback(parent, blk["rowof"][name],
                                 params[name]["embedding"])
                 params[name] = {"embedding": parent}
-            state = TrainState(params, state.opt_state, state.step)
+            state = TrainState(params, state.opt_state, state.bn_state,
+                               state.rng, state.step)
         return state
 
     def epoch_scan(self, state: TrainState, inputs, labels, slots_ep, meta,
@@ -796,7 +843,8 @@ class FFModel:
             cache_writeback(originals[name], rowof,
                             params[name]["embedding"])
             params[name] = {"embedding": originals[name]}
-        return TrainState(params, state.opt_state, state.step)
+        return TrainState(params, state.opt_state, state.bn_state, state.rng,
+                          state.step)
 
     # ------------------------------------------------------------- epochs
     def _train_epoch(self, state: TrainState, inputs, labels):
@@ -945,6 +993,28 @@ class FFModel:
         sums["loss"] = loss_num / n_steps
         return state, sums
 
+    def set_learning_rate(self, state: TrainState, lr: float) -> TrainState:
+        """A state with the optimizer's learning rate set to ``lr`` (JAX
+        ``model.py:2292-2302``), and ``optimizer.lr`` synced.  The rate is
+        written into the state's ``opt_state["lr"]`` tensor in place: a
+        captured step (``_step``) reads that tensor by address, so its
+        next replay runs at the new rate with no new capture.  The input
+        state therefore sees the new rate too (``clone`` it first to keep
+        the old one).  A state without the key (an older checkpoint)
+        gains it here."""
+        opt = dict(state.opt_state)
+        cur = opt.get("lr")
+        if (isinstance(cur, torch.Tensor) and cur.dtype == torch.float32
+                and cur.dim() == 0):
+            cur.fill_(float(lr))
+        else:
+            opt["lr"] = torch.tensor(float(lr), dtype=torch.float32,
+                                     device=params_device(state.params))
+        if self.optimizer is not None:
+            self.optimizer.lr = float(lr)
+        return TrainState(state.params, opt, state.bn_state, state.rng,
+                          state.step)
+
     def get_perf_metrics(self) -> MetricsAccumulator:
         """Running metrics of the current or last ``fit`` epoch."""
         return self._last_metrics
@@ -990,23 +1060,75 @@ class FFModel:
         epochs as one ``train_epochs`` (one cache prologue and epilogue),
         one epoch as ``train_epoch``, a chunked epoch by chunks.
         ``_last_fit_used_scan`` says which branch ran; every other loader
-        takes ``train_step`` batch by batch.
+        takes ``train_step`` batch by batch, behind a ``PrefetchLoader``
+        when ``FFConfig.prefetch_depth`` > 0 (a worker thread places the
+        next batches on the device while the current step runs).
+
+        Resilience (JAX ``model.py:2377-2403``): a ``checkpoint_manager``
+        (a ``resilience.CheckpointManager`` or a directory path) with a
+        ``checkpoint_every_n_steps`` / ``checkpoint_every_n_epochs``
+        cadence, ``resume=True``, a ``sentinel``
+        (``resilience.NaNSentinel``) or installed faults (``FF_FAULTS``,
+        ``FFConfig.faults``) route training through
+        ``resilience.loop.resilient_fit``: batch by batch, with a host
+        decision point at every step; ``warmup`` is skipped there.
 
         ``callbacks`` stands where the JAX package's ``fit`` takes it;
         any value but None raises until callbacks are ported."""
         if callbacks is not None:
             raise NotImplementedError(_CALLBACKS)
+        epochs = epochs or self.config.epochs
+        from .resilience import faultinject
+        faultinject.install_from_env()
         if (checkpoint_manager is not None or checkpoint_every_n_steps
                 or checkpoint_every_n_epochs or resume
-                or sentinel is not None):
-            raise NotImplementedError(_DURABILITY)
+                or sentinel is not None or faultinject.active()
+                or getattr(self.config, "faults", "")):
+            from .resilience.loop import resilient_fit
+            from .resilience.manager import CheckpointManager
+            if isinstance(checkpoint_manager, str):
+                checkpoint_manager = CheckpointManager(checkpoint_manager)
+            if resume and checkpoint_manager is None:
+                raise ValueError(
+                    "fit(resume=True) needs a checkpoint_manager "
+                    "(instance or directory path) to restore from")
+            if (checkpoint_every_n_steps or checkpoint_every_n_epochs) \
+                    and checkpoint_manager is None:
+                raise ValueError(
+                    "a checkpoint cadence needs a checkpoint_manager "
+                    "(instance or directory path)")
+            return resilient_fit(
+                self, state, dataloader, epochs=epochs, verbose=verbose,
+                callbacks=None, manager=checkpoint_manager,
+                every_n_steps=checkpoint_every_n_steps,
+                every_n_epochs=checkpoint_every_n_epochs, resume=resume,
+                sentinel=sentinel, show_throughput=show_throughput)
         self._require_compiled()
-        epochs = epochs or self.config.epochs
         acc = MetricsAccumulator(self.metrics)
         self._last_metrics = acc
         dev = params_device(state.params)
         scan_data = self._stage_scan_dataset(dataloader, dev)
         self._last_fit_used_scan = scan_data is not None
+        depth = int(getattr(self.config, "prefetch_depth", 0) or 0)
+        own_prefetch = None
+        if (scan_data is None and depth > 0
+                and not isinstance(dataloader, PrefetchLoader)):
+            # snapshot=False: this wrap never checkpoints, so the worker
+            # skips the per-fetch copy of the loader's resume state
+            own_prefetch = PrefetchLoader(dataloader, depth=depth,
+                                          place_fn=self.batch_placer(),
+                                          snapshot=False)
+            dataloader = own_prefetch
+        try:
+            return self._fit(state, dataloader, epochs, verbose, warmup,
+                             show_throughput, acc, dev, scan_data)
+        finally:
+            if own_prefetch is not None:
+                own_prefetch.close()
+
+    def _fit(self, state, dataloader, epochs, verbose, warmup,
+             show_throughput, acc, dev, scan_data):
+        """``fit``'s staged and per-batch loops, after its routing."""
         if warmup:
             if dev.type == "cuda":
                 # a kernel first reached inside an epoch (the row set at

@@ -15,15 +15,17 @@ counters into a retained base (``retire_batcher``) and a collected engine
 folds through a finalizer, so the exposed counters stay monotone across
 scrapes.
 
-The families are those the port's trainer, engine and batcher produce.
-The router, SLO, fleet, durability, storage and strategy families come
-with their modules (ROADMAP.md).  The registry is process-wide, as the
+The families are those the port's trainer, engine and batcher produce,
+and the durability families (checkpoint saves and age, sentinel
+rollbacks, the host watchdog's heartbeat age).  The router, SLO, fleet,
+storage and strategy families come with their modules (ROADMAP.md).  The registry is process-wide, as the
 JAX package's is; ``reset`` clears its live and retained state (tests).
 """
 
 from __future__ import annotations
 
 import threading
+import time
 import weakref
 from collections import deque
 from typing import Callable, Dict, List, Optional, Tuple
@@ -79,6 +81,17 @@ FAMILIES: Dict[str, Tuple[str, str]] = {
         "percent of the most recent fit window's wall — the measured "
         "column next to the cost model's DCN-exposed prediction "
         '(PERF.md)'),
+    "dlrm_checkpoint_saves_total": (
+        "counter", "checkpoints committed by CheckpointManager.save"),
+    "dlrm_checkpoint_age_s": (
+        "gauge", "seconds since the last committed checkpoint"),
+    "dlrm_sentinel_rollbacks_total": (
+        "counter", "dispatches the NaN sentinel rejected and rolled back"),
+    "dlrm_host_heartbeat_age_s": (
+        "gauge", "age in seconds of the stalest peer heartbeat file "
+                 "the host watchdog saw on its latest sweep — crosses "
+                 "the watchdog deadline when a peer host died or hung "
+                 "(resilience/watchdog.py — docs/resilience.md)"),
     "dlrm_serve_shed_total": (
         "counter",
         'requests shed, labelled by cause: queue_full (batcher queue '
@@ -507,6 +520,22 @@ def render_exemplars(limit: int = 10) -> str:
     return "\n".join(lines) + ("\n" if lines else "")
 
 
+# ---------------------------------------------------------- checkpoint age
+_last_ckpt_ts: Optional[float] = None
+
+
+def note_checkpoint_save() -> None:
+    """Called by ``CheckpointManager.save`` on every committed
+    checkpoint: bumps the saves counter and resets the age gauge."""
+    global _last_ckpt_ts
+    _last_ckpt_ts = time.time()
+    CHECKPOINT_SAVES.inc()
+
+
+def _ckpt_age() -> Optional[float]:
+    return None if _last_ckpt_ts is None else time.time() - _last_ckpt_ts
+
+
 # ------------------------------------------------------- the default registry
 REGISTRY = MetricsRegistry()
 
@@ -532,9 +561,17 @@ TRAIN_STEPS = REGISTRY.register(Counter("dlrm_train_steps_total"))
 TRAIN_SAMPLES_PER_S = REGISTRY.register(
     Gauge("dlrm_train_samples_per_s"))
 DATA_STALL_PCT = REGISTRY.register(Gauge("dlrm_data_stall_pct"))
+CHECKPOINT_SAVES = REGISTRY.register(
+    Counter("dlrm_checkpoint_saves_total"))
+CHECKPOINT_AGE = REGISTRY.register(
+    Gauge("dlrm_checkpoint_age_s", fn=_ckpt_age))
+SENTINEL_ROLLBACKS = REGISTRY.register(
+    Counter("dlrm_sentinel_rollbacks_total"))
 # the per-batch fit loop's measured exposed share: host time blocked on
 # the final device fence as a percent of the fit window's wall
 EXPOSED_COMM_PCT = REGISTRY.register(Gauge("dlrm_exposed_comm_pct"))
+HOST_HEARTBEAT_AGE = REGISTRY.register(
+    Gauge("dlrm_host_heartbeat_age_s"))
 SERVE_SHED = REGISTRY.register(
     LabeledCounter("dlrm_serve_shed_total", "cause", _shed_causes))
 
@@ -560,7 +597,11 @@ def reset() -> None:
         _retired_bucket_n.clear()
     for b in list(_live_batchers):
         _live_batchers.discard(b)
-    with TRAIN_STEPS._lock:
-        TRAIN_STEPS._v = 0.0
-    for g in (TRAIN_SAMPLES_PER_S, DATA_STALL_PCT, EXPOSED_COMM_PCT):
+    global _last_ckpt_ts
+    _last_ckpt_ts = None
+    for c in (TRAIN_STEPS, CHECKPOINT_SAVES, SENTINEL_ROLLBACKS):
+        with c._lock:
+            c._v = 0.0
+    for g in (TRAIN_SAMPLES_PER_S, DATA_STALL_PCT, EXPOSED_COMM_PCT,
+              HOST_HEARTBEAT_AGE):
         g._v = None

@@ -31,11 +31,45 @@ import contextlib
 import os
 import threading
 import time
-from typing import Any, Dict, Optional, Union
+import weakref
+from typing import Any, Dict, List, Optional, Union
 
 from .events import active_log, emit
 
 _tls = threading.local()
+
+# Open-span registry for the flight recorder (telemetry/fleet.py): the
+# spans still open when a run dies are the regions it died inside.  Lock
+# free, as the recorder reads it inside exception handling: a plain dict
+# of weakrefs changed only by single dict operations and read through a
+# list() snapshot, so an abandoned span cannot leak.
+_open_spans: Dict[str, "weakref.ref[Span]"] = {}
+
+
+def _register_open(sp: "Span") -> None:
+    if len(_open_spans) > 8192:  # prune dead refs, bound the table
+        for key in [k for k, r in list(_open_spans.items())
+                    if r() is None]:
+            _open_spans.pop(key, None)
+    _open_spans[sp.span_id] = weakref.ref(sp)
+
+
+def open_span_records() -> List[Dict[str, Any]]:
+    """Every span opened but not yet ended, as plain dicts for the
+    flight-recorder JSON; ``age_us`` is how long each has been open."""
+    now = time.perf_counter()
+    out: List[Dict[str, Any]] = []
+    for ref in list(_open_spans.values()):
+        sp = ref()
+        if sp is None or sp.ended:
+            continue
+        out.append({"name": sp.name, "trace_id": sp.trace_id,
+                    "span_id": sp.span_id, "parent_id": sp.parent_id,
+                    "start_s": sp._start_s,
+                    "age_us": (now - sp._t0) * 1e6,
+                    "thread": sp._thread, "tid": sp._tid,
+                    "attrs": (dict(sp.attrs) if sp.attrs else None)})
+    return out
 
 def _rand_id(nbytes: int = 8) -> str:
     return os.urandom(nbytes).hex()
@@ -101,6 +135,7 @@ class Span:
         self._tid = int(th.ident or 0)
         self._lock = threading.Lock()
         self._ended = False
+        _register_open(self)
 
     def set_attr(self, key: str, value) -> "Span":
         self.attrs[key] = value
@@ -120,6 +155,7 @@ class Span:
             if self._ended:
                 return None
             self._ended = True
+        _open_spans.pop(self.span_id, None)
         if dur_us is None:
             dur_us = (time.perf_counter() - self._t0) * 1e6
         self.status = status

@@ -31,7 +31,8 @@ BATCH = 16
 # the public FFModel methods both packages define
 _METHODS = ["fit", "train_step", "train_epoch", "train_epochs", "eval_step",
             "predict", "init", "compile", "forward", "get_weights",
-            "set_weights", "get_perf_metrics"]
+            "set_weights", "get_perf_metrics", "set_learning_rate",
+            "shard_batch"]
 
 
 def _positional(fn):

@@ -304,8 +304,7 @@ def test_unported_paths_raise_not_implemented():
                  lambda: InferenceEngine(pm, state, storage="tiered",
                                          device="cpu"),
                  lambda: fft.AdamOptimizer(lr=0.001),
-                 lambda: fft.SGDOptimizer(lr=0.1, lazy_embeddings=True),
-                 lambda: pm.fit(state, None, checkpoint_manager="ckpt")):
+                 lambda: fft.SGDOptimizer(lr=0.1, lazy_embeddings=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             call()
 
