@@ -98,7 +98,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
      wall, bytes and GB/s, the free disk, and the step wall with and
      without the sentinel (information).  It writes under a directory
      beside this script (at most two run directories, about 8.3 GB, at
-     once) and removes it.
+     once) and removes it;
+ 20. tiered storage, the cost gates and the router, on the run_random.sh
+     serving model without the fused interaction (bf16 compute, buckets
+     1-256): (a) measure the constants of ops/kernel_costs.py (pinned
+     H2D of 1-2048 rows of 256 B, the StackedEmbedding gather at the
+     buckets, the row set's 2048-row install, index_copy_, a 64 MiB
+     copy_, the launch floor) and print each gate's decision and flip
+     point at the served shapes, under the committed and the measured
+     constants; (b) build InferenceEngine(storage="tiered") at 4096 hot
+     rows a table with the gate deciding on 512 zipf (1.05) requests'
+     row frequencies (a refusal is printed on its own line, and the
+     engine built again under FF_TIERED_STORAGE=on); (c) serve those
+     requests of 1-256 rows through the batcher from 8 threads, each
+     result bit for bit the resident engine's, then again one dispatch
+     at a time on an aot=False tiered engine: bit for bit the resident
+     and the graphed results, one row-set launch on each dispatch with
+     misses and none on an all-hit one; (d) again at 512 hot rows (the
+     tier evicts) through a 4-replica ReplicaRouter over that one
+     engine, bit for bit; (e) scatter_apply of a tiered store on the
+     card against the same store on the CPU (the plain versions), bit
+     for bit, with writebacks; (f) a 4-replica router over the resident
+     fused engine (B3), bit for bit its answers; (g) save_tiered /
+     load_tiered of (c)'s 2 GB store, bit for bit, and a load at 512 hot
+     rows re-admitting the hottest prefix.  Hit %, misses, evictions,
+     the miss stall (median, p99), QPS and p99 are information.
 Profile lines carry the graph replays in their window, the graph pool's
 bytes and the host's launches per dispatch or step.
 The line before the last is the kernels' JSON record; the last line is
@@ -152,7 +176,14 @@ from dlrm_flexflow_tpu_torch.resilience import (CheckpointManager,
                                                 NaNSentinel, Preemption,
                                                 faultinject,
                                                 verify_checkpoint)
-from dlrm_flexflow_tpu_torch.serving import DynamicBatcher, InferenceEngine
+from dlrm_flexflow_tpu_torch.ops import kernel_costs
+from dlrm_flexflow_tpu_torch.serving import (DynamicBatcher, InferenceEngine,
+                                             ReplicaRouter)
+from dlrm_flexflow_tpu_torch.storage import (TieredEmbeddingTable,
+                                             load_tiered, predicted_hit_rate,
+                                             save_tiered)
+from dlrm_flexflow_tpu_torch.telemetry import rowfreq
+from dlrm_flexflow_tpu_torch.tensor import Tensor
 from dlrm_flexflow_tpu_torch.telemetry import exporter as tele_exporter
 from dlrm_flexflow_tpu_torch.telemetry import schema as tele_schema
 from dlrm_flexflow_tpu_torch.tools.cuda_timing import (graph_ms,
@@ -178,6 +209,10 @@ BATCH = 256
 INT32_MIN = int(np.iinfo(np.int32).min)
 # rows of d = 64 f32 (25.6 MB) that the 50 MB L2 holds
 L2_ROWS = 100_000
+# phase 20: the tiered serving run of bench.py (BENCH_STORAGE=tiered,
+# BENCH_HOT_ROWS, BENCH_ID_DIST=zipf at its default exponent)
+HOT_ROWS = 4096
+ZIPF_ALPHA = 1.05
 KERNELS = {
     "fused_interact_fwd": (
         "dlrm_flexflow_tpu_torch/csrc/fused_interact.cu",
@@ -2704,6 +2739,481 @@ def durability_phase():
         shutil.rmtree(root, ignore_errors=True)
 
 
+# --------------------------------------------------------------- phase 20
+@contextlib.contextmanager
+def _costs(constants):
+    """``kernel_costs``'s constants set to ``constants`` for the block."""
+    old = {k: getattr(kernel_costs, k) for k in constants}
+    for k, v in constants.items():
+        setattr(kernel_costs, k, v)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(kernel_costs, k, v)
+
+
+def measure_cost_constants(card: str):
+    """Phase 20(a): each constant of ``ops/kernel_costs.py`` on this card,
+    device times from CUDA graphs of many calls (``graph_ms``).  Returns
+    {constant: value}."""
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    row_bytes = DIM * 4
+    # the host link: one non_blocking H2D of a miss block of n rows of
+    # 256 B from pinned memory; a least-squares line, ns against bytes
+    link_ns = {}
+    for n in (1, 2, 8, 32, 128, 512, 2048):
+        src = torch.empty(n * row_bytes, dtype=torch.uint8, pin_memory=True)
+        dst = torch.empty(n * row_bytes, dtype=torch.uint8, device="cuda")
+        link_ns[n] = graph_ms(
+            lambda d=dst, s=src: d.copy_(s, non_blocking=True),
+            [()] * 16) * 1e6
+    sizes = np.array([n * row_bytes for n in link_ns], dtype=np.float64)
+    slope, intercept = np.polyfit(sizes, np.array(list(link_ns.values())), 1)
+    # the StackedEmbedding gather at the serving buckets (uniform ids);
+    # a least-squares line, ns against rows: the slope is the per-row
+    # cost, the intercept the call's fixed cost
+    tables = _rows_tensor(gen, TABLES * ROWS, DIM).view(TABLES, ROWS, DIM)
+    gather_ns = {}
+    for b in BUCKETS:
+        op = emb_module.StackedEmbedding(
+            "emb", Tensor((b, TABLES, 1), torch.int64), TABLES, ROWS, DIM)
+        sets = [(torch.randint(0, ROWS, (b, TABLES, 1), generator=gen,
+                               device="cuda"),) for _ in range(64)]
+        gather_ns[b * TABLES] = graph_ms(
+            lambda ids, o=op: o.forward({"embedding": tables}, [ids]),
+            sets) * 1e6
+    g_slope, g_intercept = np.polyfit(
+        np.array(list(gather_ns), dtype=np.float64),
+        np.array(list(gather_ns.values())), 1)
+    # the row set installing a full top-bucket miss block into a hot tier
+    hot = _rows_tensor(gen, TABLES * HOT_ROWS, DIM)
+    n = BUCKETS[-1] * TABLES
+    set_sets = []
+    for _ in range(16):
+        ids = torch.randperm(hot.shape[0], generator=gen, device="cuda")[:n]
+        set_sets.append(prepare_row_set(hot, ids.to(torch.int32),
+                                        _rows_tensor(gen, n, DIM)))
+    set_ms = graph_ms(lambda i, r: launch_row_set(hot, i, r), set_sets)
+    # the library call row_set_wins prices, index_copy_, and B5 on the
+    # parent at the install's and the staged epilogue's row counts: each
+    # a line through the two, ns against rows
+    parent = tables.view(TABLES * ROWS, DIM)
+    lib_ms, parent_set_ms = {}, {}
+    for rows_n, reps in ((n, 16), (131_072, 8)):
+        copy_sets = [(torch.randperm(TABLES * ROWS, generator=gen,
+                                     device="cuda")[:rows_n],
+                      _rows_tensor(gen, rows_n, DIM)) for _ in range(reps)]
+        lib_ms[rows_n] = graph_ms(
+            lambda i, r: parent.index_copy_(0, i, r), copy_sets)
+        psets = [prepare_row_set(parent, i.to(torch.int32), r)
+                 for i, r in copy_sets]
+        parent_set_ms[rows_n] = graph_ms(
+            lambda i, r: launch_row_set(parent, i, r), psets)
+        del copy_sets, psets
+
+    def line(ms):
+        (n0, t0), (n1, t1) = sorted(ms.items())
+        per_row = (t1 - t0) * 1e6 / (n1 - n0)
+        return {"ns_per_row": per_row, "fixed_ns": t0 * 1e6 - per_row * n0}
+
+    # an intermediate bounced between two ops: a 64 MiB copy_
+    a = torch.empty(16 << 20, device="cuda")
+    b_ = torch.empty_like(a)
+    hbm_ms = graph_ms(lambda: a.copy_(b_), [()] * 4)
+    measured = {
+        "SET_KERNEL_NS_PER_ROW": set_ms * 1e6 / n,
+        "EMITTER_SWEEP_GBPS": parent.numel() * 4 * 2.0 / (lib_ms[n] * 1e6),
+        "GATHER_NS_PER_ROW": g_slope,
+        "HBM_GBPS": a.numel() * 4 * 2.0 / (hbm_ms * 1e6),
+        "OP_BOUNDARY_NS": _launch_floor_ms(256) * 1e6,
+        "HOST_LINK_GBPS": 1.0 / slope,
+        "HOST_LINK_LATENCY_NS": intercept,
+    }
+    measured = {k: float(v) for k, v in measured.items()}
+    log({"phase": "cost_constants", "measured": measured,
+         "committed": {k: getattr(kernel_costs, k) for k in measured},
+         "host_link_ns_by_rows": link_ns,
+         "gather_ns_by_rows": gather_ns, "gather_fixed_ns": g_intercept,
+         "row_set_ms_2048_rows_hot_tier": set_ms,
+         "into_8m_rows": {"index_copy_ms_by_rows": lib_ms,
+                          "row_set_ms_by_rows": parent_set_ms,
+                          "index_copy_line": line(lib_ms),
+                          "row_set_line": line(parent_set_ms)},
+         "card": card})
+    del tables, hot, parent, set_sets, a, b_
+    _free()
+    return measured
+
+
+def _gate_decisions(hit_rate):
+    """Each gate's decision at the served shapes, and where it flips."""
+    d = {"tiered": kernel_costs.tiered_storage_wins(
+        num_rows=TABLES * ROWS, dim=DIM, itemsize=4,
+        hot_rows=TABLES * HOT_ROWS, lookups=BUCKETS[-1] * TABLES,
+        hit_rate=hit_rate)}
+    hits = [h / 1000 for h in range(1001)]
+    d["tiered_flips_at_hit"] = next(
+        (h for h in hits if kernel_costs.tiered_storage_wins(
+            num_rows=TABLES * ROWS, dim=DIM, itemsize=4,
+            hot_rows=TABLES * HOT_ROWS, lookups=BUCKETS[-1] * TABLES,
+            hit_rate=h)), None)
+    parents = {"hot tier install": (TABLES * HOT_ROWS, BUCKETS[-1] * TABLES),
+               "staged epilogue": (TABLES * ROWS, 131_072),
+               "ladder block": (TABLES * ROWS, 16_384)}
+    for k, (parent, n) in parents.items():
+        # the JAX sweep model's answer (index_copy_ does not sweep the
+        # parent: the cost_constants line holds both measured lines)
+        d[f"row_set {k}"] = kernel_costs.row_set_wins(parent, DIM, n, 4)
+    for interact in ("cat", "dot"):
+        d[f"fused {interact}"] = {b: kernel_costs.fused_interact_wins(
+            b, TABLES, 1, DIM, 4, interact) for b in BUCKETS}
+        wins = [b for b in range(1, 4097)
+                if kernel_costs.fused_interact_wins(b, TABLES, 1, DIM, 4,
+                                                    interact)]
+        d[f"fused {interact} wins_up_to_batch"] = max(wins) if wins else 0
+    return d
+
+
+def _zipf_pool(rng, count):
+    """``count`` requests of 1-256 rows, ids zipf at alpha 1.05 over each
+    1M-row table, as bench.py's tiered serving run draws them."""
+    sizes = rng.integers(1, BUCKETS[-1] + 1, size=count)
+    return [{"dense": rng.standard_normal((n, BOT)).astype(np.float32),
+             "sparse": zipf_ids(rng, ROWS, (n, TABLES, 1), a=ZIPF_ALPHA)}
+            for n in sizes]
+
+
+def _tiered_engine(model, state, **kw):
+    """An engine with the gate deciding; if the gate refuses, say so and
+    build it again under FF_TIERED_STORAGE=on (the package's override)."""
+    engine = InferenceEngine(model, state, storage="tiered", **kw)
+    if engine.storage["mode"] == "tiered":
+        return engine, None
+    refused = engine.storage["fallbacks"]
+    log({"phase": "tiered", "gate_refused": refused,
+         "note": "building again under FF_TIERED_STORAGE=on"})
+    del engine
+    os.environ["FF_TIERED_STORAGE"] = "on"
+    try:
+        return InferenceEngine(model, state, storage="tiered", **kw), refused
+    finally:
+        del os.environ["FF_TIERED_STORAGE"]
+
+
+def _clients(submit, pool, clients):
+    """Every request of ``pool`` through ``submit`` from ``clients``
+    closed-loop threads (request i from thread i % clients, each waiting
+    for its answer before the next); returns {i: rows}."""
+    answers, errors = {}, []
+
+    def client(c):
+        try:
+            for i in range(c, len(pool), clients):
+                answers[i] = submit(pool[i]).result(timeout=300)
+        except BaseException as e:  # re-raised below, after the join
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if errors or any(t.is_alive() for t in threads):
+        raise RuntimeError(f"client threads failed: {errors[:1]!r}")
+    return answers
+
+
+def _same_as(answers, want, what):
+    bad = [i for i in want if not np.array_equal(answers.get(i), want[i])]
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} of {len(want)} results "
+                             f"differ from the resident engine's "
+                             f"(first {bad[:5]})")
+
+
+def _pct(xs, p):
+    return float(np.percentile(xs, p)) if len(xs) else None
+
+
+def serve_tiered(model, state, pool, resident):
+    """Phase 20(b)-(d).  Returns (row, B5 launches on the path)."""
+    rowfreq.reset()
+    for r in pool:  # the pool's traffic, observed before the build
+        for t in range(TABLES):
+            rowfreq.counter(f"sparse[{t}]").observe(r["sparse"][:, t])
+    want = {i: resident.predict(r) for i, r in enumerate(pool)}
+    # the resident engine's own QPS and p99 on the pool, for comparison
+    with DynamicBatcher(resident) as batcher:
+        t_start = time.perf_counter()
+        _same_as(_clients(batcher.submit, pool, 8), want,
+                 "resident through the batcher")
+        base_wall = time.perf_counter() - t_start
+    base = batcher.close()
+    # (b)-(c): the gate decides, then the pool through the batcher
+    t0 = time.perf_counter()
+    engine, refused = _tiered_engine(model, state)
+    build_s = time.perf_counter() - t0
+    store = engine._tiered["sparse"][1]
+    reset_counts()  # the main path starts here
+    t_start = time.perf_counter()
+    with DynamicBatcher(engine) as batcher:
+        got = _clients(batcher.submit, pool, 8)
+    wall_s = time.perf_counter() - t_start
+    summary = batcher.close()
+    graphed_sets = read_counts()["row_set"]
+    dispatches = sum(engine.stats.dispatch_buckets.values())
+    _same_as(got, want, "tiered, graphed, through the batcher")
+    graphed_stats = engine.storage_stats()
+    if not 0 < graphed_sets <= dispatches:
+        raise AssertionError(f"{graphed_sets} row-set launches in "
+                             f"{dispatches} dispatches")
+    # the same pool, one dispatch at a time, on an eager tiered engine:
+    # one install (one B5 launch) exactly on each dispatch with misses
+    eager, _ = _tiered_engine(model, state, aot=False)
+    estore = eager._tiered["sparse"][1]
+    stalls, all_hit, bad, host_us = [], 0, [], []
+    for i, r in enumerate(pool):
+        sets0, miss0 = row_set_cuda.launches, estore.stats()["misses"]
+        timings = {}
+        t1 = time.perf_counter()
+        out = eager.predict(r, timings=timings)
+        # the dispatch's wall before its forward: the remap, the install's
+        # enqueue and the padding (host)
+        host_us.append((time.perf_counter() - t1) * 1e6
+                       - timings["compute_us"])
+        sets, misses = (row_set_cuda.launches - sets0,
+                        estore.stats()["misses"] - miss0)
+        if sets != (1 if misses else 0):
+            bad.append((i, misses, sets))
+        if misses:
+            stalls.append(estore.stats()["stall_us_last"])
+        else:
+            all_hit += 1
+        if not (np.array_equal(out, want[i]) and np.array_equal(out, got[i])):
+            raise AssertionError(f"eager tiered request {i} differs from "
+                                 "the resident or the graphed engine")
+    # an all-hit dispatch: rows that are resident now
+    hit_req = {"dense": pool[0]["dense"][:1].repeat(8, axis=0),
+               "sparse": np.stack([estore.resident_ids(t)[:8]
+                                   for t in range(TABLES)],
+                                  axis=1)[..., None]}
+    sets0, miss0 = row_set_cuda.launches, estore.stats()["misses"]
+    if not np.array_equal(eager.predict(hit_req), resident.predict(hit_req)):
+        raise AssertionError("the all-hit request differs from resident")
+    if (row_set_cuda.launches - sets0, estore.stats()["misses"] - miss0) \
+            != (0, 0):
+        bad.append(("all-hit", row_set_cuda.launches - sets0))
+    all_hit += 1
+    eager_sets = read_counts()["row_set"] - graphed_sets
+    if bad or not stalls:
+        raise AssertionError(f"installs per dispatch {bad[:5]}; all-hit "
+                             f"dispatches {all_hit}, with misses "
+                             f"{len(stalls)}")
+    row = {"phase": "tiered", "config": "run_random.sh, hot 4096",
+           "storage": engine.storage, "gate_refused": refused,
+           "build_s": build_s, "requests": summary["requests"],
+           "rows": int(sum(len(r["dense"]) for r in pool)),
+           "dispatches": dispatches, "row_set_launches": graphed_sets,
+           "wall_s": wall_s, "qps": summary["qps"],
+           "p50_us": summary.get("p50_us"), "p99_us": summary.get("p99_us"),
+           "hit_pct": graphed_stats["hit_pct"],
+           "misses": graphed_stats["misses"],
+           "evictions": graphed_stats["evictions"],
+           "stall_us_mean": graphed_stats["stall_us_total"]
+           / max(1, graphed_sets),
+           "resident": {"qps": base["qps"], "p50_us": base.get("p50_us"),
+                        "p99_us": base.get("p99_us"), "wall_s": base_wall},
+           "eager": {"dispatches": len(pool), "all_hit": all_hit,
+                     "host_us_median": _pct(host_us, 50),
+                     "host_us_p99": _pct(host_us, 99),
+                     "row_set_launches": eager_sets,
+                     "stall_us_median": _pct(stalls, 50),
+                     "stall_us_p99": _pct(stalls, 99),
+                     "hit_pct": estore.stats()["hit_pct"]},
+           "bit_for_bit": {"graphed_vs_resident": True,
+                           "eager_vs_resident": True,
+                           "graphed_vs_eager": True},
+           "note": "QPS, latencies and stalls are information"}
+    log(row)
+    del eager, estore
+    _free()
+    # (d): 512 hot rows a table, so the tier evicts, through 4 replicas
+    model.config.storage_hot_rows = 512
+    try:
+        small, _ = _tiered_engine(model, state)
+    finally:
+        model.config.storage_hot_rows = HOT_ROWS
+    sets0 = row_set_cuda.launches
+    t_start = time.perf_counter()
+    router = ReplicaRouter([small] * 4)
+    got = _clients(router.submit, pool, 8)
+    rsummary = router.close()
+    rwall = time.perf_counter() - t_start
+    _same_as(got, want, "tiered, hot 512, through a 4-replica router")
+    sstats = small.storage_stats()
+    if sstats["evictions"] <= 0:
+        raise AssertionError("hot 512 evicted nothing")
+    rrow = {"phase": "tiered", "config": "run_random.sh, hot 512, "
+            "ReplicaRouter x4 over one engine",
+            "requests": rsummary["requests"], "wall_s": rwall,
+            "qps": rsummary["qps"], "p50_us": rsummary.get("p50_us"),
+            "p99_us": rsummary.get("p99_us"),
+            "router_shed": rsummary["router_shed"],
+            "hit_pct": sstats["hit_pct"], "misses": sstats["misses"],
+            "evictions": sstats["evictions"],
+            "row_set_launches": row_set_cuda.launches - sets0,
+            "stall_us_mean": sstats["stall_us_total"]
+            / max(1, row_set_cuda.launches - sets0),
+            "bit_for_bit_vs_resident": True}
+    log(rrow)
+    counts = read_counts()  # ... and ends here
+    del small, router
+    _free()
+    return {"hot4096": row, "hot512_router": rrow}, counts, store
+
+
+def check_tiered_scatter(rounds: int = 12):
+    """Phase 20(e): ``scatter_apply`` of a stacked store on the card (the
+    row-update kernel, installs by the row-set kernel, writebacks of
+    evicted dirty rows) against the same store on the CPU (the plain
+    versions), bit for bit: each round's ``gather_rows`` and the final
+    ``cold_full``.  Returns (max abs err, path launches)."""
+    rng = np.random.default_rng(5)
+    cold = rng.standard_normal((TABLES, 100_000, DIM)).astype(np.float32)
+    card = TieredEmbeddingTable("sparse", cold, 512)
+    host = TieredEmbeddingTable("sparse", cold, 512, device="cpu")
+    err = 0.0
+    reset_counts()  # the main path starts here
+    for _ in range(rounds):
+        ids = zipf_ids(rng, 100_000, (BUCKETS[-1], TABLES, 1), a=ZIPF_ALPHA)
+        grads = rng.standard_normal(ids.shape + (DIM,)).astype(np.float32)
+        card.scatter_apply(ids, grads, -0.01)
+        host.scatter_apply(ids, grads, -0.01)
+        a = card.gather_rows(ids).cpu().numpy()
+        b = host.gather_rows(ids).numpy()
+        err = max(err, float(np.abs(a - b).max()))
+        if not np.array_equal(a, b):
+            raise AssertionError("tiered scatter_apply: card != plain")
+    counts = read_counts()  # ... and ends here (the CPU store counts none)
+    cs, hs = card.stats(), host.stats()
+    same = np.array_equal(card.cold_full(), host.cold_full())
+    log({"phase": "kernel_vs_plain", "kernel": "row_update",
+         "config": "TieredEmbeddingTable.scatter_apply, (8, 100000, 64), "
+                   "hot 512", "rounds": rounds, "launches": counts,
+         "evictions": cs["evictions"], "writebacks": cs["writebacks"],
+         "stats_equal": {k: cs[k] == hs[k] for k in (
+             "hits", "misses", "evictions", "writebacks", "dirty")},
+         "cold_full_bit_for_bit": same, "max_abs_err": err})
+    if not same or cs["writebacks"] <= 0 or not (
+            counts["row_update"] == counts["row_update_prep"] == rounds):
+        raise AssertionError(f"tiered scatter: cold equal {same}, "
+                             f"launches {counts}, {cs['writebacks']} "
+                             "writebacks")
+    return err, counts
+
+
+def router_fused():
+    """Phase 20(f): a 4-replica ReplicaRouter over the resident fused
+    serving engine (kernel B3): every result equals the engine's own
+    answer.  Returns (row, path launches)."""
+    model, state = build_model()
+    engine = InferenceEngine(model, state)
+    rng = np.random.default_rng(6)
+    pool = [_request(rng, int(n)) for n in rng.integers(1, 17, size=256)]
+    want = {i: engine.predict(r) for i, r in enumerate(pool)}
+    reset_counts()  # the main path starts here
+    router = ReplicaRouter([engine] * 4)
+    got = _clients(router.submit, pool, 8)
+    summary = router.close()
+    counts = read_counts()  # ... and ends here
+    launches = counts["fused_interact_fwd"]
+    _same_as(got, want, "fused engine through a 4-replica router")
+    row = {"phase": "router", "config": "fused resident engine x4",
+           "requests": summary["requests"], "qps": summary["qps"],
+           "p99_us": summary.get("p99_us"),
+           "per_replica_requests": [s["requests"]
+                                    for s in summary["per_replica"]],
+           "fused_launches": launches, "bit_for_bit_vs_engine": True}
+    log(row)
+    if launches <= 0:
+        raise AssertionError("the router's replicas launched no B3")
+    del model, state, engine, router
+    _free()
+    return row, counts
+
+
+def tiered_checkpoint(store):
+    """Phase 20(g): save_tiered / load_tiered of phase (c)'s full-width
+    store, in a directory beside this script (2 GB), removed after: the
+    cold tier and the manifest back bit for bit, and a load under 512
+    hot rows re-admits each table's hottest 512."""
+    root = tempfile.mkdtemp(prefix=".tiered-",
+                            dir=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        t0 = time.perf_counter()
+        save_tiered(root, store)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = load_tiered(root)
+        load_s = time.perf_counter() - t0
+        manifest = store.hot_manifest()
+        same = (np.array_equal(back.cold_full(), store.cold_full())
+                and back.hot_manifest() == manifest)
+        small = load_tiered(root, hot_rows=512)
+        prefix = all(small.resident_ids(t) == sorted(i for i, _ in
+                                                     manifest[t][:512])
+                     for t in range(TABLES))
+        nbytes = sum(os.path.getsize(os.path.join(root, f))
+                     for f in os.listdir(root))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    row = {"phase": "tiered_checkpoint", "bytes": nbytes, "save_s": save_s,
+           "load_s": load_s, "round_trip_bit_for_bit": same,
+           "hot512_prefix_readmitted": prefix}
+    log(row)
+    if not (same and prefix):
+        raise AssertionError(f"tiered checkpoint: {row}")
+    return row
+
+
+def tiered_phase(card: str):
+    """Phase 20 on the run_random.sh serving model without the fused
+    interaction (the JAX package tiers Embedding, StackedEmbedding and
+    RaggedStackedEmbedding only): (a) constants and gates, (b)-(d)
+    tiered serving, (e) scatter_apply, (f) the router over B3, (g) the
+    tiered checkpoint.  Returns (rows, path launches)."""
+    measured = measure_cost_constants(card)
+    model = build_dlrm(DLRMConfig(embedding_size=[ROWS] * TABLES),
+                       FFConfig(batch_size=BUCKETS[-1],
+                                compute_dtype="bfloat16",
+                                serve_buckets=",".join(map(str, BUCKETS)),
+                                storage_hot_rows=HOT_ROWS)).compile()
+    state = model.init(seed=0)
+    resident = InferenceEngine(model, state)
+    pool = _zipf_pool(np.random.default_rng(20), 512)
+    keys = [f"sparse[{t}]" for t in range(TABLES)]
+    rows, counts, store = serve_tiered(model, state, pool, resident)
+    hit, _ = predicted_hit_rate(keys, [ROWS] * TABLES, [HOT_ROWS] * TABLES)
+    gates = {"committed": _gate_decisions(hit)}
+    with _costs(measured):
+        gates["measured"] = _gate_decisions(hit)
+    log({"phase": "gates", "predicted_hit": hit, **gates})
+    del resident, model, state
+    _free()
+    ckpt = tiered_checkpoint(store)
+    del store
+    _free()
+    scatter_err, scatter_counts = check_tiered_scatter()
+    router_row, router_counts = router_fused()
+    counts = {k: counts[k] + scatter_counts[k] + router_counts[k]
+              for k in counts}
+    return {**rows, "router_fused": router_row, "checkpoint": ckpt,
+            "constants": measured, "gates": gates,
+            "scatter_err": scatter_err}, counts
+
+
 def _entry(name, launches, err, timing):
     source, replaces, _ = KERNELS[name]
     return {"name": name, "route": "cuda", "source": source,
@@ -2719,7 +3229,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     t0 = time.perf_counter()
-    card_info()
+    card = card_info()
     build_kernels()
     # phases 3-5: the serving path
     model, state = build_model()
@@ -2784,9 +3294,12 @@ def main() -> int:
     del table
     _free()
     durable, durable_counts = durability_phase()
+    # phase 20: tiered storage, the cost gates and the router, after the
+    # timings too (host-heavy)
+    tiered, tiered_counts = tiered_phase(card)
     path_counts = (headline_counts, sparse_counts, dense_counts, dot_counts,
                    staged_counts, bag_counts, bf16_counts, bag16_counts,
-                   durable_counts)
+                   durable_counts, tiered_counts)
     row_launches = sum(c["row_update"] for c in path_counts)
     prep_launches = sum(c["row_update_prep"] for c in path_counts)
     if prep_launches != row_launches:
@@ -2810,11 +3323,17 @@ def main() -> int:
              "restore_wall_s": [x["wall_s"] for x in durable["restores"]],
              "save_gb_per_s": [x["gb_per_s"] for x in durable["saves"]],
              "step_wall_ms_median": durable["step_wall_ms_median"]},
+         "tiered": {k: {f: tiered[k].get(f) for f in (
+             "hit_pct", "misses", "evictions", "qps", "p99_us",
+             "stall_us_mean")} for k in ("hot4096", "hot512_router")},
+         "tiered_stall_us": {f: tiered["hot4096"]["eager"][f] for f in (
+             "stall_us_median", "stall_us_p99")},
          "note": "walls include each path's eager step and capture"})
     log({"kernels": [
         _entry("fused_interact_fwd",
                serve_launches + sum(c["fused_interact_fwd"]
-                                    for c in (dense_counts, dot_counts)),
+                                    for c in (dense_counts, dot_counts,
+                                              tiered_counts)),
                max(fwd_err, path_err), fwd_time),
         _entry("fused_interact_bwd",
                sum(c["fused_interact_bwd"] for c in (dense_counts,
@@ -2822,8 +3341,8 @@ def main() -> int:
                bwd_err, bwd_time),
         _entry("row_update", row_launches, row_err, row_time),
         _entry("row_update_prep", prep_launches, prep_err, prep_time),
-        _entry("row_set", staged_counts["row_set"] + bf16_counts["row_set"],
-               set_err, set_time),
+        _entry("row_set", staged_counts["row_set"] + bf16_counts["row_set"]
+               + tiered_counts["row_set"], set_err, set_time),
         _entry("embedding_bag", bag_counts["embedding_bag"]
                + bag16_counts["embedding_bag"], bag_err, bag_time)]})
     log({"ok": True, "device": {"platform": "gpu",

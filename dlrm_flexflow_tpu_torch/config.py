@@ -2,9 +2,16 @@
 
 Counterpart of ``dlrm_flexflow_tpu/config.py``: the same field names,
 defaults and flags for the fields the serving and training slices (the
-staged epoch and its row cache included) and the durability slice
-(``prefetch_depth``, ``faults``) read.
+staged epoch and its row cache included), the durability slice
+(``prefetch_depth``, ``faults``) and tiered storage
+(``serve_storage``, ``storage_hot_rows``) read.
 The other fields arrive with the slices that read them.
+
+Only ``epochs`` and ``batch_size`` are positional, in the JAX order.
+Every later field is keyword-only: the port lacks some of the JAX
+fields in between (``iterations``, ``num_devices``, ``mesh_shape``, the
+``search_*`` fields), so a positional call written for the JAX class
+would bind its values to other fields here; it raises instead.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ EMBEDDING_DTYPES = ("float32", "bfloat16")
 class FFConfig:
     epochs: int = 1
     batch_size: int = 64
+    _: dataclasses.KW_ONLY
     learning_rate: float = 0.01
     weight_decay: float = 0.0001
     # per-op matmul precision: "bfloat16" = bf16 operands, f32 accumulation
@@ -87,8 +95,14 @@ class FFConfig:
     # "off" serves the training tables as they are, "int8" as int8 codes
     # plus a per-row f32 scale, "bf16" as bf16 rows; training is untouched
     serve_quantize: str = "off"
-    # "resident" only in the port so far (tiered storage comes later)
+    # Tiered embedding storage (storage/): "resident" serves whole tables
+    # on the card; "tiered" keeps the hottest storage_hot_rows rows of
+    # each table on the card and the rest in host memory, streaming
+    # misses in.  The storage/tiered.py gate may still refuse and serve
+    # resident (InferenceEngine.storage records why); quantize and
+    # tiering are mutually exclusive.
     serve_storage: str = "resident"
+    storage_hot_rows: int = 4096
     # port of the process-wide Prometheus /metrics + /healthz endpoint
     # (telemetry/exporter.py), started once by FFModel.compile; 0 = off
     metrics_port: int = 0
@@ -119,6 +133,7 @@ class FFConfig:
             ("--serve-timeout-us",): ("serve_timeout_us", float),
             ("--serve-quantize",): ("serve_quantize", str),
             ("--serve-storage",): ("serve_storage", str),
+            ("--storage-hot-rows",): ("storage_hot_rows", int),
             ("--epoch-row-cache",): ("epoch_row_cache", str),
             ("--fit-scan-max-bytes",): ("fit_scan_max_bytes", int),
             ("--metrics-port",): ("metrics_port", int),

@@ -23,7 +23,13 @@ On the CPU there is no capture: ``run`` calls the same function on the
 same static buffers, so the CPU tests exercise the bookkeeping the card
 depends on (static inputs, in-place state, cloned outputs, address
 checks).  On the card a capture or instantiation failure raises; there is
-no eager fallback.
+no eager fallback.  A runner built with ``capture=False`` runs eagerly
+on the card too (the serving engine's ``aot=False``).
+
+``run`` holds the runner's lock; ``run_locked`` is the same step for a
+caller that already holds it and must enqueue work of its own before the
+replay in the same critical section (the tiered engine's remap and
+install).
 
 The kernel wrappers count their launches in Python (``.launches``), and
 a replay runs no Python.  So the runner takes back what the wrappers
@@ -117,7 +123,8 @@ class GraphRunner:
     ``.cpu()``, a batcher's dispatch) cannot break a capture."""
 
     def __init__(self, fn: Callable, inputs, state=(), *, pool=None,
-                 lock: Optional[threading.Lock] = None):
+                 lock: Optional[threading.Lock] = None,
+                 capture: bool = True):
         leaves = [t for _, t in flatten(inputs)]
         if not leaves:
             raise ValueError("a graph needs at least one static input")
@@ -130,13 +137,16 @@ class GraphRunner:
             lambda t: t.to(device=self.device, copy=True).contiguous(),
             inputs)
         self.state_key = state_key(state)
+        #: whether the runner captures its function on the card (on the
+        #: CPU nothing is captured either way)
+        self.capture = bool(capture)
         self.replays = 0
         self._lock = lock or threading.Lock()
         self._fn: Optional[Callable] = fn
         self._graph = None
         self._out = None
         self._added = [0] * len(COUNTED)
-        if self.device.type == "cuda":
+        if self.capture and self.device.type == "cuda":
             self._capture(state, pool)
 
     def _capture(self, state, pool) -> None:
@@ -164,28 +174,32 @@ class GraphRunner:
         graph was captured against, and ``ValueError`` on another input
         structure or shape."""
         with self._lock:
-            if state_key(state) != self.state_key:
-                raise StaleGraphError(
-                    "a state tensor moved since the capture (replaced, not "
-                    "updated in place): this graph would read the old one")
-            dst = flatten(self.static)
-            src = flatten(inputs)
-            if [p for p, _ in src] != [p for p, _ in dst]:
-                raise ValueError(f"inputs {[p for p, _ in src]} do not match "
-                                 f"the static inputs {[p for p, _ in dst]}")
-            for (p, d), (_, s) in zip(dst, src):
-                if not isinstance(s, torch.Tensor):
-                    s = torch.from_numpy(np.asarray(s))
-                if tuple(s.shape) != tuple(d.shape):
-                    raise ValueError(f"input {p}: shape {tuple(s.shape)}, "
-                                     f"the graph's is {tuple(d.shape)}")
-                d.copy_(s)
-            if self._graph is None:
-                out = self._fn(self.static, state)
-            else:
-                self._graph.replay()
-                out = self._out
-                for w, n in zip(COUNTED, self._added):
-                    w.launches += n
-            self.replays += 1
-            return _map(torch.Tensor.clone, out)
+            return self.run_locked(inputs, state)
+
+    def run_locked(self, inputs, state=()):
+        """:meth:`run` for a caller that holds the runner's lock."""
+        if state_key(state) != self.state_key:
+            raise StaleGraphError(
+                "a state tensor moved since the capture (replaced, not "
+                "updated in place): this graph would read the old one")
+        dst = flatten(self.static)
+        src = flatten(inputs)
+        if [p for p, _ in src] != [p for p, _ in dst]:
+            raise ValueError(f"inputs {[p for p, _ in src]} do not match "
+                             f"the static inputs {[p for p, _ in dst]}")
+        for (p, d), (_, s) in zip(dst, src):
+            if not isinstance(s, torch.Tensor):
+                s = torch.from_numpy(np.asarray(s))
+            if tuple(s.shape) != tuple(d.shape):
+                raise ValueError(f"input {p}: shape {tuple(s.shape)}, "
+                                 f"the graph's is {tuple(d.shape)}")
+            d.copy_(s)
+        if self._graph is None:
+            out = self._fn(self.static, state)
+        else:
+            self._graph.replay()
+            out = self._out
+            for w, n in zip(COUNTED, self._added):
+                w.launches += n
+        self.replays += 1
+        return _map(torch.Tensor.clone, out)

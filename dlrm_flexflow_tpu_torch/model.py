@@ -61,7 +61,7 @@ from __future__ import annotations
 import functools
 import threading
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -120,10 +120,10 @@ class TrainState:
     must survive a step goes in with ``donate=False``, or is ``clone``d."""
 
     params: Dict[str, Dict[str, torch.Tensor]]
-    opt_state: Dict[str, Any] = field(default_factory=dict)
-    bn_state: Dict[str, Any] = field(default_factory=dict)
-    rng: Optional[torch.Tensor] = None
-    step: Optional[torch.Tensor] = None
+    opt_state: Dict[str, Any]
+    bn_state: Dict[str, Any]
+    rng: Optional[torch.Tensor]
+    step: Optional[torch.Tensor]
 
     def clone(self) -> "TrainState":
         def copy(x):
@@ -872,9 +872,13 @@ class FFModel:
             mets.append(m)
         return self.cache_epilogue(state, writebacks, orig), _stack(mets)
 
-    def place_dataset(self, inputs, labels, device):
+    def place_dataset(self, inputs, labels, *, device=None):
         """Place a stacked ``(num_batches, batch, ...)`` dataset on
-        ``device`` once."""
+        ``device`` once (default: the model's device, ``model.device``,
+        or the card when the model was never placed)."""
+        if device is None:
+            device = self.device
+        device = resolve_device(device)
         return (self._place_inputs(inputs, device),
                 self._place_labels(labels, device))
 
@@ -890,7 +894,7 @@ class FFModel:
         (``_run_epoch_chunks``)."""
         self._require_compiled()
         dev = params_device(state.params)
-        inputs, labels = self.place_dataset(inputs, labels, dev)
+        inputs, labels = self.place_dataset(inputs, labels, device=dev)
         log = active_log()
         t0 = time.perf_counter()
         self._resolve_cache(dev)
@@ -916,7 +920,7 @@ class FFModel:
         leading ``(epochs,)`` axis."""
         self._require_compiled()
         dev = params_device(state.params)
-        inputs, labels = self.place_dataset(inputs, labels, dev)
+        inputs, labels = self.place_dataset(inputs, labels, device=dev)
         log = active_log()
         t0 = time.perf_counter()
         self._resolve_cache(dev)
@@ -1040,7 +1044,7 @@ class FFModel:
                       for k, v in dataloader.inputs.items()}
         stacked_lab = np.asarray(dataloader.labels[:used]).reshape(
             (nb, bsz) + dataloader.labels.shape[1:])
-        return self.place_dataset(stacked_in, stacked_lab, device)
+        return self.place_dataset(stacked_in, stacked_lab, device=device)
 
     def fit(self, state: TrainState, dataloader, epochs: Optional[int] = None,
             verbose: bool = True, callbacks=None, warmup: bool = True,

@@ -263,12 +263,16 @@ class StackedEmbedding(Op):
                                 qscale, gids)
         elif rows is None:
             # each table's own jnp.take (the JAX package vmaps one take
-            # per table): wrap and drop per table, then one flat gather
+            # per table): wrap and drop per table, then one flat gather.
+            # r is the parameter's own row count, which a tiered engine's
+            # hot tier (T, slots, d) makes smaller than num_entries
             tables = params["embedding"]
             t, r, d = tables.shape
             local = torch.where(idx < 0, idx + r, idx)
             ok = (local >= 0) & (local < r)
-            gids = torch.where(ok, local + self._offsets(idx),
+            offsets = torch.arange(t, dtype=idx.dtype,
+                                   device=idx.device)[:, None] * r
+            gids = torch.where(ok, local + offsets,
                                torch.full_like(local, t * r))
             rows = take_rows(tables.reshape(t * r, d), gids)
         return [pool(rows, self.aggr, 2).to(self.outputs[0].dtype)]

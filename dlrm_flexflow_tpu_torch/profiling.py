@@ -184,7 +184,7 @@ class OpTimer:
         device_fence(fence)
         return (time.perf_counter() - t0) / self.iters
 
-    def profile(self, state, inputs=None) -> Dict[str, Dict[str, float]]:
+    def profile(self, state, inputs) -> Dict[str, Dict[str, float]]:
         """``{op name: {"forward_s", "backward_s"}}`` for every op of the
         model; ``inputs`` is unused (the shapes come from the graph), as
         in the JAX package."""

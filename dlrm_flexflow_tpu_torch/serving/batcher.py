@@ -192,18 +192,25 @@ class DynamicBatcher:
             self._thread.start()
 
     def submit(self, inputs: Dict[str, Any],
-               timeout_us: Optional[float] = None) -> ServeFuture:
+               timeout_us: Optional[float] = None,
+               record_shed: bool = True) -> ServeFuture:
         """Enqueue one request (dict name -> (n, ...) array, or one
         unbatched sample); returns its :class:`ServeFuture`.  Raises
         :class:`Rejected` at once when the queue is full or the batcher
-        is closed."""
+        is closed.
+
+        ``record_shed=False`` makes a refusal silent (no shed counted, no
+        reject event, the request's span closed as ``probe_refused``):
+        the ``ReplicaRouter`` probes its replicas so, and records the one
+        shed itself when every replica refused."""
         if self._closed:
-            # record_shed_late: the batcher may already be retired from
-            # /metrics, its stats folded
-            _metrics.record_shed_late(self.stats, cause="shutdown")
-            emit("serve", phase="reject", reason="shutdown")
-            start_span("serve.request").set_attr(
-                "reason", "shutdown").end(status="shed")
+            if record_shed:
+                # record_shed_late: the batcher may already be retired
+                # from /metrics, its stats folded
+                _metrics.record_shed_late(self.stats, cause="shutdown")
+                emit("serve", phase="reject", reason="shutdown")
+                start_span("serve.request").set_attr(
+                    "reason", "shutdown").end(status="shed")
             raise Rejected("batcher is shut down")
         arrs = {}
         rows = None
@@ -247,12 +254,16 @@ class DynamicBatcher:
                 except queue.Full:
                     shed = "queue_full"
         if shed is not None:
-            # either reason can race past the batcher's retire
-            _metrics.record_shed_late(self.stats, cause=shed)
-            emit("serve", phase="reject", reason=shed)
-            req.qspan.end(status="shed")
+            if record_shed:
+                # either reason can race past the batcher's retire
+                _metrics.record_shed_late(self.stats, cause=shed)
+                emit("serve", phase="reject", reason=shed)
+            # a silent probe's refusal is no shed: the next replica may
+            # serve the request.  Its span still closes, once
+            status = "shed" if record_shed else "probe_refused"
+            req.qspan.end(status=status)
             req.span.set_attr("reason", shed)
-            req.span.end(status="shed")
+            req.span.end(status=status)
             raise Rejected(
                 "batcher is shut down" if shed == "shutdown" else
                 f"request queue full ({self._q.maxsize} waiting) — "

@@ -1,5 +1,5 @@
 """Bucketed inference engine (counterpart of
-``dlrm_flexflow_tpu/serving/engine.py``), resident and single-device.
+``dlrm_flexflow_tpu/serving/engine.py``), single-device.
 
 An :class:`InferenceEngine` holds a compiled :class:`~..model.FFModel`
 and its parameters on one device and runs the labels-free forward at a
@@ -13,25 +13,38 @@ Each bucket's forward is one CUDA graph (``graphs.GraphRunner``), where
 the JAX package AOT-compiles each bucket's program (``_ensure``): built
 by ``warmup`` (every bucket, in the constructor by default) or at a
 bucket's first dispatch, after one eager run of the forward (the kernel
-build and load, cuBLAS and the allocator).  The buckets' graphs share one
-memory pool and one lock.  A dispatch copies the padded request into the
-bucket's static inputs, replays, and copies the rows back.  On the CPU
-the same runner calls the forward on the same static inputs.
+build and load, cuBLAS and the allocator).  ``aot=False`` keeps that
+warm run and then runs the forward eagerly, as the JAX package's
+cached-jit path does.  The buckets' graphs share one memory pool and one
+lock.  A dispatch copies the padded request into the bucket's static
+inputs, replays, and copies the rows back.  On the CPU the same runner
+calls the forward on the same static inputs.
 
 ``quantize="int8"|"bf16"`` (default ``FFConfig.serve_quantize``)
 re-encodes the tables of a copy of the params at load
 (``ops/quantized.py``; ``engine.quantization`` is the JAX package's byte
 report), and every bucket's graph captures the quantized forward.
 
-Every dispatch emits one ``serve`` ``phase="dispatch"`` event and, under
-the caller's span, the ``serve.pad`` and ``serve.engine_forward`` spans;
-every bucket's capture emits a ``compile`` event (``kind="aot"``,
-``fn="serve[bucket=b]"``), and the engine's per-bucket dispatch counts
-are scraped by ``/metrics`` (``telemetry.metrics.track_engine``).
+``storage="tiered"`` (default ``FFConfig.serve_storage``) keeps only the
+hottest ``FFConfig.storage_hot_rows`` rows of each table on the card
+(``storage/tiered.py``): per embedding op the store's fixed hot tier
+takes the place of the table before the buckets' graphs are captured, so
+every graph reads it by address, and each dispatch remaps the raw ids to
+hot slots.  A store writes its hot tier in place, so a tiered dispatch
+holds the engine's lock across the remap (with the misses' copy and
+row-set install), the replay's enqueue and the output copy's enqueue:
+stream order then puts any later install after this replay.  The
+predictions equal the resident engine's bit for bit.
 
-Not ported yet: tiered storage (ROADMAP.md Queue A item 5) and
-mesh-native serving (the scale-out slice; a model compiled here has no
-mesh).
+Every dispatch emits one ``serve`` ``phase="dispatch"`` event and, under
+the caller's span, the ``serve.pad`` and ``serve.engine_forward`` spans
+(and ``serve.storage_remap`` when tiered); every bucket's capture emits a
+``compile`` event (``kind="aot"``, ``fn="serve[bucket=b]"``), and the
+engine's per-bucket dispatch counts are scraped by ``/metrics``
+(``telemetry.metrics.track_engine``).
+
+Not ported yet: mesh-native serving (the scale-out slice; a model
+compiled here has no mesh).
 """
 
 from __future__ import annotations
@@ -49,7 +62,7 @@ from ..ops.quantized import QUANT_MODES, quantize_embedding_params
 from ..telemetry import active_log, emit
 from ..telemetry import metrics as _metrics
 from ..telemetry.torch_hooks import record_compile
-from ..telemetry.trace import NULL_SPAN, span as trace_span
+from ..telemetry.trace import current_span, record_span
 from ..tensor import numpy_dtype
 from .stats import LatencyStats
 
@@ -81,28 +94,32 @@ class InferenceEngine:
 
     ``params_or_state``: a ``TrainState`` or a bare ``{op: {param:
     tensor}}`` dict; the parameters are moved to ``device`` (no copy when
-    they are already there).  ``buckets`` overrides
-    ``model.config.serve_buckets``; ``quantize`` overrides
+    they are already there), except the tables a tiered store takes,
+    which stay where they are and are copied to the host.  ``buckets``
+    overrides ``model.config.serve_buckets``; ``aot=False`` runs the
+    forward eagerly instead of replaying a CUDA graph (``None`` or
+    ``True``: graphs); ``quantize`` overrides
     ``model.config.serve_quantize`` ("off", "int8" or "bf16"): the tables
-    are quantized on a copy of the params, so the training state is
-    never touched.
+    are quantized on a copy of the params, so the training state is never
+    touched.  ``storage`` overrides ``model.config.serve_storage``
+    ("resident" or "tiered"); ``self.storage`` records the mode that ran
+    and each table left resident with its reason.
     """
 
     def __init__(self, model, params_or_state=None,
                  buckets: Optional[Union[str, Sequence[int]]] = None,
-                 warmup: bool = True,
+                 aot: Optional[bool] = None, warmup: bool = True,
                  stats: Optional[LatencyStats] = None,
                  quantize: Optional[str] = None,
-                 storage: Optional[str] = None,
-                 device=None):
+                 storage: Optional[str] = None, *, device=None):
         if getattr(model, "_forward_fn", None) is None:
             raise ValueError(
                 "model must be compile()d before building an "
                 "InferenceEngine (no forward exists yet)")
         if params_or_state is None:
             raise ValueError(
-                "InferenceEngine needs parameters: pass a TrainState or a "
-                "params dict")
+                "InferenceEngine needs parameters: pass a TrainState or "
+                "params dict, or use InferenceEngine.from_checkpoint()")
         quantize = (quantize or getattr(model.config, "serve_quantize", "off")
                     or "off").strip().lower()
         if quantize not in QUANT_MODES:
@@ -110,21 +127,35 @@ class InferenceEngine:
                              f"(have {QUANT_MODES})")
         storage = (storage or getattr(model.config, "serve_storage",
                                       "resident") or "resident").strip().lower()
-        if storage != "resident":
-            raise NotImplementedError(
-                f"serve_storage={storage!r}: tiered storage is not ported "
-                "yet (ROADMAP.md Queue A item 5)")
+        if storage not in ("resident", "tiered"):
+            raise ValueError(f"unknown serve_storage {storage!r} "
+                             "(have 'resident', 'tiered')")
+        if storage == "tiered" and quantize != "off":
+            raise ValueError(
+                "serve_storage='tiered' cannot combine with "
+                "serve_quantize: the hot tier caches the f32 "
+                "training rows bit-exactly (quantizing the cold "
+                "tier is a separate mode, not built yet)")
         self.device = resolve_device(device)
         self.model = model
-        params = getattr(params_or_state, "params", params_or_state)
-        self._params = {op: {k: v.to(self.device) for k, v in d.items()}
-                        for op, d in params.items()}
-        # the tables re-encoded on a copy of the params tree, on the card
-        self._params, self.quantization = quantize_embedding_params(
-            model.layers, self._params, quantize)
         if buckets is None:
             buckets = getattr(model.config, "serve_buckets", None)
         self.buckets = parse_buckets(buckets)
+        self._aot = True if aot is None else bool(aot)
+        self._params = dict(getattr(params_or_state, "params",
+                                    params_or_state))
+        # tiered storage, built before the params move to the card (a
+        # tiered table never lands there whole) and before warmup (every
+        # bucket's graph captures against the hot tiers)
+        self.storage = {"mode": "resident"}
+        self._tiered: Dict[str, Any] = {}  # input name -> (op, store)
+        if storage == "tiered":
+            self._build_tiered()
+        self._params = {op: {k: v.to(self.device) for k, v in d.items()}
+                        for op, d in self._params.items()}
+        # the tables re-encoded on a copy of the params tree, on the card
+        self._params, self.quantization = quantize_embedding_params(
+            model.layers, self._params, quantize)
         self.stats = stats or LatencyStats()
         self._in_specs = {t.name: (tuple(t.shape[1:]), numpy_dtype(t.dtype))
                           for t in model._inputs}
@@ -138,6 +169,143 @@ class InferenceEngine:
         if warmup:
             self.warmup()
 
+    # ------------------------------------------------------------ construction
+    @classmethod
+    def from_checkpoint(cls, model, path: str,
+                        on_mesh_change: str = "error",
+                        **kwargs) -> "InferenceEngine":
+        """Build an engine from a training checkpoint without optimizer
+        slots in memory: ``path`` is a ``CheckpointManager`` directory
+        (the newest checkpoint that verifies is used) or one committed
+        checkpoint directory.  Restores with ``inference_only=True`` to
+        the host, and the engine places what it serves (a tiered table
+        never lands on the card whole); ``kwargs`` go to the
+        constructor."""
+        import os
+
+        from ..checkpoint import CheckpointError, restore_checkpoint
+        from ..resilience.manager import latest_checkpoint
+
+        ckpt = latest_checkpoint(path)
+        if ckpt is None:
+            # not a manager directory -> one committed checkpoint
+            # directory; but a manager directory whose every ckpt-* is
+            # corrupt must say so, not "no meta.json" about the parent
+            try:
+                has_entries = any(n.startswith("ckpt-")
+                                  for n in os.listdir(path))
+            except OSError:
+                has_entries = False
+            if has_entries:
+                raise CheckpointError(
+                    f"{path!r} contains checkpoints but none verify "
+                    f"(all corrupt/partial) — nothing to serve from")
+            ckpt = path
+        state = restore_checkpoint(ckpt, model=model, inference_only=True,
+                                   on_mesh_change=on_mesh_change,
+                                   device="cpu")
+        return cls(model, state, **kwargs)
+
+    # ------------------------------------------------------- tiered storage
+    def _build_tiered(self) -> None:
+        """Per embedding op: structural eligibility, then the
+        kernel_costs price (predicted hit rate from the row-frequency
+        counters), then build the store, warm-start its LFU admission,
+        and put its hot tier in the op's ``embedding`` slot, so warmup
+        captures against it.  Ops left resident are recorded in
+        ``self.storage['fallbacks']`` with their reason."""
+        from ..storage import (TieredEmbeddingTable, default_table_keys,
+                               predicted_hit_rate, tiered_decision)
+
+        cfg = self.model.config
+        hot_budget = int(getattr(cfg, "storage_hot_rows", 4096))
+        top = self.buckets[-1]
+        tables: Dict[str, Any] = {}
+        fallbacks: Dict[str, str] = {}
+        for op in self.model.layers:
+            kind = getattr(op, "op_type", "")
+            if kind not in ("Embedding", "StackedEmbedding",
+                            "RaggedStackedEmbedding"):
+                continue
+            if kind == "Embedding":
+                rows = [op.num_entries]
+            elif kind == "StackedEmbedding":
+                rows = [op.num_entries] * op.num_tables
+            else:
+                rows = list(op.row_counts)
+            # The JAX package also refuses mesh-native serving, host-
+            # placed tables, lane-packed storage and live table exchange
+            # here; the port's ops have none of them (no mesh, no
+            # placement, storage_pack or exchange_mode attribute), so
+            # those reasons cannot arise.  What remains is the budget.
+            ishape = op.inputs[0].shape  # includes the batch dim
+            bag = ishape[-1] if len(ishape) >= (
+                3 if kind != "Embedding" else 2) else 1
+            hot_per = [min(hot_budget, r) for r in rows]
+            reason = None
+            if min(hot_per) < top * bag:
+                reason = (f"hot tier ({min(hot_per)} slots) below "
+                          f"one bucket's worst-case working set "
+                          f"({top}x{bag} ids)")
+            if reason is None:
+                table = self._params[op.name]["embedding"]
+                keys = default_table_keys(op.inputs[0].name, len(rows))
+                hit, observed = predicted_hit_rate(keys, rows, hot_per)
+                ok, reason = tiered_decision(
+                    num_rows=sum(rows), dim=op.out_dim,
+                    itemsize=table.element_size(),
+                    hot_rows=sum(hot_per), lookups=top * bag * len(rows),
+                    hit_rate=hit)
+                if ok:
+                    store = TieredEmbeddingTable(
+                        op.inputs[0].name, table, hot_budget,
+                        row_counts=(rows if kind ==
+                                    "RaggedStackedEmbedding" else None),
+                        table_keys=keys, device=self.device)
+                    store.reserve(top * bag * len(rows))
+                    warmed = store.warm_from_rowfreq()
+                    # a copy of the op's dict: the caller's state keeps
+                    # its full table
+                    self._params[op.name] = {
+                        **self._params[op.name],
+                        "embedding": store.hot_param()}
+                    self._tiered[op.inputs[0].name] = (op.name, store)
+                    tables[op.name] = {
+                        "input": op.inputs[0].name, "kind": store.kind,
+                        "rows": store.total_rows,
+                        "hot_slots": store.hot_slots,
+                        "policy": store.policy_name,
+                        "predicted_hit": round(hit, 4),
+                        "observed_traffic": observed,
+                        "warm_admitted": warmed, "why": reason}
+                    continue
+            fallbacks[op.name] = reason
+        self.storage = {
+            "mode": "tiered" if tables else "resident",
+            "hot_rows": hot_budget, "tables": tables,
+            "fallbacks": fallbacks}
+
+    def storage_stats(self) -> Dict[str, Any]:
+        """The live tiered-store counters summed across this engine's
+        stores (empty when serving resident): what a benchmark records
+        beside the dlrm_embed_cache_* gauges."""
+        stores = [s for _, s in self._tiered.values()]
+        if not stores:
+            return {}
+        stats = [s.stats() for s in stores]
+        lookups = sum(s["lookups"] for s in stats)
+        hits = sum(s["hits"] for s in stats)
+        return {
+            "lookups": lookups, "hits": hits,
+            "misses": sum(s["misses"] for s in stats),
+            "hit_pct": 100.0 * hits / max(1, lookups),
+            "evictions": sum(s["evictions"] for s in stats),
+            "writebacks": sum(s["writebacks"] for s in stats),
+            "stall_us_total": sum(s["stall_us_total"] for s in stats),
+            "stall_us_last": max(s["stall_us_last"] for s in stats),
+            "per_store": stats,
+        }
+
     # ---------------------------------------------------------------- warmup
     def warmup(self) -> None:
         """Build every bucket's graph outside the serving path, so
@@ -148,8 +316,8 @@ class InferenceEngine:
 
     @property
     def graph_replays(self) -> int:
-        """Dispatches replayed from the buckets' graphs (on the CPU: runs
-        of the runners)."""
+        """Dispatches replayed from the buckets' graphs (on the CPU, and
+        with ``aot=False``: runs of the runners)."""
         return sum(r.replays for r in self._graphs.values())
 
     def _forward(self, static, params):
@@ -157,9 +325,9 @@ class InferenceEngine:
 
     def _ensure(self, b: int) -> GraphRunner:
         """Bucket ``b``'s runner, built under the engine's lock at its
-        first use: one eager forward on zero inputs, then the capture,
-        timed together as the bucket's ``compile`` event (emitted outside
-        the lock)."""
+        first use: one eager forward on zero inputs, then the capture
+        (none with ``aot=False``), timed together as the bucket's
+        ``compile`` event (emitted outside the lock)."""
         runner = self._graphs.get(b)
         if runner is not None:
             return runner
@@ -177,7 +345,7 @@ class InferenceEngine:
                     self._pool = torch.cuda.graph_pool_handle()
                 self._graphs[b] = GraphRunner(
                     self._forward, dummy, self._params, pool=self._pool,
-                    lock=self._lock)
+                    lock=self._lock, capture=self._aot)
                 built = time.perf_counter() - t0
             runner = self._graphs[b]
         if built is not None:
@@ -210,8 +378,9 @@ class InferenceEngine:
 
         ``queue_wait_us`` rides the dispatch event; ``timings`` (an
         optional out-param) receives the last chunk's ``bucket``,
-        ``pad_us``, ``compute_us`` and ``stall_us`` (0: no tiered store),
-        the batcher's tail-exemplar decomposition."""
+        ``pad_us``, ``compute_us`` and ``stall_us`` (the
+        dlrm_embed_cache_miss_stall_us gauge when tiered, else 0), the
+        batcher's tail-exemplar decomposition."""
         arrs = {}
         n = None
         for name, (_shape, dtype) in self._in_specs.items():
@@ -242,32 +411,53 @@ class InferenceEngine:
     def _dispatch(self, chunk: Dict[str, np.ndarray], m: int,
                   queue_wait_us: float,
                   timings: Optional[Dict[str, float]] = None) -> np.ndarray:
-        # with an event log active the spans nest under the caller's
-        # current span (the batcher's serve.dispatch) and the dispatch
-        # is one event; with none, the spans are the no-op NULL_SPAN.
-        # The bucket's build stays outside the pad span: it has its own
-        # compile event
+        """One dispatch: under the engine's lock, remap every tiered
+        input (each store enqueues its misses' copy and row-set install;
+        none when resident), pad, and enqueue the replay and the output's
+        copy out of the graph; then fence, and let the stores read their
+        miss stalls.  Lock order: the engine's, then a store's (a store
+        never takes the engine's).  The bucket's build stays outside: it
+        has its own compile event.  With an event log active the spans
+        are emitted after the fence, outside the lock, under the caller's
+        current span (the batcher's ``serve.dispatch``)."""
         b = self.bucket_for(m)
         runner = self._ensure(b)
-        traced = active_log() is not None
-        attrs = {"batch": m, "bucket": b} if traced else None
-        t_pad = time.perf_counter()
-        with (trace_span("serve.pad", attrs=attrs) if traced
-              else NULL_SPAN):
+        notes = []
+        with self._lock:
+            t_remap = time.perf_counter()
+            if self._tiered:
+                chunk = dict(chunk)
+                for name, (_, store) in self._tiered.items():
+                    ids, info = store._remap_deferred(chunk[name])
+                    chunk[name] = ids.astype(chunk[name].dtype, copy=False)
+                    notes.append((store, info))
+            t_pad = time.perf_counter()
             padded = {k: self._pad(v, m, b) for k, v in chunk.items()}
-        t0 = time.perf_counter()
-        with (trace_span("serve.engine_forward", attrs=attrs) if traced
-              else NULL_SPAN):
-            # the device-to-host copy of the result is the fence
-            out = runner.run(padded, self._params)[:m].cpu().numpy()
-        compute_us = (time.perf_counter() - t0) * 1e6
+            t0 = time.perf_counter()
+            out = runner.run_locked(padded, self._params)[:m]
+        out = out.cpu().numpy()  # the device-to-host copy is the fence
+        t1 = time.perf_counter()
+        for store, info in notes:
+            store._note(info)
+        compute_us = (t1 - t0) * 1e6
         self.stats.record_dispatch(bucket=b, lat_us=compute_us)
         if timings is not None:
             timings["bucket"] = float(b)
             timings["pad_us"] = (t0 - t_pad) * 1e6
             timings["compute_us"] = compute_us
-            timings["stall_us"] = 0.0
-        if traced:
+            stall = _metrics.EMBED_CACHE_MISS_STALL_US.value
+            timings["stall_us"] = (float(stall) if self._tiered
+                                   and stall is not None else 0.0)
+        if active_log() is not None:
+            attrs = {"batch": m, "bucket": b}
+            parent = current_span()
+            now_s, now = time.time(), time.perf_counter()
+            spans = (("serve.storage_remap", t_remap, t_pad),) \
+                if self._tiered else ()
+            for name, a, z in spans + (("serve.pad", t_pad, t0),
+                                       ("serve.engine_forward", t0, t1)):
+                record_span(name, now_s - (now - a), (z - a) * 1e6,
+                            parent=parent, attrs=attrs)
             emit("serve", phase="dispatch", batch=m, bucket=b, padded=b - m,
                  fill=m / b, queue_wait_us=float(queue_wait_us),
                  compute_us=compute_us)

@@ -88,6 +88,10 @@ class LatencyStats:
                 if j < self.max_samples:
                     self._lat_us[j] = lat
 
+    def record_many(self, lats_us) -> None:
+        for v in lats_us:
+            self.record(v)
+
     def record_reject(self, cause: str = "shutdown") -> None:
         """One shed request.  ``cause`` feeds the labelled
         dlrm_serve_shed_total split: "queue_full" (batcher queue at

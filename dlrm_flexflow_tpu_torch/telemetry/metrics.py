@@ -15,10 +15,12 @@ counters into a retained base (``retire_batcher``) and a collected engine
 folds through a finalizer, so the exposed counters stay monotone across
 scrapes.
 
-The families are those the port's trainer, engine and batcher produce,
-and the durability families (checkpoint saves and age, sentinel
-rollbacks, the host watchdog's heartbeat age).  The router, SLO, fleet,
-storage and strategy families come with their modules (ROADMAP.md).  The registry is process-wide, as the
+The families are those the port's trainer, engine, batcher and router
+produce (``track_router`` / ``retire_router`` keep the router's shed
+count monotone the same way), the durability families (checkpoint saves
+and age, sentinel rollbacks, the host watchdog's heartbeat age) and the
+tiered store's two gauges.  The SLO, fleet and strategy families come
+with their modules (ROADMAP.md).  The registry is process-wide, as the
 JAX package's is; ``reset`` clears its live and retained state (tests).
 """
 
@@ -64,6 +66,17 @@ FAMILIES: Dict[str, Tuple[str, str]] = {
         "histogram",
         'engine forward wall per dispatch, labelled by compiled '
         'bucket'),
+    "dlrm_serve_replica_qps": (
+        "gauge", "lifetime-average served QPS per routed serving "
+                 "replica (served count / seconds since construction)"),
+    "dlrm_serve_replica_queue_depth": (
+        "gauge", "requests waiting per routed serving replica queue"),
+    "dlrm_serve_router_shed_total": (
+        "counter",
+        "requests a ReplicaRouter shed with every replica saturated"),
+    "dlrm_serve_replicas": (
+        "gauge", "live serving replicas across all ReplicaRouters "
+                 "(moves with scale_to/rebuild — docs/elastic.md)"),
     "dlrm_train_steps_total": (
         "counter",
         'training dispatches adopted (global steps)'),
@@ -92,6 +105,19 @@ FAMILIES: Dict[str, Tuple[str, str]] = {
                  "the host watchdog saw on its latest sweep — crosses "
                  "the watchdog deadline when a peer host died or hung "
                  "(resilience/watchdog.py — docs/resilience.md)"),
+    "dlrm_serve_replica_ejected_total": (
+        "counter", "serving replicas ejected from dispatch by the "
+                   "ReplicaRouter health probe (dead dispatcher "
+                   "thread or tripped consecutive-engine-failure "
+                   "circuit breaker — docs/serving.md)"),
+    "dlrm_embed_cache_hit_pct": (
+        "gauge", "tiered embedding store cumulative hit rate: percent "
+                 "of lookups served from the device-resident hot tier "
+                 "(storage/tiered.py — docs/storage.md)"),
+    "dlrm_embed_cache_miss_stall_us": (
+        "gauge", "wall microseconds the most recent tiered-store miss "
+                 "block stalled streaming cold rows host->device "
+                 "(start-all-then-wait — docs/storage.md)"),
     "dlrm_serve_shed_total": (
         "counter",
         'requests shed, labelled by cause: queue_full (batcher queue '
@@ -179,6 +205,13 @@ class LabeledCounter(Metric):
     def expose(self) -> List[str]:
         return [f'{self.name}{{{self.label}="{k}"}} {_fmt(v)}'
                 for k, v in sorted(self._fn().items())]
+
+
+class LabeledGauge(LabeledCounter):
+    """Pull-based gauge family with one label: ``fn`` returns
+    {label_value: value} at scrape time.  Rows come and go with the
+    live objects behind them (a retired replica's row disappears); the
+    exposition is :class:`LabeledCounter`'s, only the contract differs."""
 
 
 class Histogram(Metric):
@@ -411,6 +444,130 @@ def _queue_depth() -> float:
 # drain, the retained base, AND the live sweep, so fold transitions are
 # invisible to them and the exposed counters are exactly-once sums
 
+# ------------------------------------------------------- router collection
+#
+# A live router's shed count lives in a _ShedCell swept by scrapes;
+# retire_router folds it into the retained base under _retired_lock,
+# and every increment goes through record_router_shed, which sends a
+# shed that lands after the fold (a submit racing close) straight into
+# the base.  A router dropped without close() folds through a finalizer
+# that only queues its cell on a lock-free deque.  The per-replica QPS
+# and queue-depth gauges carry no monotonicity contract: their rows come
+# from the live routers and vanish with them.
+
+class _ShedCell:
+    """One router's shed count, mutated only under ``_retired_lock``."""
+
+    __slots__ = ("n", "folded")
+
+    def __init__(self):
+        self.n = 0
+        self.folded = False
+
+
+_live_routers: "weakref.WeakSet" = weakref.WeakSet()
+_live_shed_cells: set = set()          # strong refs until folded
+_pending_router_folds: deque = deque()
+_retired_router_shed = 0
+
+
+def _fold_shed_cell_locked(cell: _ShedCell) -> None:
+    global _retired_router_shed
+    if not cell.folded:
+        cell.folded = True
+        _retired_router_shed += cell.n
+    _live_shed_cells.discard(cell)
+
+
+def _drain_router_pending_locked() -> None:
+    while True:
+        try:
+            cell = _pending_router_folds.popleft()
+        except IndexError:
+            return
+        _fold_shed_cell_locked(cell)
+
+
+def _finalize_router(cell: _ShedCell) -> None:
+    _pending_router_folds.append(cell)  # lock-free; folded at next scrape
+
+
+def track_router(router) -> _ShedCell:
+    """Called by ``ReplicaRouter.__init__``: expose the per-replica
+    gauge rows and the router's shed count until it closes
+    (``retire_router``) or is collected (a finalizer queues the cell, so
+    the counter stays monotone).  Returns the router's shed cell."""
+    cell = _ShedCell()
+    with _retired_lock:
+        _drain_router_pending_locked()
+        _live_shed_cells.add(cell)
+    _live_routers.add(router)
+    weakref.finalize(router, _finalize_router, cell)
+    return cell
+
+
+def retire_router(router) -> None:
+    """Called by ``ReplicaRouter.close``: fold the shed count into the
+    retained base and drop the gauge rows."""
+    with _retired_lock:
+        _drain_router_pending_locked()
+        _fold_shed_cell_locked(router._shed_cell)
+    _live_routers.discard(router)
+
+
+def record_router_shed(cell: _ShedCell) -> None:
+    """Count one router-level shed.  A shed after the fold (a submit
+    racing close) lands in the retained base, so the exposed counter
+    never loses one."""
+    global _retired_router_shed
+    with _retired_lock:
+        if cell.folded:
+            _retired_router_shed += 1
+        else:
+            cell.n += 1
+
+
+def router_shed_count(cell: _ShedCell) -> int:
+    """One router's shed count so far (its own cell: a folded cell keeps
+    its final value for the router's summary)."""
+    with _retired_lock:
+        return int(cell.n)
+
+
+def _router_shed_total() -> float:
+    with _retired_lock:
+        _drain_router_pending_locked()
+        return float(_retired_router_shed
+                     + sum(c.n for c in _live_shed_cells))
+
+
+def _replica_qps() -> Dict[str, float]:
+    out: Dict[str, float] = {}
+    for r in list(_live_routers):
+        # one consistent (label, batcher) snapshot: the replica set
+        # changes under scale_to / rebuild
+        for label, b in r.replica_rows():
+            out[label] = out.get(label, 0.0) + b.stats.lifetime_qps()
+    return out
+
+
+def _replica_queue_depth() -> Dict[str, float]:
+    out: Dict[str, float] = {}
+    for r in list(_live_routers):
+        for label, b in r.replica_rows():
+            out[label] = out.get(label, 0.0) + float(b.queue_depth())
+    return out
+
+
+def _serve_replicas() -> Optional[float]:
+    """Live replicas across routers (None with no live router: no
+    serving tier is absent, never a fake 0)."""
+    routers = list(_live_routers)
+    if not routers:
+        return None
+    return float(sum(len(r) for r in routers))
+
+
 def _count_of(field: str, retired_key: str) -> Callable[[], float]:
     def fn() -> float:
         with _retired_lock:
@@ -476,14 +633,19 @@ def _shed_causes() -> Dict[str, float]:
     """Scrape collector for dlrm_serve_shed_total{cause=}: retained
     base + live LatencyStats sweep of the batcher-level causes
     (queue_full / deadline / shutdown / replica_dead), under the one
-    exactly-once lock, so the labelled split sums to rejected +
-    deadline.  (The router's "saturated" cause comes with the router.)"""
+    exactly-once lock, plus the routers' "saturated" count, so the
+    labelled split sums to rejected + deadline + router shed."""
     with _retired_lock:
         _drain_pending_locked()
+        _drain_router_pending_locked()
         out = {k: float(v) for k, v in _retired_shed_causes.items()}
         for st in _live_stats:
             for cause, c in st.shed_causes().items():
                 out[cause] = out.get(cause, 0.0) + c
+        sat = float(_retired_router_shed
+                    + sum(c.n for c in _live_shed_cells))
+        if sat:
+            out["saturated"] = out.get("saturated", 0.0) + sat
     return out
 
 
@@ -557,6 +719,15 @@ SERVE_LATENCY = REGISTRY.register(
 SERVE_BUCKET_LATENCY = REGISTRY.register(
     LabeledHistogram("dlrm_serve_bucket_latency_us", "bucket",
                      LATENCY_BUCKETS_US, _bucket_latency_hists))
+SERVE_REPLICA_QPS = REGISTRY.register(
+    LabeledGauge("dlrm_serve_replica_qps", "replica", _replica_qps))
+SERVE_REPLICA_QUEUE_DEPTH = REGISTRY.register(
+    LabeledGauge("dlrm_serve_replica_queue_depth", "replica",
+                 _replica_queue_depth))
+SERVE_ROUTER_SHED = REGISTRY.register(
+    Gauge("dlrm_serve_router_shed_total", fn=_router_shed_total))
+SERVE_REPLICAS = REGISTRY.register(
+    Gauge("dlrm_serve_replicas", fn=_serve_replicas))
 TRAIN_STEPS = REGISTRY.register(Counter("dlrm_train_steps_total"))
 TRAIN_SAMPLES_PER_S = REGISTRY.register(
     Gauge("dlrm_train_samples_per_s"))
@@ -572,6 +743,16 @@ SENTINEL_ROLLBACKS = REGISTRY.register(
 EXPOSED_COMM_PCT = REGISTRY.register(Gauge("dlrm_exposed_comm_pct"))
 HOST_HEARTBEAT_AGE = REGISTRY.register(
     Gauge("dlrm_host_heartbeat_age_s"))
+# the router bumps the ejection counter as it removes a dead replica
+REPLICA_EJECTED = REGISTRY.register(
+    Counter("dlrm_serve_replica_ejected_total"))
+# tiered embedding storage (storage/tiered.py): the store sets both after
+# a remap, outside its lock: the hit percent is cumulative over the
+# store's life, the stall the latest miss block's device time
+EMBED_CACHE_HIT_PCT = REGISTRY.register(
+    Gauge("dlrm_embed_cache_hit_pct"))
+EMBED_CACHE_MISS_STALL_US = REGISTRY.register(
+    Gauge("dlrm_embed_cache_miss_stall_us"))
 SERVE_SHED = REGISTRY.register(
     LabeledCounter("dlrm_serve_shed_total", "cause", _shed_causes))
 
@@ -597,11 +778,20 @@ def reset() -> None:
         _retired_bucket_n.clear()
     for b in list(_live_batchers):
         _live_batchers.discard(b)
+    global _retired_router_shed
+    with _retired_lock:
+        _pending_router_folds.clear()
+        _live_shed_cells.clear()
+        _retired_router_shed = 0
+    for r in list(_live_routers):
+        _live_routers.discard(r)
     global _last_ckpt_ts
     _last_ckpt_ts = None
-    for c in (TRAIN_STEPS, CHECKPOINT_SAVES, SENTINEL_ROLLBACKS):
+    for c in (TRAIN_STEPS, CHECKPOINT_SAVES, SENTINEL_ROLLBACKS,
+              REPLICA_EJECTED):
         with c._lock:
             c._v = 0.0
     for g in (TRAIN_SAMPLES_PER_S, DATA_STALL_PCT, EXPOSED_COMM_PCT,
-              HOST_HEARTBEAT_AGE):
+              HOST_HEARTBEAT_AGE, EMBED_CACHE_HIT_PCT,
+              EMBED_CACHE_MISS_STALL_US):
         g._v = None

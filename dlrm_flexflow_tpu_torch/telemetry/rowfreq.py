@@ -80,6 +80,15 @@ class RowFreqCounter:
         with self._lock:
             return self._top(k)
 
+    def head_mass(self, k: int) -> tuple:
+        """(accesses landing in the k hottest ids, total accesses
+        observed), one consistent snapshot: the ratio is the hit rate a
+        k-slot LFU cache would have had on the observed stream, which is
+        what the tiered-storage gate prices."""
+        with self._lock:
+            head = sum(c for _, c in self._top(k))
+            return head, self.rows_seen
+
     def _buckets(self) -> List[int]:
         # caller holds the lock
         if not self.counts:
@@ -168,6 +177,14 @@ def hot_rows(table: str, k: int) -> List[tuple]:
     table was never observed; one lock-guarded snapshot of the counter."""
     c = get(table)
     return c.top(k) if c is not None else []
+
+
+def head_mass(table: str, k: int) -> tuple:
+    """(accesses in ``table``'s k hottest ids, total observed), (0, 0)
+    when never observed: head / total predicts a k-slot cache's hit
+    rate for the tiered-storage gate."""
+    c = get(table)
+    return c.head_mass(k) if c is not None else (0, 0)
 
 
 def _host(arr) -> np.ndarray:
