@@ -122,7 +122,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
      fused engine (B3), bit for bit its answers; (g) save_tiered /
      load_tiered of (c)'s 2 GB store, bit for bit, and a load at 512 hot
      rows re-admitting the hottest prefix.  Hit %, misses, evictions,
-     the miss stall (median, p99), QPS and p99 are information.
+     the miss stall (median, p99), QPS and p99 are information;
+ 21. lazy optimizers, on (i)'s model (8 f32 tables of 1M x 64, bf16
+     compute): (a) AdamOptimizer(lr=0.001, lazy_embeddings=True) and
+     SGDOptimizer(lr=0.01, momentum=0.9, lazy_embeddings=True), uncached:
+     one step through the row update against the same step on
+     row_update_ref (parameters, moment or velocity tables and loss, bit
+     for bit), 16 graphed steps against 16 eager ones; (b), (c) fit
+     (epochs=2) over 64 staged batches cached (the epoch cache alone),
+     laddered ("16,8") and uncached, bit for bit, with each path's B2
+     and B5 launches checked (B2 4 a step under Adam: the duplicate-run
+     sum, m, v, the weights; 3 under momentum); (d) dense Adam (weight
+     decay 1e-4) for 4 steps: finite metrics, every table row moved; (e)
+     a 3-epoch per-batch fit under LearningRateScheduler: the state's
+     rate each epoch is the schedule's, graphed bit for bit eager.  The
+     graphed step walls of SGD, lazy momentum and lazy Adam, the staged
+     fits' samples/s and the slot tables' bytes are information.
 Profile lines carry the graph replays in their window, the graph pool's
 bytes and the host's launches per dispatch or step.
 The line before the last is the kernels' JSON record; the last line is
@@ -149,13 +164,17 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from dlrm_flexflow_tpu_torch import (FFConfig, FFModel, SGDOptimizer,
-                                     SyntheticDLRMLoader, ZipfDLRMLoader,
-                                     _cuda)
+from dlrm_flexflow_tpu_torch import (AdamOptimizer, FFConfig, FFModel,
+                                     SGDOptimizer, SyntheticDLRMLoader,
+                                     ZipfDLRMLoader, _cuda)
 from dlrm_flexflow_tpu_torch import epoch_cache as cache_module
+from dlrm_flexflow_tpu_torch import model as model_module
 from dlrm_flexflow_tpu_torch import telemetry as tele
 from dlrm_flexflow_tpu_torch.apps.dlrm import DLRMConfig, build_dlrm
 from dlrm_flexflow_tpu_torch.data.loader import ArrayDataLoader, zipf_ids
+from dlrm_flexflow_tpu_torch.frontends.keras_callbacks import (
+    Callback, LearningRateScheduler)
+from dlrm_flexflow_tpu_torch.graphs import flatten
 from dlrm_flexflow_tpu_torch.ops import Embedding, FusedEmbedInteract
 from dlrm_flexflow_tpu_torch.ops import embedding as emb_module
 from dlrm_flexflow_tpu_torch.ops import fused_interact as fused_module
@@ -1144,9 +1163,10 @@ def _plain(module, name, fn):
 
 
 def _train_model(fused, compute_dtype, sparse="auto", interact="cat",
-                 **config):
+                 optimizer=None, **config):
     """The run_random.sh model, or with ``interact="dot"`` its dot form
-    (top MLP 145-1024-1024-1024-1)."""
+    (top MLP 145-1024-1024-1024-1), under SGD at lr 0.01 unless an
+    ``optimizer`` is given."""
     top0 = interact_width(interact, TABLES, DIM, BOT)
     cfg = DLRMConfig(embedding_size=[ROWS] * TABLES,
                      fused_interaction="on" if fused else "off",
@@ -1155,7 +1175,8 @@ def _train_model(fused, compute_dtype, sparse="auto", interact="cat",
     ffc = FFConfig(batch_size=BATCH, compute_dtype=compute_dtype,
                    sparse_embedding_updates=sparse, **config)
     model = build_dlrm(cfg, ffc).compile(
-        optimizer=SGDOptimizer(lr=0.01), loss_type="mean_squared_error",
+        optimizer=optimizer or SGDOptimizer(lr=0.01),
+        loss_type="mean_squared_error",
         metrics=("accuracy", "mean_squared_error"))
     state = model.init(seed=0)
     torch.cuda.synchronize()
@@ -1176,28 +1197,33 @@ def _finite(mets) -> bool:
     return all(bool(torch.isfinite(v).all()) for v in mets.values())
 
 
+def _tensors(state):
+    """``(path, tensor)`` of every parameter and every optimizer-state
+    tensor (step, lr and the slot tables) of ``state``."""
+    return flatten((state.params, state.opt_state))
+
+
 def _same_step(model, state, inputs, labels, module, name, plain_fn,
                rtol=0.0, atol=0.0):
     """One train_step through the kernels and the same step with one
     wrapper swapped for its plain version, on clones of ``state``;
-    returns (every parameter and the loss bit-identical, or within
-    ``rtol``/``atol`` when given; max abs difference over all
-    parameters)."""
+    returns (every parameter, every optimizer-state tensor and the loss
+    bit-identical, or within ``rtol``/``atol`` when given; max abs
+    difference over all of them)."""
     a, ma = model.train_step(state, inputs, labels, False)
     with _plain(module, name, plain_fn):
         b, mb = model.train_step(state, inputs, labels, False)
     torch.cuda.synchronize()
 
     def agree(x, y):
-        if rtol or atol:
+        if (rtol or atol) and x.is_floating_point():
             return torch.allclose(x, y, rtol=rtol, atol=atol)
         return torch.equal(x, y)
 
     same, err = True, 0.0
-    for op, params in a.params.items():
-        for k, v in params.items():
-            same = same and agree(v, b.params[op][k])
-            err = max(err, float((v - b.params[op][k]).abs().max()))
+    for (_, v), (_, w) in zip(_tensors(a), _tensors(b)):
+        same = same and agree(v, w)
+        err = max(err, float((v - w).abs().max()))
     same = same and agree(ma["loss"], mb["loss"])
     return same, err
 
@@ -1223,8 +1249,9 @@ def check_graphed_vs_eager(model, state, inputs, labels, config: str,
     """``k`` donated steps from a clone of ``state`` (the first eager, the
     second captured, the rest replayed; the first captures at once when
     the clone lands where an earlier state stepped eagerly) against ``k``
-    eager steps (``donate=False``) from another clone: every parameter,
-    both step counts and every metric of every step bit for bit."""
+    eager steps (``donate=False``) from another clone: every parameter
+    and optimizer-state tensor, both step counts and every metric of
+    every step bit for bit."""
     eager, graphed = state.clone(), state.clone()
     before = _graph_counts(model)
     same, err = True, 0.0
@@ -1235,13 +1262,10 @@ def check_graphed_vs_eager(model, state, inputs, labels, config: str,
         torch.cuda.synchronize()
         same = same and all(torch.equal(em[m], gm[m]) for m in em)
         err = max([err] + [float((em[m] - gm[m]).abs()) for m in em])
-    for op, params in graphed.params.items():
-        for name, v in params.items():
-            same = same and torch.equal(v, eager.params[op][name])
-            err = max(err, float((v - eager.params[op][name]).abs().max()))
-    same = (same and int(graphed.step) == int(eager.step)
-            and torch.equal(graphed.opt_state["step"],
-                            eager.opt_state["step"]))
+    for (_, v), (_, w) in zip(_tensors(graphed), _tensors(eager)):
+        same = same and torch.equal(v, w)
+        err = max(err, float((v - w).abs().max()))
+    same = same and int(graphed.step) == int(eager.step)
     after = _graph_counts(model)
     log({"phase": "graph_vs_eager", "config": config, "steps": k,
          "captures": after["captures"] - before["captures"],
@@ -3214,6 +3238,254 @@ def tiered_phase(card: str):
             "scatter_err": scatter_err}, counts
 
 
+# -------------------------------------------------------------- phase 21
+#: phase 21's optimizers, on the row-lazy path
+LAZY = {"adam": lambda: AdamOptimizer(lr=0.001, lazy_embeddings=True),
+        "momentum": lambda: SGDOptimizer(lr=0.01, momentum=0.9,
+                                         lazy_embeddings=True)}
+#: the staged fit's three configurations: the epoch cache alone, with the
+#: in-graph ladder "16,8", and no cache
+LAZY_FITS = {"cached": {"epoch_row_cache": "on",
+                        "epoch_cache_levels": "off"},
+             "laddered": {"epoch_row_cache": "on",
+                          "epoch_cache_levels": "16,8"},
+             "uncached": {"epoch_row_cache": "off"}}
+
+
+def _same_state(a, b) -> bool:
+    """Step count, every parameter and every optimizer-state tensor, bit
+    for bit."""
+    return int(a.step) == int(b.step) and all(
+        torch.equal(v, w)
+        for (_, v), (_, w) in zip(_tensors(a), _tensors(b)))
+
+
+def _replay_wall_ms(model, state, inputs, labels):
+    """(state, ms a step, launches a step) of uncached ``train_epoch``
+    replays: one epoch captures (its first step eager), the next one,
+    timed to a synchronise, only replays; launches over both epochs."""
+    reset_counts()
+    state, _ = model.train_epoch(state, inputs, labels)
+    torch.cuda.synchronize()
+    graphs0 = _graph_counts(model)
+    t0 = time.perf_counter()
+    state, folded = model.train_epoch(state, inputs, labels)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    nb = labels.shape[0]
+    if (_graph_counts(model)["replays"] - graphs0["replays"] != nb
+            or not _finite(folded)):
+        raise AssertionError("the timed epoch did not replay every step, "
+                             "or gave a non-finite metric")
+    return state, wall * 1e3 / nb, counts
+
+
+def lazy_step_checks(name, inputs, labels):
+    """(a) for one lazy optimizer on the uncached path: one step through
+    B2 against the same step on ``row_update_ref`` (parameters, moment
+    or velocity tables, loss: bit for bit), 16 graphed steps against 16
+    eager ones, and the graphed step's wall beside plain SGD's on the
+    same model.  Returns (row, main-path launches)."""
+    model, state = _train_model(False, "bfloat16", optimizer=LAZY[name](),
+                                epoch_row_cache="off")
+    slots = model._lazy_slots
+    step0 = ({k: v[0] for k, v in inputs.items()}, labels[0])
+    same, err = _same_step(model, state, *step0, model_module,
+                           "row_update_cuda", row_update_ref)
+    log({"phase": "lazy_vs_plain", "optimizer": name,
+         "plain": "row_update_ref", "compared": ["params"] + list(slots),
+         "bit_identical": same, "max_abs_err": err})
+    if not same:
+        raise AssertionError(f"lazy {name} step through B2 != the same "
+                             f"step on row_update_ref")
+    check_graphed_vs_eager(model, state, inputs, labels, f"lazy {name}",
+                           k=16)
+    slot_bytes = {sn: state.opt_state[sn]["emb"]["embedding"].nbytes
+                  for sn in slots}
+    state, wall_ms, counts = _replay_wall_ms(model, state, inputs, labels)
+    steps = 2 * labels.shape[0]
+    row = {"phase": "lazy_step", "optimizer": name,
+           "graphed_step_wall_ms": wall_ms,
+           "b2_calls_per_step": counts["row_update"] / steps,
+           "launches": counts, "table_slot_bytes": slot_bytes,
+           "all_slot_bytes": sum(t.nbytes for sn in slots
+                                 for _, t in flatten(state.opt_state[sn])),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "note": "walls are information, not a claim"}
+    log(row)
+    if counts["row_update"] != (len(slots) + 2) * steps:
+        raise AssertionError(f"lazy {name}: {counts} launches in {steps} "
+                             f"steps")
+    del model, state
+    _free()
+    return row, counts
+
+
+def lazy_fits(name):
+    """(b), (c): ``fit(epochs=2)`` over 64 staged batches under a lazy
+    optimizer, cached, laddered and uncached, each against the first bit
+    for bit (parameters and slot tables).  Returns (rows, launches)."""
+    rows, total, first = {}, None, None
+    for config, extra in LAZY_FITS.items():
+        model, _ = _train_model(False, "bfloat16", optimizer=LAZY[name](),
+                                **extra)
+        slots = model._lazy_slots
+        state, counts, row = _staged_fit(model, 64)
+        steps = 1 + 2 * 64
+        blocks = {"cached": 1, "laddered": 25, "uncached": 0}[config]
+        row.update({"phase": "lazy_fit", "optimizer": name,
+                    "config": config,
+                    "b2_calls_per_step": counts["row_update"] / steps,
+                    "b5_calls_per_fit": counts["row_set"]})
+        if first is None:
+            first = state
+        else:
+            row["bit_identical_to_cached"] = _same_state(state, first)
+        log(row)
+        rows[config] = row
+        total = (counts if total is None else
+                 {k: total[k] + counts[k] for k in total})
+        if not (row["staged"] and row["cache"] == (config != "uncached")
+                and row["graphs"]["captures"] == 1
+                and row.get("bit_identical_to_cached", True)
+                and counts["row_update"] == (len(slots) + 2) * steps
+                and counts["row_set"] == blocks * (1 + len(slots))):
+            raise AssertionError(f"lazy {name} fit, {config}: wrong path, "
+                                 f"launches, or bits: {row}")
+        del model, state
+        _free()
+    del first
+    _free()
+    return rows, total
+
+
+def dense_adam():
+    """(d): Adam without ``lazy_embeddings`` takes the dense table
+    gradient: 4 steps at full width; finite metrics, and every row of the
+    8M-row table rewritten (weight decay 1e-4: with none, a row that no
+    step touched has zero moments and an Adam step of exactly 0)."""
+    model, state = _train_model(
+        False, "bfloat16", optimizer=AdamOptimizer(lr=0.001,
+                                                   weight_decay=1e-4))
+    before = state.params["emb"]["embedding"].clone()
+    inputs, labels = _epoch_data(4)
+    t0 = time.perf_counter()
+    finite = True
+    for i in range(4):
+        state, mets = model.train_step(
+            state, {k: v[i] for k, v in inputs.items()}, labels[i])
+        finite = finite and _finite(mets)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    moved = float((state.params["emb"]["embedding"] != before)
+                  .view(-1, DIM).any(dim=1).float().mean())
+    row = {"phase": "dense_adam", "sparse_ops": len(model._sparse_ops),
+           "finite": finite, "rows_moved": moved,
+           "graphs": _graph_counts(model), "wall_ms_4_steps": wall * 1e3,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "note": "the wall holds the eager step and the capture"}
+    log(row)
+    if model._sparse_ops or not finite or moved != 1.0:
+        raise AssertionError(f"dense Adam: {row}")
+    del model, state, before
+    _free()
+    return row
+
+
+class _EpochRates(Callback):
+    """The rate in the state at each epoch's end."""
+
+    def __init__(self):
+        super().__init__()
+        self.rates = []
+
+    def on_epoch_end(self, epoch, logs=None):
+        self.rates.append(float(self.model._fit_state.opt_state["lr"]))
+
+
+def scheduled_fit():
+    """(e): lazy Adam through a 3-epoch per-batch ``fit`` (4 batches an
+    epoch) under ``LearningRateScheduler``: the state's rate at each epoch
+    is the schedule's, and the graphed run equals the same run on eager
+    steps bit for bit (a replay reads the rate by address).  Returns
+    (row, launches)."""
+    schedule = [1e-3, 5e-4, 2.5e-4]
+    model, _ = _train_model(False, "bfloat16", optimizer=LAZY["adam"]())
+    runs = {}
+    for dispatch in ("graphed", "eager"):
+        rec = _EpochRates()
+        loader = SyntheticDLRMLoader(4 * BATCH, BOT, [ROWS] * TABLES, 1,
+                                     BATCH, seed=0)
+        state = model.init(seed=0)
+        ctx = (_eager_steps(model) if dispatch == "eager"
+               else contextlib.nullcontext())
+        torch.cuda.synchronize()
+        reset_counts()
+        with ctx:
+            state, thpt = model.fit(state, loader, epochs=3, verbose=False,
+                                    callbacks=[LearningRateScheduler(
+                                        lambda e: schedule[e]), rec])
+        torch.cuda.synchronize()
+        runs[dispatch] = (state, rec.rates, read_counts(), thpt,
+                          model._last_fit_used_scan)
+    (gs, grates, counts, thpt, scan), (es, erates, _, _, _) = \
+        runs["graphed"], runs["eager"]
+    want = [float(np.float32(r)) for r in schedule]
+    row = {"phase": "scheduled_fit", "rates": grates, "eager_rates": erates,
+           "schedule": want, "per_batch": not scan,
+           "graphed_vs_eager_bit_identical": _same_state(gs, es),
+           "launches": counts, "fit_samples_per_s": thpt}
+    log(row)
+    if (grates != want or erates != want or scan
+            or not row["graphed_vs_eager_bit_identical"]
+            or counts["row_update"] != 4 * 13):
+        raise AssertionError(f"scheduled fit: {row}")
+    del model, runs, gs, es
+    _free()
+    return row, counts
+
+
+def lazy_phase(inputs, labels, headline_ms):
+    """Phase 21, lazy optimizers: (a) per optimizer, (b) and (c) the
+    staged fits, (d) dense Adam, (e) the scheduled fit; the graphed step
+    walls beside plain SGD's on the same uncached path.  Returns (row,
+    main-path launches)."""
+    model, state = _train_model(False, "bfloat16", epoch_row_cache="off")
+    _, sgd_ms, sgd_counts = _replay_wall_ms(model, state, inputs, labels)
+    del model, state
+    _free()
+    steps, fits, counts = {}, {}, sgd_counts
+    for name in LAZY:
+        steps[name], c = lazy_step_checks(name, inputs, labels)
+        counts = {k: counts[k] + c[k] for k in counts}
+        fits[name], c = lazy_fits(name)
+        counts = {k: counts[k] + c[k] for k in counts}
+    dense = dense_adam()
+    sched, c = scheduled_fit()
+    counts = {k: counts[k] + c[k] for k in counts}
+    row = {"phase": "lazy_optimizers",
+           "graphed_step_wall_ms": {
+               "sgd": sgd_ms,
+               **{n: r["graphed_step_wall_ms"] for n, r in steps.items()}},
+           "headline_step_wall_ms_phase_8": headline_ms,
+           "b2_calls_per_step": {n: r["b2_calls_per_step"]
+                                 for n, r in steps.items()},
+           "b5_calls_per_fit": {n: {c: r["b5_calls_per_fit"]
+                                    for c, r in f.items()}
+                                for n, f in fits.items()},
+           "staged_fit_samples_per_s": {
+               n: {c: r["fit_samples_per_s"] for c, r in f.items()}
+               for n, f in fits.items()},
+           "table_slot_bytes": {n: r["table_slot_bytes"]
+                                for n, r in steps.items()},
+           "dense_adam_rows_moved": dense["rows_moved"],
+           "scheduled_rates": sched["rates"], "launches": counts,
+           "note": "walls are information, not a claim"}
+    log(row)
+    return row, counts
+
+
 def _entry(name, launches, err, timing):
     source, replaces, _ = KERNELS[name]
     return {"name": name, "route": "cuda", "source": source,
@@ -3297,9 +3569,12 @@ def main() -> int:
     # phase 20: tiered storage, the cost gates and the router, after the
     # timings too (host-heavy)
     tiered, tiered_counts = tiered_phase(card)
+    # phase 21: momentum and Adam on the row-lazy path (B2, B5), and dense
+    # Adam, at full width
+    lazy, lazy_counts = lazy_phase(inputs, labels, headline["step_wall_ms"])
     path_counts = (headline_counts, sparse_counts, dense_counts, dot_counts,
                    staged_counts, bag_counts, bf16_counts, bag16_counts,
-                   durable_counts, tiered_counts)
+                   durable_counts, tiered_counts, lazy_counts)
     row_launches = sum(c["row_update"] for c in path_counts)
     prep_launches = sum(c["row_update_prep"] for c in path_counts)
     if prep_launches != row_launches:
@@ -3328,6 +3603,8 @@ def main() -> int:
              "stall_us_mean")} for k in ("hot4096", "hot512_router")},
          "tiered_stall_us": {f: tiered["hot4096"]["eager"][f] for f in (
              "stall_us_median", "stall_us_p99")},
+         "lazy_graphed_step_wall_ms": lazy["graphed_step_wall_ms"],
+         "lazy_staged_fit_samples_per_s": lazy["staged_fit_samples_per_s"],
          "note": "walls include each path's eager step and capture"})
     log({"kernels": [
         _entry("fused_interact_fwd",
@@ -3342,7 +3619,8 @@ def main() -> int:
         _entry("row_update", row_launches, row_err, row_time),
         _entry("row_update_prep", prep_launches, prep_err, prep_time),
         _entry("row_set", staged_counts["row_set"] + bf16_counts["row_set"]
-               + tiered_counts["row_set"], set_err, set_time),
+               + tiered_counts["row_set"] + lazy_counts["row_set"], set_err,
+               set_time),
         _entry("embedding_bag", bag_counts["embedding_bag"]
                + bag16_counts["embedding_bag"], bag_err, bag_time)]})
     log({"ok": True, "device": {"platform": "gpu",

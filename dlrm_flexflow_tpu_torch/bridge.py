@@ -9,9 +9,10 @@ changes the container.  On the JAX side, take host copies with
     state = model.load_params(params_from_jax(np_params), device=...,
                               opt_state=opt_state_from_jax(np_opt_state))
 
-installs them, and the SGD state (``jax.tree.map(np.asarray,
-state.opt_state)``), on the port model's device.  Stacked ``(T, R, d)``
-tables and per-table ``(R, d)`` tables cross like any other parameter.
+installs them, and the optimizer state (``jax.tree.map(np.asarray,
+state.opt_state)``, SGD's or Adam's), on the port model's device.
+Stacked ``(T, R, d)`` tables and per-table ``(R, d)`` tables cross like
+any other parameter.
 
 bf16 tables arrive as numpy arrays of ``ml_dtypes.bfloat16``, which
 ``torch.from_numpy`` does not take: they cross bit for bit as their
@@ -73,17 +74,16 @@ def params_from_jax(np_params: Mapping[str, Mapping[str, object]]
 
 
 def opt_state_from_jax(np_opt_state: Mapping[str, object]) -> Dict[str, object]:
-    """The JAX package's SGD state ``{"step", "lr"[, "v": {op: {param:
-    array}}]}`` as host arrays -> the same tree of CPU tensors (``step``
-    int32 and ``lr`` f32 0-dim, the momentum buffers f32)."""
-    unknown = set(np_opt_state) - {"step", "lr", "v"}
+    """The JAX package's SGD or Adam state ``{"step", "lr"[, "m"][, "v"]}``
+    (slots ``{op: {param: array}}``) as host arrays -> the same tree of
+    CPU tensors, keys in the input's order (``step`` int32 and ``lr`` f32
+    0-dim, the slots f32)."""
+    unknown = set(np_opt_state) - {"step", "lr", "m", "v"}
     if unknown:
-        raise KeyError(f"not an SGD optimizer state: {sorted(unknown)}")
-    out: Dict[str, object] = {k: _tensor(k, np_opt_state[k])
-                              for k in ("step", "lr") if k in np_opt_state}
-    if "v" in np_opt_state:
-        out["v"] = params_from_jax(np_opt_state["v"])
-    return out
+        raise KeyError(f"not an SGD or Adam optimizer state: "
+                       f"{sorted(unknown)}")
+    return {k: (params_from_jax(v) if k in ("m", "v") else _tensor(k, v))
+            for k, v in np_opt_state.items()}
 
 
 def _tree(fn, tree, name=""):

@@ -39,11 +39,11 @@ class FFConfig:
     # the table bytes and train through the row-update, bag and row-set
     # kernels on bf16 storage
     embedding_dtype: str = "float32"
-    # Row-sparse embedding updates under plain SGD ("auto"|"on"|"off"):
-    # gather the looked-up rows outside autograd, differentiate with
-    # respect to those rows, and add -lr * row_grad back into the table
-    # in place (the row-update kernel).  "off" trains through the dense
-    # table gradient.
+    # Row-sparse embedding updates under plain SGD, or an optimizer with
+    # lazy_embeddings=True ("auto"|"on"|"off"): gather the looked-up rows
+    # outside autograd, differentiate with respect to those rows, and
+    # add the rows' step back into the table in place (the row-update
+    # kernel).  "off" trains through the dense table gradient.
     sparse_embedding_updates: str = "auto"
     # Epoch row cache ("auto"|"on"|"off"): train_epoch(s) pull the rows
     # the epoch's ids touch into a small cache, step against the cache

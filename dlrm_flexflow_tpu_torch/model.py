@@ -9,13 +9,16 @@ serving bucket; ``predict`` runs it eagerly, and the serving engine
 replays it as one CUDA graph per bucket (``serving/engine.py``).
 
 Training follows the JAX package's step (``model.py:973-1055``).  Under
-plain SGD with ``sparse_embedding_updates`` not "off", every embedding op
-whose ids are a model input takes the row-sparse path: its looked-up rows
-are gathered outside autograd, the loss is differentiated with respect to
-those rows, the dense parameters take the SGD step, and
-``scatter_apply(-lr)`` adds the row grads back into the table in place
-(the row-update kernel on the card).  Otherwise every parameter, tables
-included, takes the dense gradient.
+plain SGD, or an optimizer built with ``lazy_embeddings=True``, with
+``sparse_embedding_updates`` not "off", every embedding op whose ids are
+a model input takes the row-sparse path: its looked-up rows are gathered
+outside autograd, the loss is differentiated with respect to those rows,
+the dense parameters take the optimizer's step, and the rows' step lands
+in the table in place through the row-update kernel on the card:
+``scatter_apply(-lr)`` under plain SGD, ``_lazy_update`` (momentum,
+weight decay or Adam on the touched rows and their slot rows) in lazy
+mode.  Otherwise every parameter, tables included, takes the dense
+gradient.
 
 The donated step is compiled, as the JAX package jits it
 (``model.py:1932-1942``): ``_step`` captures ``_step_body`` in a CUDA
@@ -28,9 +31,10 @@ JAX package's scanned epoch (``model.py:1891-1928``, ``:2115-2254``,
 replays the captured step, and with the epoch row cache active
 (``epoch_cache.py``) the row-sparse ops step against a small cache of
 the epoch's rows, nested in the cache ladder, with every writeback
-through the row-set kernel on the card.  The caches are buffers the
-model keeps, so the one captured step serves every block, chunk and
-epoch of a shape: ``fit(epochs=2)`` of the run_random.sh CLI (64 staged
+through the row-set kernel on the card; in lazy mode the optimizer's
+slot tables of a cached op are cached beside it, at the same slots.
+The caches are buffers the model keeps, so the one captured step serves
+every block, chunk and epoch of a shape: ``fit(epochs=2)`` of the run_random.sh CLI (64 staged
 batches) captures once.  The prologue, the block fetches and writebacks
 and the epilogue stay eager.  A mesh comes with the scale-out slice.
 
@@ -80,9 +84,10 @@ from .metrics import MetricsAccumulator, compute_metrics
 from .ops import (BatchMatmul, Concat, Embedding, Flat, FusedEmbedInteract,
                   Linear, Op, RaggedStackedEmbedding, Reshape,
                   StackedEmbedding, Transpose)
-from .ops.embedding import lane_pack
+from .ops.embedding import lane_pack, take_rows
 from .ops.quantized import QUANT_MODES
 from .ops.row_update_kernel import row_update_cuda
+from .ops.slotting import slot_rows
 from .data.prefetch import BatchPlacer, PrefetchLoader
 from .optim import Optimizer, SGDOptimizer
 from .telemetry import active_log, sample_memory
@@ -95,16 +100,14 @@ from .tensor import Tensor, as_dtype, numpy_dtype
 EMBEDDING_OPS = (Embedding, StackedEmbedding, RaggedStackedEmbedding)
 _CCE = ("sparse_categorical_crossentropy", "sparse_crossentropy",
         "categorical_crossentropy", "crossentropy")
-_CALLBACKS = ("fit(callbacks=...) is not ported yet: keras-style callbacks "
-              "come with the optimizer, schedules and data item of "
-              "ROADMAP.md (Queue A item 7)")
 _MODES = ("auto", "on", "off")
 
 
 @dataclass
 class TrainState:
     """Parameters ``{op: {param: tensor}}``, the optimizer state (``step``,
-    ``lr`` and, under momentum, ``v``), the batch-norm state, the PRNG key
+    ``lr`` and the slot tables: ``v`` under momentum, ``m`` and ``v``
+    under Adam), the batch-norm state, the PRNG key
     and the step count, on one device: the JAX package's fields in its
     order (``model.py:76-84``), so a checkpoint holds the same leaves.
 
@@ -168,6 +171,14 @@ class FFModel:
         self.metrics: Tuple[str, ...] = ()
         self._loss_fn = None
         self._sparse_ops: List[Op] = []
+        # lazy mode (compile): the optimizer slot tables updated on touch
+        self._lazy_slots: Tuple[str, ...] = ()
+        self._lazy_mode = False
+        self._donate_state = True
+        # fit's hooks: a rate a callback scheduled for the next epoch, and
+        # the state as of the last finished epoch (ModelCheckpoint's)
+        self._pending_lr: Optional[float] = None
+        self._fit_state: Optional["TrainState"] = None
         # whether train_epoch(s) run the epoch row cache: resolved from
         # the tables' device by each epoch entry point (_resolve_cache)
         self._epoch_cache_active = False
@@ -325,12 +336,17 @@ class FFModel:
 
     def compile(self, optimizer: Optional[Optimizer] = None,
                 loss_type="mean_squared_error", metrics=("accuracy",),
-                mesh=None):
+                mesh=None, *, donate_state: bool = True):
         """Fix the optimizer (default: SGD at the config's learning rate
         and weight decay), the loss and the metrics; choose the row-sparse
         embedding ops; build the forward.  ``mesh`` may be None or False
         (one device); a mesh comes with the scale-out slice in
-        ROADMAP.md."""
+        ROADMAP.md.
+
+        ``donate_state=False`` (JAX ``compile``'s flag) keeps every input
+        state: ``train_step`` then steps a clone whatever its ``donate``,
+        and ``train_epoch(s)`` and ``fit`` train a clone of their input
+        state, taken once at entry."""
         if mesh not in (None, False):
             raise NotImplementedError(
                 "a device mesh is not ported yet: it comes with the "
@@ -374,9 +390,16 @@ class FFModel:
         opt = self.optimizer
         plain_sgd = (isinstance(opt, SGDOptimizer) and opt.momentum == 0.0
                      and opt.weight_decay == 0.0)
+        # lazy mode: momentum, weight decay or Adam keep the row-sparse
+        # path by updating the rows' slots on touch (JAX model.py:815-838)
+        self._lazy_mode = (not plain_sgd
+                           and getattr(opt, "lazy_embeddings", False))
+        self._lazy_slots = (tuple(opt.slot_names()) if self._lazy_mode
+                            else ())
+        self._donate_state = bool(donate_state)
         input_uids = {t.uid for t in self._inputs}
         sparse_ok = (self.config.sparse_embedding_updates != "off"
-                     and plain_sgd)
+                     and (plain_sgd or self._lazy_mode))
         # the bag-kernel ops (use_pallas) keep the dense gradient, as the
         # JAX package's _device_table_op leaves them out
         self._sparse_ops = [op for op in self.layers
@@ -566,9 +589,21 @@ class FFModel:
         kernels on the same device.
 
         ``slot_override`` (the epoch row cache) maps an op name to this
-        batch's cache slots: the op's "embedding" then holds its cache,
-        the rows are gathered from it by slot, and the row-sparse step
-        lands in it through the row-update kernel."""
+        batch's cache slots: the op's "embedding" (and in lazy mode each
+        of its slot tables) then holds its cache, the rows are gathered
+        from it by slot, and the row-sparse step lands in it through the
+        row-update kernel.
+
+        A model compiled with ``donate_state=False`` steps a clone even
+        when ``donate`` is True."""
+        return self._train_step(state, inputs, labels,
+                                donate and self._donate_state, slot_override)
+
+    def _train_step(self, state: TrainState, inputs, labels, donate: bool,
+                    slot_override=None):
+        """``train_step`` with ``donate`` as given: the epoch entry points
+        and ``fit`` step the state they own (a clone of the input under
+        ``donate_state=False``) through it."""
         self._require_compiled()
         if not donate:
             state = state.clone()
@@ -668,12 +703,24 @@ class FFModel:
             dgrads: Dict[str, Dict[str, torch.Tensor]] = {}
             for (op, k), g in zip(flat, grads):
                 dgrads.setdefault(op, {})[k] = g
+            lazy = self._lazy_mode and self._sparse_ops
+            if lazy:
+                # the lazy rows step at the step count and rate from
+                # before the dense update, which moves both in place (the
+                # JAX step hands lazy_update the input opt_state): copies
+                pre = {k: opt_state[k].clone() for k in ("step", "lr")
+                       if isinstance(opt_state.get(k), torch.Tensor)}
             self.optimizer.update(params, dgrads, opt_state)
             neg_lr = -opt_state.get("lr", self.optimizer.lr)
             for op, g in zip(self._sparse_ops, grads[len(flat):]):
                 table = params[op.name]["embedding"]
                 slots = slot_override.get(op.name)
-                if slots is None:
+                if lazy:
+                    ids = (op.flat_ids(inputs[op.inputs[0].name])
+                           if slots is None else slots)
+                    self._lazy_update(op, table, ids, rows[op.name].detach(),
+                                      g, opt_state, pre)
+                elif slots is None:
                     op.scatter_apply(table, inputs[op.inputs[0].name], g,
                                      neg_lr)
                 else:
@@ -686,6 +733,46 @@ class FFModel:
             dtype = functools.reduce(torch.promote_types,
                                      (v.dtype for v in mets.values()))
             return torch.stack([v.to(dtype) for v in mets.values()])
+
+    def _lazy_update(self, op, table, ids, w_rows, g_rows, opt_state, pre):
+        """The row-lazy optimizer step of one op, in place (JAX
+        ``lazy_update``, ``model.py:873-970``): ``ids`` are the rows'
+        flat ids into ``table`` (its slots when cached), ``w_rows`` the
+        rows the forward read, ``g_rows`` their gradients, ``pre`` the
+        step count and rate from before this step.
+
+        Duplicate ids' gradients are summed per row (in occurrence order,
+        through the row-update kernel: ``index_add_`` sums in an atomic
+        order), the optimizer's row math runs on every occurrence, and
+        each update lands as a delta masked to the row's first
+        occurrence, so one add reaches each row.  The ORDER is a
+        correctness contract: the slot tables are updated first and the
+        weight delta is computed from slot rows gathered again from them
+        (``optim.SGDOptimizer.lazy_weight_delta``)."""
+        d = op.out_dim
+        space = table.view(-1, d)
+        sl = ids.reshape(-1)
+        n = sl.numel()
+        dev = space.device
+        occ = slot_rows(sl, space.shape[0])[1].reshape(-1).long()
+        g_row = row_update_cuda(
+            torch.zeros((n, d), dtype=torch.float32, device=dev), occ,
+            g_rows.reshape(-1, d).float(), 1.0)[occ]
+        # each run's first occurrence: the least position of its rank
+        pos = torch.arange(n, device=dev)
+        least = torch.full_like(pos, n).scatter_reduce_(0, occ, pos, "amin")
+        first = (pos == least[occ])[:, None]
+        tabs = {sn: opt_state[sn][op.name]["embedding"].view(-1, d)
+                for sn in self._lazy_slots}
+        cur = {sn: take_rows(t, sl) for sn, t in tabs.items()}
+        w = w_rows.reshape(-1, d).float()
+        new = self.optimizer.lazy_slot_rows(w, g_row, cur, pre)
+        for sn, t in tabs.items():
+            row_update_cuda(t, sl, torch.where(first, new[sn] - cur[sn], 0.0),
+                            1.0)
+        fresh = {sn: take_rows(t, sl) for sn, t in tabs.items()}
+        delta = self.optimizer.lazy_weight_delta(w, g_row, fresh, pre)
+        row_update_cuda(space, sl, torch.where(first, delta, 0.0), 1.0)
 
     def _unpack_metrics(self, packed) -> Dict[str, torch.Tensor]:
         """The metrics dict of a packed step result: views of ``packed``
@@ -722,9 +809,12 @@ class FFModel:
         pull the touched rows in (JAX ``cache_prologue``, shared slots).
         Returns ``(state with the caches, slots, writebacks, originals)``;
         an op whose cache would not be smaller than its table stays on
-        the per-step path.  The caches are the model's buffers
+        the per-step path.  In lazy mode each slot table of a cached op
+        is cached too, with the same ``rowof`` and slots (its original
+        under ``(slot name, op)``).  The caches are the model's buffers
         (``_cache_buffer``), valid until the next prologue."""
         params = dict(state.params)
+        opt_state = state.opt_state
         slots_ep, writebacks, originals = {}, [], {}
         cache_ops = self._sparse_ops if self._epoch_cache_active else ()
         for op in cache_ops:
@@ -740,9 +830,16 @@ class FFModel:
             cache, slots, rowof = built
             originals[op.name] = tb
             params[op.name] = {"embedding": cache}
+            for sn in self._lazy_slots:
+                table = opt_state[sn][op.name]["embedding"]
+                originals[(sn, op.name)] = table
+                buf = self._cache_buffer(("epoch", sn, op.name),
+                                         rowof.numel(), like=table)
+                opt_state = _swap_slot(opt_state, sn, op.name,
+                                       cache_fetch(table, rowof, out=buf))
             slots_ep[op.name] = slots
             writebacks.append((op.name, rowof))
-        return (TrainState(params, state.opt_state, state.bn_state, state.rng,
+        return (TrainState(params, opt_state, state.bn_state, state.rng,
                            state.step), slots_ep, writebacks, originals)
 
     def _cache_buffer(self, role, rows: int, like) -> torch.Tensor:
@@ -786,34 +883,36 @@ class FFModel:
         if not meta:
             slots = arrs["slots"]
             for i in range(labels.shape[0]):
-                state, m = self.train_step(
+                state, m = self._train_step(
                     state, {k: v[i] for k, v in inputs.items()}, labels[i],
-                    slot_override={n: s[i] for n, s in slots.items()})
+                    True, {n: s[i] for n, s in slots.items()})
                 mets.append(m)
             return state
         (size, part), rest = meta[0], meta[1:]
         for k, blk in enumerate(arrs["blocks"]):
             lo, hi = k * size, (k + 1) * size
-            params = dict(state.params)
+            params, opt_state = dict(state.params), state.opt_state
             parents = {}
             for name, m in part.items():
+                rowof = blk["rowof"][name]
                 parents[name] = parent = params[name]["embedding"]
                 buf = self._cache_buffer(("block", len(meta), name), m,
                                          like=parent)
-                params[name] = {"embedding": cache_fetch(
-                    parent, blk["rowof"][name], out=buf)}
+                params[name] = {"embedding": cache_fetch(parent, rowof,
+                                                         out=buf)}
+                for sn in self._lazy_slots:
+                    sp = opt_state[sn][name]["embedding"]
+                    parents[(sn, name)] = sp
+                    buf = self._cache_buffer(("block", len(meta), sn, name),
+                                             m, like=sp)
+                    opt_state = _swap_slot(opt_state, sn, name,
+                                           cache_fetch(sp, rowof, out=buf))
             state = self.ladder_scan(
-                TrainState(params, state.opt_state, state.bn_state,
+                TrainState(params, opt_state, state.bn_state,
                            state.rng, state.step),
                 {n: v[lo:hi] for n, v in inputs.items()}, labels[lo:hi],
                 rest, blk["next"], mets)
-            params = dict(state.params)
-            for name, parent in parents.items():
-                cache_writeback(parent, blk["rowof"][name],
-                                params[name]["embedding"])
-                params[name] = {"embedding": parent}
-            state = TrainState(params, state.opt_state, state.bn_state,
-                               state.rng, state.step)
+            state = self._write_back(state, parents, blk["rowof"])
         return state
 
     def epoch_scan(self, state: TrainState, inputs, labels, slots_ep, meta,
@@ -838,12 +937,23 @@ class FFModel:
         the state."""
         if not writebacks:
             return state
-        params = dict(state.params)
-        for name, rowof in writebacks:
-            cache_writeback(originals[name], rowof,
-                            params[name]["embedding"])
-            params[name] = {"embedding": originals[name]}
-        return TrainState(params, state.opt_state, state.bn_state, state.rng,
+        return self._write_back(state, originals, dict(writebacks))
+
+    def _write_back(self, state: TrainState, parents, rowofs) -> TrainState:
+        """Set each cached op's final rows, and in lazy mode its slot
+        tables' rows, back into the ``parents`` (keyed by op name, and by
+        ``(slot name, op)``) at ``rowofs[op]``, and put the parents back
+        in the state."""
+        params, opt_state = dict(state.params), state.opt_state
+        for name, rowof in rowofs.items():
+            cache_writeback(parents[name], rowof, params[name]["embedding"])
+            params[name] = {"embedding": parents[name]}
+            for sn in self._lazy_slots:
+                parent = parents[(sn, name)]
+                cache_writeback(parent, rowof,
+                                opt_state[sn][name]["embedding"])
+                opt_state = _swap_slot(opt_state, sn, name, parent)
+        return TrainState(params, opt_state, state.bn_state, state.rng,
                           state.step)
 
     # ------------------------------------------------------------- epochs
@@ -893,6 +1003,7 @@ class FFModel:
         dispatched in chunks of ``epoch_cache_chunk`` steps
         (``_run_epoch_chunks``)."""
         self._require_compiled()
+        state = self._owned(state)
         dev = params_device(state.params)
         inputs, labels = self.place_dataset(inputs, labels, device=dev)
         log = active_log()
@@ -919,6 +1030,7 @@ class FFModel:
         else chunked epoch by epoch.  The folded metrics are stacked on a
         leading ``(epochs,)`` axis."""
         self._require_compiled()
+        state = self._owned(state)
         dev = params_device(state.params)
         inputs, labels = self.place_dataset(inputs, labels, device=dev)
         log = active_log()
@@ -942,6 +1054,11 @@ class FFModel:
                      phase="train_epochs")
             sample_memory(phase="train_epochs", log=log)
         return out
+
+    def _owned(self, state: TrainState) -> TrainState:
+        """The state an entry point may update in place: ``state`` itself,
+        or a clone of it under ``compile(donate_state=False)``."""
+        return state if self._donate_state else state.clone()
 
     def _epoch_chunk_bounds(self, nb: int):
         """``(lo, hi)`` chunk slices for a chunked epoch, or None when
@@ -1019,6 +1136,19 @@ class FFModel:
         return TrainState(state.params, opt, state.bn_state, state.rng,
                           state.step)
 
+    def schedule_learning_rate(self, lr: float):
+        """Ask for ``lr`` at the next epoch boundary of a running ``fit``
+        (the hook ``LearningRateScheduler`` calls; JAX
+        ``model.py:2304-2307``): ``fit`` applies it through
+        ``set_learning_rate`` before the epoch's first step."""
+        self._pending_lr = float(lr)
+
+    def _apply_pending_lr(self, state: TrainState) -> TrainState:
+        if self._pending_lr is not None:
+            state = self.set_learning_rate(state, self._pending_lr)
+            self._pending_lr = None
+        return state
+
     def get_perf_metrics(self) -> MetricsAccumulator:
         """Running metrics of the current or last ``fit`` epoch."""
         return self._last_metrics
@@ -1077,10 +1207,15 @@ class FFModel:
         ``resilience.loop.resilient_fit``: batch by batch, with a host
         decision point at every step; ``warmup`` is skipped there.
 
-        ``callbacks`` stands where the JAX package's ``fit`` takes it;
-        any value but None raises until callbacks are ported."""
-        if callbacks is not None:
-            raise NotImplementedError(_CALLBACKS)
+        ``callbacks``: keras-style objects (``frontends.keras_callbacks``)
+        with the JAX package's hook order (``model.py:2404-2425``):
+        ``set_model`` and ``on_train_begin``, ``on_epoch_begin(0)`` before
+        the warmup step, then the rate a callback scheduled
+        (``schedule_learning_rate``) applied through ``set_learning_rate``;
+        ``on_batch_begin``/``on_batch_end`` around every step,
+        ``on_epoch_end(epoch, logs)`` with the epoch's metric means (True
+        stops early), ``on_train_end`` last.  Callbacks force the
+        per-batch loop, as in JAX; the resilient loop takes them too."""
         epochs = epochs or self.config.epochs
         from .resilience import faultinject
         faultinject.install_from_env()
@@ -1103,15 +1238,29 @@ class FFModel:
                     "(instance or directory path)")
             return resilient_fit(
                 self, state, dataloader, epochs=epochs, verbose=verbose,
-                callbacks=None, manager=checkpoint_manager,
+                callbacks=callbacks, manager=checkpoint_manager,
                 every_n_steps=checkpoint_every_n_steps,
                 every_n_epochs=checkpoint_every_n_epochs, resume=resume,
                 sentinel=sentinel, show_throughput=show_throughput)
         self._require_compiled()
+        state = self._owned(state)
         acc = MetricsAccumulator(self.metrics)
         self._last_metrics = acc
+        self._pending_lr = None
+        self._fit_state = state
+        cbs = list(callbacks or [])
+        for cb in cbs:
+            if getattr(cb, "model", None) is None:
+                cb.set_model(self)
+            cb.on_train_begin()
+        if epochs > 0:
+            # a scheduled epoch-0 rate governs the warmup step too
+            for cb in cbs:
+                cb.on_epoch_begin(0)
+            state = self._apply_pending_lr(state)
         dev = params_device(state.params)
-        scan_data = self._stage_scan_dataset(dataloader, dev)
+        scan_data = (None if cbs
+                     else self._stage_scan_dataset(dataloader, dev))
         self._last_fit_used_scan = scan_data is not None
         depth = int(getattr(self.config, "prefetch_depth", 0) or 0)
         own_prefetch = None
@@ -1124,14 +1273,26 @@ class FFModel:
                                           snapshot=False)
             dataloader = own_prefetch
         try:
-            return self._fit(state, dataloader, epochs, verbose, warmup,
-                             show_throughput, acc, dev, scan_data)
+            state, thpt = self._fit(state, dataloader, epochs, verbose,
+                                    warmup, show_throughput, acc, dev,
+                                    scan_data, cbs)
         finally:
             if own_prefetch is not None:
                 own_prefetch.close()
+        # the trained state stays reachable if a callback raises
+        self._fit_state = state
+        err = None
+        for cb in cbs:
+            try:
+                cb.on_train_end()
+            except Exception as e:  # run every hook, re-raise the first
+                err = err or e
+        if err is not None:
+            raise err
+        return state, thpt
 
     def _fit(self, state, dataloader, epochs, verbose, warmup,
-             show_throughput, acc, dev, scan_data):
+             show_throughput, acc, dev, scan_data, cbs):
         """``fit``'s staged and per-batch loops, after its routing."""
         if warmup:
             if dev.type == "cuda":
@@ -1139,7 +1300,7 @@ class FFModel:
                 # the cache's writebacks) must not build in the timed window
                 _cuda.build()
             first = dataloader.peek()
-            state, _ = self.train_step(state, first[0], first[1])
+            state, _ = self._train_step(state, first[0], first[1], True)
             _synchronize(dev)
 
         def report(epoch, mets):
@@ -1163,6 +1324,7 @@ class FFModel:
         stall_s = 0.0             # host wall waiting on the dataloader
         dispatch_s = 0.0          # host wall issuing the steps
         last_loss = None          # the final epoch's loss (step event)
+        epochs_run = int(epochs)  # an early stop shortens the epoch loop
         fused = False
         if scan_data is not None:
             self._resolve_cache(dev)
@@ -1179,9 +1341,14 @@ class FFModel:
             last_loss = stacked["loss"][-1] if "loss" in stacked else None
             for epoch in range(epochs):
                 report(epoch, {k: v[epoch] for k, v in stacked.items()})
+            self._fit_state = state
         for epoch in range(epochs) if not fused else ():
             ep_span = start_span("train.epoch", parent=fit_span,
                                  attrs={"epoch": epoch})
+            if epoch > 0:
+                for cb in cbs:
+                    cb.on_epoch_begin(epoch)
+                state = self._apply_pending_lr(state)
             if scan_data is not None:
                 dspan = start_span("train.dispatch", parent=ep_span,
                                    attrs={"epoch": epoch})
@@ -1206,13 +1373,16 @@ class FFModel:
                     stall_s += bstall
                     it += 1
                     _rowfreq.observe_batch(inputs)
+                    for cb in cbs:
+                        cb.on_batch_begin(it)
                     # the null ep_span (no event log at the epoch's
                     # start) keeps the step free of span work
                     dspan = (start_span("train.dispatch", parent=ep_span,
                                         attrs={"epoch": epoch, "it": it})
                              if ep_span else NULL_SPAN)
                     td = time.perf_counter()
-                    state, mets = self.train_step(state, inputs, labels)
+                    state, mets = self._train_step(state, inputs, labels,
+                                                   True)
                     dwall = time.perf_counter() - td
                     dispatch_s += dwall
                     dspan.end()
@@ -1232,9 +1402,21 @@ class FFModel:
                     acc.update({k: v for k, v in mets.items()
                                 if k != "loss"})
                     last_loss = mets.get("loss", last_loss)
+                    for cb in cbs:
+                        cb.on_batch_end(it)
                 if verbose:
                     print(f"epoch {epoch}: {acc.report()}")
+            self._fit_state = state
+            logs = acc.finalized_means() if cbs else None
+            stop = False
+            for cb in cbs:
+                if cb.on_epoch_end(epoch, logs) is True:
+                    stop = True
             ep_span.end()
+            if stop:
+                print(f"Accuracy reached, early stop, epoch: {epoch}")
+                epochs_run = epoch + 1
+                break
         tf = time.perf_counter()
         _synchronize(dev)
         fence_s = time.perf_counter() - tf
@@ -1242,8 +1424,8 @@ class FFModel:
         thpt = samples / max(elapsed, 1e-9)
         fit_span.set_attr("samples", int(samples))
         fit_span.end()
-        self._fit_telemetry(scan_data is None, dataloader, epochs, elapsed,
-                            thpt, samples, acc, last_loss, stall_s,
+        self._fit_telemetry(scan_data is None, dataloader, epochs_run,
+                            elapsed, thpt, samples, acc, last_loss, stall_s,
                             dispatch_s, fence_s, pstep)
         if verbose and show_throughput:
             print(f"ELAPSED TIME = {elapsed:.4f}s, "
@@ -1287,6 +1469,12 @@ class FFModel:
             _tmetrics.EXPOSED_COMM_PCT.set(exposed)
         _rowfreq.emit_all(log)
         sample_memory(phase="fit", log=log)
+
+
+def _swap_slot(opt_state, sn: str, name: str, table):
+    """``opt_state`` with slot ``sn``'s table of op ``name`` replaced by
+    ``table``: new dicts, the input left as it was."""
+    return {**opt_state, sn: {**opt_state[sn], name: {"embedding": table}}}
 
 
 def _stack(mets):

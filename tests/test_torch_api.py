@@ -140,15 +140,40 @@ def test_train_step_donate_false_keeps_the_input_state(interact, fused,
 def test_fit_takes_callbacks_fifth_and_refuses_them_until_ported():
     """``fit(state, loader, epochs, verbose, callbacks)`` as in the JAX
     package: a fifth positional argument is ``callbacks``, not
-    ``warmup``, and any callbacks raise until they are ported."""
+    ``warmup``.  Callbacks are ported now, so ``fit`` runs them: every
+    hook, in the JAX order, on the per-batch loop."""
+    from dlrm_flexflow_tpu_torch.frontends.keras_callbacks import Callback
     params = list(inspect.signature(fft.FFModel.fit).parameters)
     assert params[5] == "callbacks"
     model = _model("cat", "off", "auto")
     state = model.init(seed=0, device="cpu")
     inputs, labels = _batch(3)
     loader = fft.ArrayDataLoader(inputs, labels, BATCH)
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        model.fit(state, loader, 1, False, [object()])
+
+    class Hooks(Callback):
+        calls = []
+
+        def on_train_begin(self, logs=None):
+            self.calls.append("train_begin")
+
+        def on_epoch_begin(self, epoch, logs=None):
+            self.calls.append(f"epoch_begin {epoch}")
+
+        def on_batch_end(self, batch, logs=None):
+            self.calls.append(f"batch_end {batch}")
+
+        def on_epoch_end(self, epoch, logs=None):
+            self.calls.append(f"epoch_end {epoch}")
+
+        def on_train_end(self, logs=None):
+            self.calls.append("train_end")
+
+    hooks = Hooks()
+    state, thpt = model.fit(state, loader, 1, False, [hooks])
+    assert hooks.model is model and thpt > 0
+    assert hooks.calls == ["train_begin", "epoch_begin 0", "batch_end 0",
+                           "epoch_end 0", "train_end"]
+    assert not model._last_fit_used_scan
     _, thpt = model.fit(state, loader, 1, False, None)
     assert thpt > 0
 

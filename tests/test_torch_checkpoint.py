@@ -2,12 +2,13 @@
 the JAX package's on the CPU, at the JAX tests' small sizes
 (tests/test_checkpoint.py).  JAX is imported here only.
 
-The JAX checkpoint tests build with ``AdamOptimizer``, which the port
-lacks until ROADMAP.md Queue A item 7; their counterparts here use SGD.
-The cross-package cases run two models: the dense MLP of
-tests/test_resilience.py and a small DLRM with embeddings (bag 1, ``cat``,
-stacked tables) whose steps take the row update's plain version.  Both
-packages write ``use_orbax=False``: the card's machine has no orbax.
+The JAX checkpoint tests build with ``AdamOptimizer``; most of their
+counterparts here use SGD, and the Adam cases (dense and row-lazy) carry
+Adam's ``m`` and ``v`` across both ways and through a killed and resumed
+lazy-Adam ``fit``.  The cross-package cases run two models: the dense MLP
+of tests/test_resilience.py and a small DLRM with embeddings (bag 1,
+``cat``, stacked tables) whose steps take the row update's plain version.
+Both packages write ``use_orbax=False``: the card's machine has no orbax.
 
 Every comparison is exact (``assert_array_equal``, bit patterns for
 bf16): a checkpoint moves data, it computes nothing.
@@ -66,18 +67,21 @@ def _dlrm_kwargs():
                 arch_interaction_op="cat")
 
 
-def _dlrm(pkg, dtype="float32", lr=0.05):
+def _dlrm(pkg, dtype="float32", lr=0.05, adam=None):
+    """The small DLRM under SGD, or under Adam (``adam`` "dense" or
+    "lazy": ``lazy_embeddings``)."""
+    opt = (pkg.SGDOptimizer(lr=lr) if adam is None else
+           pkg.AdamOptimizer(lr=lr, lazy_embeddings=adam == "lazy"))
     if pkg is ffj:
         m = jax_build_dlrm(JaxDLRMConfig(**_dlrm_kwargs()),
                            JaxFFConfig(batch_size=BATCH,
                                        embedding_dtype=dtype))
-        m.compile(optimizer=ffj.SGDOptimizer(lr=lr),
-                  loss_type="mean_squared_error", metrics=(), mesh=False)
+        m.compile(optimizer=opt, loss_type="mean_squared_error", metrics=(),
+                  mesh=False)
     else:
         m = build_dlrm(DLRMConfig(**_dlrm_kwargs()),
                        fft.FFConfig(batch_size=BATCH, embedding_dtype=dtype))
-        m.compile(optimizer=fft.SGDOptimizer(lr=lr),
-                  loss_type="mean_squared_error", metrics=())
+        m.compile(optimizer=opt, loss_type="mean_squared_error", metrics=())
     return m
 
 
@@ -452,3 +456,82 @@ def test_train_state_carries_jax_fields_and_an_untouched_key():
     assert kept.rng is not st2.rng and torch.equal(kept.rng, key)
     c = st2.clone()
     assert c.rng is not st2.rng and torch.equal(c.rng, st2.rng)
+
+
+# ------------------------------------------------------------ Adam
+@pytest.mark.parametrize("adam", ["dense", "lazy"])
+def test_adam_npz_checkpoint_crosses_both_ways_bit_for_bit(tmp_path, adam):
+    """A JAX Adam state after one step (dense Adam, or lazy Adam's row
+    moments) restores in the port with ``m`` and ``v`` bit for bit; the
+    port saves it back as the same npz bytes and meta.json, which the JAX
+    package restores bit for bit; and the port steps the restored state
+    as it steps the bridged one."""
+    jm, pm = _dlrm(ffj, adam=adam), _dlrm(fft, adam=adam)
+    js = _jax_trained(jm, _dlrm_batch)
+    assert set(js.opt_state) == {"step", "lr", "m", "v"}
+    jp = jckpt.save_checkpoint(str(tmp_path / "j"), js, use_orbax=False,
+                               model=jm)
+    pm.init(seed=0, device="cpu")
+    ps = restore_checkpoint(jp, pm)
+    _assert_states_bits(ps, js)
+    assert ps.opt_state["m"]["emb"]["embedding"].dtype == torch.float32
+    assert bool(ps.opt_state["v"]["emb"]["embedding"].any())
+    pp = save_checkpoint(str(tmp_path / "p"), ps, model=pm)
+    a = np.load(os.path.join(jp, "state.npz"))
+    b = np.load(os.path.join(pp, "state.npz"))
+    assert a.files == b.files and "opt_state/m/emb/embedding" in a.files
+    for k in a.files:
+        assert a[k].dtype == b[k].dtype and a[k].tobytes() == b[k].tobytes()
+    assert open(os.path.join(jp, "meta.json"), "rb").read() == \
+        open(os.path.join(pp, "meta.json"), "rb").read()
+    _assert_states_bits(ps, jckpt.restore_checkpoint(pp, jm))
+    ref = state_from_jax(jax.tree.map(np.asarray, js))
+    _, x = pm.train_step(ps, *_dlrm_batch(2))
+    _, y = pm.train_step(ref, *_dlrm_batch(2))
+    assert float(x["loss"]) == float(y["loss"])
+
+
+def test_lazy_adam_fit_killed_and_resumed_equals_uninterrupted(tmp_path):
+    """A lazy-Adam ``fit`` over 2 epochs x 8 shuffled batches, saving
+    every 4 steps, killed at step 10 and resumed from its step-8
+    checkpoint, equals the same run uninterrupted bit for bit: the loss
+    of every step, the parameters and both moment tables."""
+    from dlrm_flexflow_tpu_torch.data.loader import (ArrayDataLoader,
+                                                     SyntheticDLRMLoader)
+    from dlrm_flexflow_tpu_torch.resilience import (CheckpointManager,
+                                                    Preemption, faultinject)
+
+    def loader():
+        base = SyntheticDLRMLoader(8 * BATCH, 13, TABLES, 1, BATCH, seed=3)
+        return ArrayDataLoader(base.inputs, base.labels, BATCH, shuffle=True,
+                               seed=2)
+
+    def run(root, **kw):
+        m = _dlrm(fft, adam="lazy")
+        assert [op.name for op in m._sparse_ops] == ["emb"]
+        st, _ = m.fit(m.init(seed=0, device="cpu"), loader(), epochs=2,
+                      verbose=False, checkpoint_every_n_steps=4,
+                      checkpoint_manager=CheckpointManager(
+                          str(tmp_path / root), use_orbax=False), **kw)
+        return m, st
+
+    faultinject.clear()
+    faultinject.install("preempt@step=10")
+    try:
+        with pytest.raises(Preemption):
+            run("ck")
+    finally:
+        faultinject.clear()
+    resumed, rs = run("ck", resume=True)
+    twin, ts = run("twin")
+    assert resumed._fit_loss_steps[0] == 9  # the step-8 checkpoint + 1
+    ref = dict(zip(twin._fit_loss_steps.tolist(),
+                   twin._fit_loss_trace.tolist()))
+    assert len(ref) == 16
+    for step, loss in zip(resumed._fit_loss_steps.tolist(),
+                          resumed._fit_loss_trace.tolist()):
+        assert ref[step] == loss
+    for a, b in zip(jax.tree_util.tree_leaves((rs.params, rs.opt_state)),
+                    jax.tree_util.tree_leaves((ts.params, ts.opt_state))):
+        assert torch.equal(a, b)
+    assert int(rs.step) == int(ts.step) == 16
