@@ -137,7 +137,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
      a 3-epoch per-batch fit under LearningRateScheduler: the state's
      rate each epoch is the schedule's, graphed bit for bit eager.  The
      graphed step walls of SGD, lazy momentum and lazy Adam, the staged
-     fits' samples/s and the slot tables' bytes are information.
+     fits' samples/s and the slot tables' bytes are information;
+ 22. the SOAP core, on (i)'s classic graph and on the fused graph (8 f32
+     tables of 1M x 64, bf16 compute, B = 256): (a) CostModel(
+     H100MachineModel(), measure=True) times every op on the card (one
+     line per op: measured and analytic forward and backward, their
+     ratio; a fallback to the analytic estimate fails the phase), the
+     embedding ops' backward through B2, the fused op's forward through
+     B3; (b) Simulator(model, 1) of the data-parallel strategy against
+     the measured step (phase 8 (i)'s train_epoch wall for the classic
+     graph, phase 22's replayed steps for the fused one), and calibrate's
+     scale (information); (c) mcmc_search at 4 and 8 simulated devices,
+     budget 500, seed 0, Python and native, each best no slower than
+     data-parallel, with its wall; (d) the 8-device best saved as .json
+     and .pb and loaded back equal, compile(strategy=) on the card, 8
+     graphed steps bit for bit against the same 8 steps without a
+     strategy.
 Profile lines carry the graph replays in their window, the graph pool's
 bytes and the host's launches per dispatch or step.
 The line before the last is the kernels' JSON record; the last line is
@@ -159,6 +174,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+import warnings
 from types import SimpleNamespace
 
 import numpy as np
@@ -191,6 +207,7 @@ from dlrm_flexflow_tpu_torch.ops.row_update_kernel import (
     launch_row_update, prepare_row_update_cuda, prepare_row_update_ref,
     row_update_cuda, row_update_ref)
 from dlrm_flexflow_tpu_torch.ops.slotting import slot_rows
+from dlrm_flexflow_tpu_torch.parallel import Strategy
 from dlrm_flexflow_tpu_torch.resilience import (CheckpointManager,
                                                 NaNSentinel, Preemption,
                                                 faultinject,
@@ -198,6 +215,9 @@ from dlrm_flexflow_tpu_torch.resilience import (CheckpointManager,
 from dlrm_flexflow_tpu_torch.ops import kernel_costs
 from dlrm_flexflow_tpu_torch.serving import (DynamicBatcher, InferenceEngine,
                                              ReplicaRouter)
+from dlrm_flexflow_tpu_torch.sim import (CostModel, H100MachineModel,
+                                         Simulator, mcmc_search)
+from dlrm_flexflow_tpu_torch.sim.search import data_parallel_strategy
 from dlrm_flexflow_tpu_torch.storage import (TieredEmbeddingTable,
                                              load_tiered, predicted_hit_rate,
                                              save_tiered)
@@ -1163,10 +1183,10 @@ def _plain(module, name, fn):
 
 
 def _train_model(fused, compute_dtype, sparse="auto", interact="cat",
-                 optimizer=None, **config):
+                 optimizer=None, strategy=None, **config):
     """The run_random.sh model, or with ``interact="dot"`` its dot form
     (top MLP 145-1024-1024-1024-1), under SGD at lr 0.01 unless an
-    ``optimizer`` is given."""
+    ``optimizer`` is given, compiled with ``strategy`` when given."""
     top0 = interact_width(interact, TABLES, DIM, BOT)
     cfg = DLRMConfig(embedding_size=[ROWS] * TABLES,
                      fused_interaction="on" if fused else "off",
@@ -1177,7 +1197,7 @@ def _train_model(fused, compute_dtype, sparse="auto", interact="cat",
     model = build_dlrm(cfg, ffc).compile(
         optimizer=optimizer or SGDOptimizer(lr=0.01),
         loss_type="mean_squared_error",
-        metrics=("accuracy", "mean_squared_error"))
+        metrics=("accuracy", "mean_squared_error"), strategy=strategy)
     state = model.init(seed=0)
     torch.cuda.synchronize()
     return model, state
@@ -3486,6 +3506,173 @@ def lazy_phase(inputs, labels, headline_ms):
     return row, counts
 
 
+# -------------------------------------------------------------- phase 22
+#: phase 22's searches: simulated devices, MCMC budget and seed
+SOAP_DEVICES = (4, 8)
+SOAP_BUDGET = 500
+#: the cost model's loud fallbacks, made errors inside phase 22
+SOAP_FALLBACKS = "(measured cost for|cost-model measurement budget)"
+
+
+def _soap_costs(graph, model, cm):
+    """Each op's measured (forward, backward) at one part beside the
+    analytic H100 estimate; one line per op.  Returns the rows."""
+    analytic = CostModel(machine=H100MachineModel())
+    rows = []
+    for op in model.layers:
+        f, b = cm.op_times(op, 1)
+        af, ab = analytic.op_times(op, 1)
+        row = {"phase": "soap_op", "graph": graph, "op": op.name,
+               "type": type(op).__name__, "fwd_us": f * 1e6,
+               "bwd_us": b * 1e6, "fwd_analytic_us": af * 1e6,
+               "bwd_analytic_us": ab * 1e6, "fwd_measured_over_analytic":
+               f / af, "bwd_measured_over_analytic": b / ab}
+        log(row)
+        if not (np.isfinite([f, b]).all() and f > 0 and b > 0):
+            raise AssertionError(f"op cost not finite and positive: {row}")
+        rows.append(row)
+    return rows
+
+
+def _soap_searches(graph, model, cm):
+    """mcmc_search at 4 and 8 simulated devices on the measured costs,
+    both backends; each best no slower than data-parallel (both priced
+    by the Python simulator).  Returns ({(n, backend): best}, rows)."""
+    best, rows = {}, []
+    for n in SOAP_DEVICES:
+        sim = Simulator(model, n, cost_model=cm)
+        dp_s = sim.simulate(data_parallel_strategy(model, n))
+        for backend in ("python", "native"):
+            t0 = time.perf_counter()
+            s = mcmc_search(model, n, budget=SOAP_BUDGET, seed=0,
+                            simulator=sim, backend=backend)
+            wall = time.perf_counter() - t0
+            best_s = sim.simulate(s)
+            row = {"phase": "soap_search", "graph": graph, "devices": n,
+                   "backend": backend, "budget": SOAP_BUDGET, "seed": 0,
+                   "search_wall_s": wall, "best_ms": best_s * 1e3,
+                   "chain_best_ms": s.best_simulated_time * 1e3,
+                   "data_parallel_ms": dp_s * 1e3,
+                   "speedup_over_data_parallel": dp_s / best_s}
+            log(row)
+            if not best_s <= dp_s:
+                raise AssertionError(f"search slower than data-parallel: "
+                                     f"{row}")
+            best[n, backend] = s
+            rows.append(row)
+    return best, rows
+
+
+def _configs(strategy):
+    return {k: (tuple(v.dims), v.device_type, v.device_ids)
+            for k, v in strategy.configs.items()}
+
+
+def _strategied_steps(fused, strategy, inputs, labels, steps=8):
+    """``steps`` donated (graphed) steps of the headline model compiled
+    with ``strategy`` and without one (the first eager, then one capture
+    and replays): (bit for bit, the wall of steps 3 to ``steps`` in ms a
+    step each way, the graph counts with the strategy)."""
+    walls, states, graphs = {}, {}, None
+    for name, s in (("strategy", strategy), ("none", None)):
+        model, state = _train_model(fused, "bfloat16", strategy=s,
+                                    epoch_row_cache="off")
+        if s is not None and not all(op.parallel_config is s[op.name]
+                                     for op in model.layers):
+            raise AssertionError("compile(strategy=) did not set the ops' "
+                                 "configs")
+        graphs0 = _graph_counts(model)
+        for i in range(steps):
+            if i == 2:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            state, _ = model.train_step(
+                state, {k: v[i] for k, v in inputs.items()}, labels[i])
+        torch.cuda.synchronize()
+        walls[name] = (time.perf_counter() - t0) * 1e3 / (steps - 2)
+        if s is not None:
+            graphs = {k: v - graphs0[k]
+                      for k, v in _graph_counts(model).items()}
+        states[name] = state
+        del model
+    same = _same_state(states["strategy"], states["none"])
+    del states
+    _free()
+    return same, walls, graphs
+
+
+def soap_phase(inputs, labels, headline_ms):
+    """Phase 22, the SOAP core on the card.  Returns (row, launches)."""
+    reset_counts()
+    rows = {}
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=SOAP_FALLBACKS,
+                                category=RuntimeWarning)
+        for graph, fused in (("classic", False), ("fused", True)):
+            cfg = DLRMConfig(embedding_size=[ROWS] * TABLES,
+                             fused_interaction="on" if fused else "off",
+                             mlp_top=[interact_width("cat", TABLES, DIM,
+                                                     BOT), 1024, 1024,
+                                      1024, 1])
+            model = build_dlrm(cfg, FFConfig(batch_size=BATCH,
+                                             compute_dtype="bfloat16"))
+            cm = CostModel(machine=H100MachineModel(), measure=True)
+            ops = _soap_costs(graph, model, cm)
+            sim1 = Simulator(model, 1, cost_model=cm)
+            dp1 = data_parallel_strategy(model, 1)
+            sim_ms = sim1.simulate(dp1) * 1e3
+            best, searches = _soap_searches(graph, model, cm)
+            torch.cuda.synchronize()
+            measured = {"measure_wall_s": cm._measure_spent,
+                        "keys_measured": len(cm._cache)}
+            # the strategy round trip: .json and .pb load back equal
+            strategy = best[8, "python"]
+            loaded = {}
+            with tempfile.TemporaryDirectory(
+                    prefix=".soap-",
+                    dir=os.path.dirname(os.path.abspath(__file__))) as tmp:
+                for ext in (".json", ".pb"):
+                    path = os.path.join(tmp, f"best{ext}")
+                    strategy.save(path)
+                    loaded[ext] = Strategy.load(path)
+            round_trip = (_configs(loaded[".json"]) == _configs(
+                loaded[".pb"]) == _configs(strategy))
+            same, walls, graphs = _strategied_steps(
+                fused, loaded[".pb"], inputs, labels)
+            step_ms = headline_ms if graph == "classic" else walls["none"]
+            scale = sim1.calibrate(dp1, step_ms / 1e3)
+            row = {"phase": "soap", "graph": graph, "ops": len(ops),
+                   "simulated_step_ms": sim_ms,
+                   "measured_step_ms": step_ms,
+                   "measured_step_from": ("phase 8 (i), train_epoch"
+                                          if graph == "classic" else
+                                          "phase 22, train_step replays"),
+                   "simulated_over_measured": sim_ms / step_ms,
+                   "calibrate_scale": scale,
+                   "replayed_step_ms_phase_22": walls,
+                   "strategy_round_trip_equal": round_trip,
+                   "strategy_ops": len(strategy.configs),
+                   "strategied_8_steps_bit_identical": same,
+                   "strategied_graphs": graphs,
+                   "search_wall_s": {f"{r['devices']}/{r['backend']}":
+                                     r["search_wall_s"] for r in searches},
+                   **measured}
+            log(row)
+            if not (np.isfinite([sim_ms, scale]).all() and sim_ms > 0
+                    and scale > 0 and round_trip and same
+                    and graphs["captures"] == 1
+                    and graphs["replays"] in (6, 7)):
+                raise AssertionError(f"SOAP phase, {graph} graph: {row}")
+            rows[graph] = row
+            del model, cm, best
+            _free()
+    counts = read_counts()
+    log({"phase": "soap_launches", "launches": counts})
+    if counts["row_update"] == 0 or counts["fused_interact_fwd"] == 0:
+        raise AssertionError(f"phase 22 launched B2 or B3 no time: {counts}")
+    return rows, counts
+
+
 def _entry(name, launches, err, timing):
     source, replaces, _ = KERNELS[name]
     return {"name": name, "route": "cuda", "source": source,
@@ -3572,9 +3759,12 @@ def main() -> int:
     # phase 21: momentum and Adam on the row-lazy path (B2, B5), and dense
     # Adam, at full width
     lazy, lazy_counts = lazy_phase(inputs, labels, headline["step_wall_ms"])
+    # phase 22: the SOAP core on measured costs (B2, B3), the searches,
+    # the strategy round trip and compile(strategy=) on the card
+    soap, soap_counts = soap_phase(inputs, labels, headline["step_wall_ms"])
     path_counts = (headline_counts, sparse_counts, dense_counts, dot_counts,
                    staged_counts, bag_counts, bf16_counts, bag16_counts,
-                   durable_counts, tiered_counts, lazy_counts)
+                   durable_counts, tiered_counts, lazy_counts, soap_counts)
     row_launches = sum(c["row_update"] for c in path_counts)
     prep_launches = sum(c["row_update_prep"] for c in path_counts)
     if prep_launches != row_launches:
@@ -3605,12 +3795,14 @@ def main() -> int:
              "stall_us_median", "stall_us_p99")},
          "lazy_graphed_step_wall_ms": lazy["graphed_step_wall_ms"],
          "lazy_staged_fit_samples_per_s": lazy["staged_fit_samples_per_s"],
+         "soap_simulated_over_measured": {
+             g: r["simulated_over_measured"] for g, r in soap.items()},
          "note": "walls include each path's eager step and capture"})
     log({"kernels": [
         _entry("fused_interact_fwd",
                serve_launches + sum(c["fused_interact_fwd"]
                                     for c in (dense_counts, dot_counts,
-                                              tiered_counts)),
+                                              tiered_counts, soap_counts)),
                max(fwd_err, path_err), fwd_time),
         _entry("fused_interact_bwd",
                sum(c["fused_interact_bwd"] for c in (dense_counts,

@@ -216,7 +216,11 @@ def run(argv: Sequence[str] = ()) -> float:
     ``--serve-quantize`` is the model config's default for an
     ``InferenceEngine`` built on it; ``--metrics-port`` starts the
     ``/metrics`` endpoint at ``compile``; ``--profiling`` prints each op's
-    forward and backward times after training."""
+    forward and backward times after training.  The SOAP flags reach
+    ``compile`` through the config, as in the JAX CLI: ``--import FILE``
+    loads a strategy, ``--budget N`` (``--alpha``, ``--overlap``,
+    ``-d``/``--devices``) searches one at compile and ``--export FILE``
+    writes it; on one card a strategy changes no value."""
     ffconfig = FFConfig.parse_args(argv)
     cfg = DLRMConfig.parse_args(argv)
     if cfg.dataset:

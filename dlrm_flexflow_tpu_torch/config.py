@@ -7,17 +7,20 @@ staged epoch and its row cache included), the durability slice
 (``serve_storage``, ``storage_hot_rows``) read.
 The other fields arrive with the slices that read them.
 
+The SOAP fields (``num_devices``, ``search_*`` and the strategy files)
+are the JAX package's, read by ``FFModel.compile`` and the search.
+
 Only ``epochs`` and ``batch_size`` are positional, in the JAX order.
 Every later field is keyword-only: the port lacks some of the JAX
-fields in between (``iterations``, ``num_devices``, ``mesh_shape``, the
-``search_*`` fields), so a positional call written for the JAX class
-would bind its values to other fields here; it raises instead.
+fields in between (``iterations``, ``mesh_shape``), so a positional call
+written for the JAX class would bind its values to other fields here; it
+raises instead.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence
 
 #: the table storage dtypes ``embedding_dtype`` takes
 EMBEDDING_DTYPES = ("float32", "bfloat16")
@@ -28,6 +31,17 @@ class FFConfig:
     epochs: int = 1
     batch_size: int = 64
     _: dataclasses.KW_ONLY
+    # SOAP: the device count the search and the strategy target (None:
+    # every visible CUDA card, resolved_num_devices), the MCMC budget and
+    # temperature (search_budget > 0 searches at compile), the simulated
+    # weight sync overlapped with backward, and the strategy files
+    # imported at compile or exported after a search (.json or .pb)
+    num_devices: Optional[int] = None
+    search_budget: int = 0
+    search_alpha: float = 0.05
+    search_overlap_backward_update: bool = False
+    import_strategy_file: Optional[str] = None
+    export_strategy_file: Optional[str] = None
     learning_rate: float = 0.01
     weight_decay: float = 0.0001
     # per-op matmul precision: "bfloat16" = bf16 operands, f32 accumulation
@@ -139,8 +153,15 @@ class FFConfig:
             ("--metrics-port",): ("metrics_port", int),
             ("--prefetch",): ("prefetch_depth", int),
             ("--faults",): ("faults", str),
+            ("--budget", "--search-budget"): ("search_budget", int),
+            ("--alpha", "--search-alpha"): ("search_alpha", float),
+            ("--import",): ("import_strategy_file", str),
+            ("--export",): ("export_strategy_file", str),
+            # the reference's -ll:gpu N: N workers; here the device count
+            ("-d", "--devices", "-ll:gpu"): ("num_devices", int),
         }
-        switches = {"--profiling": "profiling"}
+        switches = {"--profiling": "profiling",
+                    "--overlap": "search_overlap_backward_update"}
         by_flag = {f: v for names, v in flags.items() for f in names}
         argv = list(argv)
         i = 0
@@ -154,3 +175,13 @@ class FFConfig:
                 i += 1
             i += 1
         return cfg
+
+    def resolved_num_devices(self) -> int:
+        """``num_devices``, else the CUDA cards visible, else 1."""
+        if self.num_devices is not None:
+            return self.num_devices
+        import torch
+
+        if torch.cuda.is_available():
+            return torch.cuda.device_count()
+        return 1

@@ -90,6 +90,7 @@ from .ops.row_update_kernel import row_update_cuda
 from .ops.slotting import slot_rows
 from .data.prefetch import BatchPlacer, PrefetchLoader
 from .optim import Optimizer, SGDOptimizer
+from .parallel.parallel_config import Strategy
 from .telemetry import active_log, sample_memory
 from .telemetry import metrics as _tmetrics
 from .telemetry import rowfreq as _rowfreq
@@ -159,6 +160,9 @@ class FFModel:
 
     def __init__(self, config: Optional[FFConfig] = None):
         self.config = config or FFConfig()
+        # the SOAP strategy, op name -> ParallelConfig (compile sets it;
+        # empty means data-parallel everywhere)
+        self.strategy = Strategy()
         self.layers: List[Op] = []
         self._inputs: List[Tensor] = []
         self._name_counts: Dict[str, int] = {}
@@ -336,12 +340,23 @@ class FFModel:
 
     def compile(self, optimizer: Optional[Optimizer] = None,
                 loss_type="mean_squared_error", metrics=("accuracy",),
-                mesh=None, *, donate_state: bool = True):
+                mesh=None, strategy: Optional[Strategy] = None, *,
+                donate_state: bool = True):
         """Fix the optimizer (default: SGD at the config's learning rate
         and weight decay), the loss and the metrics; choose the row-sparse
         embedding ops; build the forward.  ``mesh`` may be None or False
         (one device); a mesh comes with the scale-out slice in
         ROADMAP.md.
+
+        ``strategy`` (a :class:`Strategy`) becomes ``self.strategy``; as
+        in the JAX package, ``FFConfig.import_strategy_file`` replaces it,
+        and ``search_budget > 0`` with no strategy runs ``mcmc_search``
+        over ``resolved_num_devices()`` devices (exported to
+        ``export_strategy_file`` when set).  Each op named in the
+        strategy gets its ``parallel_config``.  On one device, without a
+        mesh, a strategy changes no value: the model computes as it
+        would without one.  A ``"cpu"`` placement (tables in host memory)
+        raises: it comes with ``ops/hetero.py`` (ROADMAP.md item 9).
 
         ``donate_state=False`` (JAX ``compile``'s flag) keeps every input
         state: ``train_step`` then steps a clone whatever its ``donate``,
@@ -351,6 +366,7 @@ class FFModel:
             raise NotImplementedError(
                 "a device mesh is not ported yet: it comes with the "
                 "scale-out slice in ROADMAP.md")
+        self._resolve_strategy(strategy)
         act = getattr(self.config, "activation_dtype", "float32")
         if act != "float32":
             raise NotImplementedError(
@@ -416,6 +432,34 @@ class FFModel:
         self._step_graphs.clear()
         self._step_seen.clear()
         return self
+
+    def _resolve_strategy(self, strategy: Optional[Strategy]) -> None:
+        """``compile``'s strategy: the argument, the imported file, or a
+        search at compile (reference model.cc:1010-1016, the
+        STRATEGY_SEARCH task and ``FFModel::optimize``), then each op's
+        ``parallel_config``."""
+        if strategy is not None:
+            self.strategy = strategy
+        if self.config.import_strategy_file:
+            self.strategy = Strategy.load(self.config.import_strategy_file)
+        elif self.config.search_budget > 0 and not self.strategy.configs:
+            from .sim.search import mcmc_search
+            n = self.config.resolved_num_devices()
+            self.strategy = mcmc_search(
+                self, n, budget=self.config.search_budget,
+                alpha=self.config.search_alpha, verbose=True)
+            if self.config.export_strategy_file:
+                self.strategy.save(self.config.export_strategy_file)
+        for op in self.layers:
+            pc = self.strategy.configs.get(op.name)
+            if pc is not None and pc.device_type == "cpu":
+                raise NotImplementedError(
+                    f"{op.name}: a 'cpu' placement (the table in host "
+                    "memory, updated on the host) comes with "
+                    "ops/hetero.py, ROADMAP.md item 9")
+        for op in self.layers:
+            if op.name in self.strategy:
+                op.parallel_config = self.strategy[op.name]
 
     # ------------------------------------------------------------ parameters
     def _place_opt_state(self, opt_state, dev):

@@ -5,6 +5,11 @@ it declares its parameters (``ParameterSpec``) and computes ``forward``
 as a plain function of a parameter dictionary and input tensors;
 autograd differentiates it, except where an op brings its own backward
 (``ops/fused_interact.py``).
+
+Each op carries a ``parallel_config`` (``parallel/``), set from the
+model's strategy at ``compile``, and the geometry the simulator reads:
+``flops`` and ``input_rect`` (the JAX package's cost-model hooks), over
+``part_coords`` and ``rect_of_part``.
 """
 
 from __future__ import annotations
@@ -22,6 +27,33 @@ from ..tensor import ParameterSpec, Tensor
 torch.backends.cuda.matmul.allow_tf32 = False
 
 
+def part_coords(pc, ndim: int, idx: int):
+    """Decompose a flat part index into per-dim coordinates of the op's
+    N-D part grid (dim 0 fastest, as the simulator walks the rects)."""
+    dims = list(pc.dims) + [1] * (ndim - len(pc.dims))
+    coords, rem = [], idx
+    for d in range(ndim):
+        coords.append(rem % dims[d])
+        rem //= dims[d]
+    return coords
+
+
+def rect_of_part(pc, shape, idx: int):
+    """The (lo, hi) sub-rectangle of a ``shape``-shaped tensor owned by
+    part ``idx`` under ParallelConfig ``pc`` (the reference's N-D block
+    partitioning, config.h:41-50)."""
+    dims = list(pc.dims) + [1] * (len(shape) - len(pc.dims))
+    coords = part_coords(pc, len(shape), idx)
+    lo, hi = [], []
+    for d in range(len(shape)):
+        nd = max(dims[d], 1)
+        sz = shape[d] // nd
+        c = coords[d]
+        lo.append(c * sz)
+        hi.append((c + 1) * sz if c < nd - 1 else shape[d])
+    return tuple(lo), tuple(hi)
+
+
 class Op:
     """One graph node.  Subclasses set ``self.outputs`` in ``__init__``
     and implement ``forward``; ``params`` is the dict param_name ->
@@ -33,6 +65,9 @@ class Op:
         self.name = name
         self.inputs: List[Tensor] = list(inputs)
         self.outputs: List[Tensor] = []
+        # the op's SOAP config from the model's strategy (compile); None
+        # means the data-parallel default
+        self.parallel_config = None
 
     def _make_output(self, shape, dtype=torch.float32, idx: int = 0
                      ) -> Tensor:
@@ -51,6 +86,32 @@ class Op:
     def forward(self, params: Dict[str, torch.Tensor],
                 xs: List[torch.Tensor]) -> List[torch.Tensor]:
         raise NotImplementedError
+
+    # ---- cost model hooks (sim/) -------------------------------------------
+    def flops(self, batch: int) -> int:
+        """Approximate forward FLOPs for the simulator's analytic costs."""
+        return 0
+
+    def input_rect(self, pc, input_idx: int, part_idx: int):
+        """The (lo, hi) sub-rectangle of input ``input_idx`` that output
+        part ``part_idx`` reads under output ParallelConfig ``pc``: the
+        hook the simulator sizes its transfers with (reference
+        simulator.cc:200-233).
+
+        Default: a batch (dim 0) partition maps through when the input
+        shares the output's batch extent; every other input dim is read
+        in full (a channel-parallel Linear part holds a column shard of
+        the weight but reads the whole input row)."""
+        ishape = self.inputs[input_idx].shape
+        oshape = self.outputs[0].shape
+        lo, hi = [0] * len(ishape), list(ishape)
+        nd0 = pc.dims[0] if pc.dims else 1
+        if (nd0 > 1 and ishape and oshape and ishape[0] == oshape[0]):
+            c = part_coords(pc, len(oshape), part_idx)[0]
+            sz = ishape[0] // nd0
+            lo[0] = c * sz
+            hi[0] = (c + 1) * sz if c < nd0 - 1 else ishape[0]
+        return tuple(lo), tuple(hi)
 
     def __repr__(self):
         return f"{type(self).__name__}({self.name})"

@@ -209,6 +209,10 @@ class Embedding(Op):
         accumulate); returns the table."""
         return row_update_cuda(table, idx, row_grads, scale)
 
+    def flops(self, batch):
+        bag = self.inputs[0].shape[1] if len(self.inputs[0].shape) > 1 else 1
+        return batch * bag * self.out_dim  # bandwidth-bound; count adds
+
 
 class StackedEmbedding(Op):
     """T same-shape tables as one ``(T, rows, dim)`` weight.  Input
@@ -296,6 +300,10 @@ class StackedEmbedding(Op):
                         row_grads, scale)
         return tables
 
+    def flops(self, batch):
+        bag = self.inputs[0].shape[2] if len(self.inputs[0].shape) > 2 else 1
+        return batch * self.num_tables * bag * self.out_dim
+
 
 class RaggedStackedEmbedding(Op):
     """Input ``(batch, T, bag)`` per-table local ids, output
@@ -372,3 +380,7 @@ class RaggedStackedEmbedding(Op):
         """The row-sparse step on the fused row space, in place; returns
         the table."""
         return row_update_cuda(flat, self.flat_ids(idx), row_grads, scale)
+
+    def flops(self, batch):
+        bag = self.inputs[0].shape[2] if len(self.inputs[0].shape) > 2 else 1
+        return batch * self.num_tables * bag * self.out_dim

@@ -159,3 +159,11 @@ class FusedEmbedInteract(RaggedStackedEmbedding):
         return [masked_pool_interact(rows, gids, bottom, self.interact,
                                      self.aggr, out_dtype,
                                      self.compute_dtype)]
+
+    def flops(self, batch):
+        bag = self.inputs[0].shape[2] if len(self.inputs[0].shape) > 2 else 1
+        f = batch * self.num_tables * bag * self.out_dim  # gather + pool
+        if self.interact == "dot":
+            fdim = self.num_tables + 1
+            f += 2 * batch * fdim * fdim * self.out_dim  # pairwise dots
+        return f

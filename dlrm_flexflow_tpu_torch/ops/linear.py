@@ -56,3 +56,8 @@ class Linear(Op):
         # row's position in the batch.
         return [self._act(y.double()).to(self.outputs[0].dtype)]
 
+    def flops(self, batch):
+        rows = batch
+        for d in self.inputs[0].shape[1:-1]:
+            rows *= d
+        return 2 * rows * self.in_dim * self.out_dim

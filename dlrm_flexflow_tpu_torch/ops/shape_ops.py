@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .base import Op, matmul
+from .base import Op, matmul, rect_of_part
 
 
 class Concat(Op):
@@ -35,6 +35,18 @@ class Concat(Op):
 
     def forward(self, params, xs):
         return [torch.cat(xs, dim=self.axis)]
+
+    def input_rect(self, pc, input_idx, part_idx):
+        """Output rect shifted by the input's offset on the concat axis
+        and clipped to its extent (an empty rect moves no bytes)."""
+        lo, hi = rect_of_part(pc, self.outputs[0].shape, part_idx)
+        off = sum(t.shape[self.axis] for t in self.inputs[:input_idx])
+        ext = self.inputs[input_idx].shape[self.axis]
+        lo, hi = list(lo), list(hi)
+        a = max(lo[self.axis] - off, 0)
+        b = max(min(hi[self.axis] - off, ext), a)
+        lo[self.axis], hi[self.axis] = a, b
+        return tuple(lo), tuple(hi)
 
 
 class Reshape(Op):
@@ -76,6 +88,16 @@ class Transpose(Op):
 
     def forward(self, params, xs):
         return [xs[0].permute(self.perm)]
+
+    def input_rect(self, pc, input_idx, part_idx):
+        """Output rect mapped through the permutation: output dim i reads
+        input dim perm[i]."""
+        lo, hi = rect_of_part(pc, self.outputs[0].shape, part_idx)
+        n = len(self.perm)
+        ilo, ihi = [0] * n, [0] * n
+        for i, p in enumerate(self.perm):
+            ilo[p], ihi[p] = lo[i], hi[i]
+        return tuple(ilo), tuple(ihi)
 
 
 class Flat(Op):
@@ -128,3 +150,30 @@ class BatchMatmul(Op):
             b = b.transpose(-1, -2)
         out = matmul(a, b, self.compute_dtype)
         return [out.to(self.outputs[0].dtype)]
+
+    def input_rect(self, pc, input_idx, part_idx):
+        """A (b, m, n) part reads A's (b, m, :) rows and B's (b, :, n)
+        columns (positions swapped under the trans flags); the contracted
+        dim is read in full."""
+        ishape = self.inputs[input_idx].shape
+        olo, ohi = rect_of_part(pc, self.outputs[0].shape, part_idx)
+        nd = len(ishape)
+        lo, hi = [0] * nd, list(ishape)
+        # leading batch dims map through 1:1
+        for d in range(nd - 2):
+            lo[d], hi[d] = olo[d], ohi[d]
+        if input_idx == 0:   # A: m lives at -2 (or -1 when trans_a)
+            d = nd - 1 if self.trans_a else nd - 2
+            lo[d], hi[d] = olo[-2], ohi[-2]
+        else:                # B: n lives at -1 (or -2 when trans_b)
+            d = nd - 2 if self.trans_b else nd - 1
+            lo[d], hi[d] = olo[-1], ohi[-1]
+        return tuple(lo), tuple(hi)
+
+    def flops(self, batch):
+        m, k = self.inputs[0].shape[-2], self.inputs[0].shape[-1]
+        n = self.outputs[0].shape[-1]
+        nb = 1
+        for d in self.inputs[0].shape[:-2]:
+            nb *= d
+        return 2 * nb * m * k * n

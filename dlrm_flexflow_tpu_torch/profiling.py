@@ -13,9 +13,9 @@
   kernel, copy and fill time back from it.
 * ``Timer``: fenced wall-clock timing; ``OpTimer``: each op's forward and
   backward timed alone (the reference's ``--profiling``,
-  ``apps/dlrm.py``), one ``op_time`` event per op when telemetry is on.
-  The JAX package pairs each op with its simulator's prediction; the
-  port has no simulator yet, so its events carry the measured times only.
+  ``apps/dlrm.py``), one ``op_time`` event per op when telemetry is on,
+  each measured time beside the simulator's analytic prediction for the
+  op (``sim/cost_model.py``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -168,8 +168,10 @@ class OpTimer:
     shapes and the state's parameters: the mean over ``iters`` calls after
     one warm-up call, fenced on the device.  The backward is autograd of
     the sum of the op's outputs with respect to its floating-point
-    parameters and inputs (0 when there are none).  With an event log
-    active each op is one ``op_time`` event."""
+    parameters and inputs (0 when there are none).  Beside them stand
+    the analytic cost model's ``sim_forward_s``/``sim_backward_s`` for
+    the op (the H100 machine model), and with an event log active each
+    op is one ``op_time`` event carrying all four."""
 
     def __init__(self, model, iters: int = 10):
         self.model = model
@@ -188,8 +190,10 @@ class OpTimer:
         """``{op name: {"forward_s", "backward_s"}}`` for every op of the
         model; ``inputs`` is unused (the shapes come from the graph), as
         in the JAX package."""
+        from .sim.cost_model import CostModel
         from .telemetry import active_log
 
+        sim_cm = CostModel()  # analytic: the simulator's view
         params = getattr(state, "params", state)
         dev = next(iter(_tensors(params))).device
         gen = torch.Generator().manual_seed(0)
@@ -218,10 +222,13 @@ class OpTimer:
                                if v.requires_grad]
                         torch.autograd.grad(total, wrt, allow_unused=True)
                 bwd = max(self._time(step, xs) - fwd, 0.0)
-            out[op.name] = {"forward_s": fwd, "backward_s": bwd}
+            sf, sb = sim_cm.op_times(op, 1)
+            out[op.name] = {"forward_s": fwd, "backward_s": bwd,
+                            "sim_forward_s": sf, "sim_backward_s": sb}
             if log is not None:
                 log.emit("op_time", op=op.name, forward_s=fwd,
-                         backward_s=bwd)
+                         backward_s=bwd, sim_forward_s=sf,
+                         sim_backward_s=sb)
         return out
 
     def report(self, times: Dict[str, dict]) -> str:

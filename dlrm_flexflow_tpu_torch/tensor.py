@@ -69,6 +69,12 @@ class Tensor:
     def ndim(self) -> int:
         return len(self.shape)
 
+    def numel(self) -> int:
+        n = 1
+        for d in self.shape:
+            n *= d
+        return n
+
     def __hash__(self):
         return self.uid
 
