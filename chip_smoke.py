@@ -17,7 +17,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
      check the answers, that the kernel ran on that path (launch counts
      through the graphs' replay accounting) and that the graphs replayed;
      every bucket's graph against the eager model.predict, bit for bit,
-     full and padded; profile a dispatch graphed and eager;
+     full and padded; a lazy bucket capture while another thread runs
+     eager forwards, the capturing thread holding its capture open (host
+     waits only, at most 5 s) until that thread has finished two
+     synchronising calls; profile a dispatch graphed and eager;
   5. time the fused forward at the serving buckets beside its bound, its
      plain version, a library call and the launch floor (an empty kernel),
      and the whole call as the op issues it, before (mask, cast, kernel)
@@ -152,7 +155,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
      data-parallel, with its wall; (d) the 8-device best saved as .json
      and .pb and loaded back equal, compile(strategy=) on the card, 8
      graphed steps bit for bit against the same 8 steps without a
-     strategy.
+     strategy;
+ 23. the closed SOAP loop and its reports, on the fused run_random.sh
+     model at f32 compute (B3 forward; B4 then B2 backward), every sink,
+     artifact and flight record under one temporary directory beside
+     this script, removed at the end: (a) OpTimer(model, iters=10)
+     .profile inside an event log, one valid op_time event per op with
+     its measured and analytic forward and backward, B3, B4 and B2
+     launched; (b) search_tune(model, 4, sink, artifacts, budget=300,
+     seed=0) twice on the calibrated simulator's bench: "first" at v1,
+     then "promoted" at v2 with parent 1, the calibration's error
+     strictly lower after the fit, every artifact valid, the incumbent
+     loaded through Strategy.load, dlrm_strategy_version at 2; each
+     class's scales, the calibrated and the analytic best at 4 devices
+     against data-parallel (information); (c) tools/search_tune.py
+     --bench real on (b)'s artifacts: the candidate's and the
+     incumbent's graphed steps (B2), the verdict information; (d) the
+     fused engine through the batcher under an SLOMonitor(p99 at the
+     latency edge at or above 10x phase 4's p99, availability 99.9,
+     freshness 600) on a fake clock, /metrics up on 127.0.0.1: a healthy
+     stretch, a delayed one (one breach of the latency SLO, /healthz
+     degraded over HTTP, exactly one flight record), healthy ticks until
+     one recover (/healthz ok), the burn and budget gauges one row per
+     SLO, the freshness SLO on the incumbent's age; (e) the report CLI on
+     (a)-(d)'s sinks in a subprocess, text and JSON with the same
+     sections (per_op, calibration, tuning, serving and slo among them),
+     report --flight on (d)'s record, regress on this run's entries
+     stamped with the card's name: 0 against themselves, non-zero
+     against a copy 20% slower.
 Profile lines carry the graph replays in their window, the graph pool's
 bytes and the host's launches per dispatch or step.
 The line before the last is the kernels' JSON record; the last line is
@@ -208,6 +238,7 @@ from dlrm_flexflow_tpu_torch.ops.row_update_kernel import (
     row_update_cuda, row_update_ref)
 from dlrm_flexflow_tpu_torch.ops.slotting import slot_rows
 from dlrm_flexflow_tpu_torch.parallel import Strategy
+from dlrm_flexflow_tpu_torch.profiling import OpTimer
 from dlrm_flexflow_tpu_torch.resilience import (CheckpointManager,
                                                 NaNSentinel, Preemption,
                                                 faultinject,
@@ -217,6 +248,7 @@ from dlrm_flexflow_tpu_torch.serving import (DynamicBatcher, InferenceEngine,
                                              ReplicaRouter)
 from dlrm_flexflow_tpu_torch.sim import (CostModel, H100MachineModel,
                                          Simulator, mcmc_search)
+from dlrm_flexflow_tpu_torch.sim import tune
 from dlrm_flexflow_tpu_torch.sim.search import data_parallel_strategy
 from dlrm_flexflow_tpu_torch.storage import (TieredEmbeddingTable,
                                              load_tiered, predicted_hit_rate,
@@ -224,7 +256,13 @@ from dlrm_flexflow_tpu_torch.storage import (TieredEmbeddingTable,
 from dlrm_flexflow_tpu_torch.telemetry import rowfreq
 from dlrm_flexflow_tpu_torch.tensor import Tensor
 from dlrm_flexflow_tpu_torch.telemetry import exporter as tele_exporter
+from dlrm_flexflow_tpu_torch.telemetry import fleet as tele_fleet
+from dlrm_flexflow_tpu_torch.telemetry import metrics as tele_metrics
+from dlrm_flexflow_tpu_torch.telemetry import regress as tele_regress
+from dlrm_flexflow_tpu_torch.telemetry import report as tele_report
 from dlrm_flexflow_tpu_torch.telemetry import schema as tele_schema
+from dlrm_flexflow_tpu_torch.telemetry import slo as tele_slo
+from dlrm_flexflow_tpu_torch.tools import search_tune as tune_tool
 from dlrm_flexflow_tpu_torch.tools.cuda_timing import (graph_ms,
                                                     launches_per_call,
                                                     wall_ms)
@@ -511,7 +549,8 @@ def serve(model, state):
     bucket), a DynamicBatcher answering 8 client threads x 16 one-row
     requests plus requests of 3, 40 and 256 rows, and a 300-row request
     the engine chunks.  The kernel's launch count is reset just before
-    the traffic and read just after it."""
+    the traffic and read just after it.  Returns (launches, the plain
+    forward's max abs error, the batcher's p99 in us)."""
     t0 = time.perf_counter()
     engine = InferenceEngine(model, state)
     torch.cuda.synchronize()
@@ -603,7 +642,7 @@ def serve(model, state):
     for n in (1, 256):
         profile_dispatch(model, state, engine,
                          big[256] if n == 256 else reqs[0][0], n)
-    return launches, err
+    return launches, err, summary.get("p99_us")
 
 
 def check_buckets_vs_eager(model, state, engine, rng) -> None:
@@ -628,16 +667,26 @@ def check_buckets_vs_eager(model, state, engine, rng) -> None:
         raise AssertionError("a bucket's graph != the eager forward")
 
 
+#: how long an open capture waits for the other thread's synchronising
+#: calls (phase 4's lazy capture); reaching it fails the check
+OVERLAP_WAIT_S = 5.0
+
+
 @contextlib.contextmanager
-def _capture_times(marks):
+def _capture_times(marks, opened=None):
     """Append ``("begin" | "end", perf_counter())`` to ``marks`` around
-    every CUDA graph capture made inside the block."""
+    every CUDA graph capture made inside the block.  With ``opened`` (a
+    callable), the capturing thread calls it once ``capture_begin`` has
+    returned, before the captured work."""
     cls = torch.cuda.CUDAGraph
     begin, end = cls.capture_begin, cls.capture_end
 
     def timed_begin(self, *args, **kwargs):
         marks.append(("begin", time.perf_counter()))
-        return begin(self, *args, **kwargs)
+        out = begin(self, *args, **kwargs)
+        if opened is not None:
+            opened()
+        return out
 
     def timed_end(self, *args, **kwargs):
         out = end(self, *args, **kwargs)
@@ -658,21 +707,37 @@ def check_lazy_capture_beside_traffic(model, state, rng) -> None:
     captures in ``thread_local`` mode (a ``global`` capture forbids such
     calls in every thread), so neither thread may fail, the dispatch must
     equal the eager forward bit for bit, and some of the other thread's
-    synchronising calls must have finished while the capture was open (a
-    short switch interval interleaves the two)."""
+    synchronising calls must have finished while the capture was open.
+    The overlap is made certain: once ``capture_begin`` has returned, the
+    capturing thread waits on a ``threading.Event``, with host waits only
+    and no CUDA call, until the other thread has logged two synchronising
+    calls after that mark; a wait of ``OVERLAP_WAIT_S`` fails the check."""
     engine = InferenceEngine(model, state, buckets=[8], warmup=False)
     req, other = _request(rng, 5), _request(rng, 64)
     probe = torch.ones(1, device="cuda")
     stop, errors, synced, marks = threading.Event(), [], [], []
+    overlapped, since_open, waits = threading.Event(), [], []
+
+    def note_sync():
+        t = time.perf_counter()
+        synced.append(t)
+        if since_open and t > since_open[0]:
+            since_open.append(t)
+            if len(since_open) > 2:  # the mark and two calls after it
+                overlapped.set()
+
+    def opened():
+        since_open.append(time.perf_counter())
+        waits.append(overlapped.wait(OVERLAP_WAIT_S))
 
     def traffic():
         try:
             while not stop.is_set():
                 model.predict(state, other).cpu()
-                synced.append(time.perf_counter())
+                note_sync()
                 for _ in range(8):
                     probe.cpu()
-                    synced.append(time.perf_counter())
+                    note_sync()
         except BaseException as e:  # re-raised below, after the join
             errors.append(e)
 
@@ -683,7 +748,7 @@ def check_lazy_capture_beside_traffic(model, state, rng) -> None:
         thread.start()
         while len(synced) < 9 and thread.is_alive():
             time.sleep(0.001)
-        with _capture_times(marks):
+        with _capture_times(marks, opened):
             got = engine.predict(req)  # the eager run and the capture
     finally:
         stop.set()
@@ -695,12 +760,13 @@ def check_lazy_capture_beside_traffic(model, state, rng) -> None:
     during = (sum(1 for t in synced if opened[0] < t < closed[0])
               if len(opened) == len(closed) == 1 else 0)
     ok = (not errors and not thread.is_alive() and during > 0
-          and sorted(engine._graphs) == [8]
+          and waits == [True] and sorted(engine._graphs) == [8]
           and bool(np.array_equal(got, want)))
     log({"phase": "graph_vs_eager", "config": "lazy capture beside eager "
          "traffic", "captures": len(opened),
          "capture_ms": (closed[0] - opened[0]) * 1e3 if closed else None,
          "traffic_syncs_during_capture": during,
+         "overlap_waits_met": waits, "overlap_wait_limit_s": OVERLAP_WAIT_S,
          "errors": [repr(e) for e in errors[:1]], "ok": ok})
     if not ok:
         raise AssertionError("a lazy bucket capture beside another "
@@ -3673,6 +3739,390 @@ def soap_phase(inputs, labels, headline_ms):
     return rows, counts
 
 
+# -------------------------------------------------------------- phase 23
+#: phase 23's closed loop: simulated devices, MCMC budget and seed
+TUNE_DEVICES = 4
+TUNE_BUDGET = 300
+#: the SLO monitor's windows on its fake clock (one tick a second)
+SLO_WINDOWS = {"fast_window_s": 2.0, "slow_window_s": 10.0}
+#: one-row requests a tick of the SLO stretches submits
+SLO_TICK_REQUESTS = 32
+#: the report sections phase 23's sinks must produce
+REPORT_SECTIONS = ("per_op", "calibration", "tuning", "serving", "slo")
+
+
+class _DelayedEngine(InferenceEngine):
+    """The serving engine with a fixed host delay before each dispatch
+    while ``delay_s`` is above 0 (the JAX package's
+    ``scripts/check_serving.py::_SlowEngine``, switchable)."""
+
+    delay_s = 0.0
+
+    def predict(self, inputs, queue_wait_us=0.0, timings=None):
+        if self.delay_s > 0:
+            time.sleep(self.delay_s)
+        return super().predict(inputs, queue_wait_us, timings)
+
+
+class _FakeClock:
+    """The SLO monitor's injectable clock, advanced by hand."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        return self.t
+
+
+def _op_timer(model, state, sink):
+    """(a) ``OpTimer(model, iters=10).profile`` inside an event log at
+    ``sink``: one valid op_time event per op with all four times, and
+    the B3, B4 and B2 counters moved.  Returns the launch counts."""
+    reset_counts()
+    with tele.event_log(path=sink, mode="w"):
+        times = OpTimer(model, iters=10).profile(state, None)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    events = tele_report.load_events(sink, strict=True)
+    by_op = collections.Counter(e["op"] for e in events)
+    keys = ("forward_s", "backward_s", "sim_forward_s", "sim_backward_s")
+    for e in events:
+        log({"phase": "tune_op_time", "op": e["op"],
+             **{k: e.get(k) for k in keys},
+             "fwd_measured_over_analytic":
+                 e["forward_s"] / e["sim_forward_s"],
+             "bwd_measured_over_analytic":
+                 e["backward_s"] / e["sim_backward_s"]})
+    ok = (len(events) == len(model.layers)
+          and sorted(by_op) == sorted(op.name for op in model.layers)
+          and set(by_op.values()) == {1} and set(times) == set(by_op)
+          and all(e["type"] == "op_time" and all(
+              np.isfinite(e.get(k, np.nan)) and e[k] > 0 for k in keys)
+              for e in events)
+          and counts["fused_interact_fwd"] > 0
+          and counts["fused_interact_bwd"] > 0
+          and counts["row_update"] > 0)
+    log({"phase": "tune_op_timer", "events": len(events),
+         "ops": len(model.layers), "launches": counts, "ok": ok})
+    if not ok:
+        raise AssertionError(f"OpTimer on the card: {counts}, {by_op}")
+    return counts
+
+
+def _tune_runs(model, op_sink, tune_sink, art):
+    """(b) ``search_tune`` twice under the calibrated simulator's bench:
+    ``first`` at v1, then ``promoted`` at v2 with parent 1, the
+    calibration's error strictly lower after the fit, every artifact
+    valid, the incumbent loading through ``Strategy.load`` and
+    ``dlrm_strategy_version`` at 2.  Returns (results, calibration)."""
+    with tele.event_log(path=tune_sink, mode="a"):
+        runs = [tune.search_tune(model, TUNE_DEVICES, op_sink, art,
+                                 budget=TUNE_BUDGET, seed=0)
+                for _ in range(2)]
+    for r in runs:
+        log({"phase": "search_tune", **r})
+    cal = tune.Calibration.load(runs[-1]["calibration_path"])
+    strategies = tune.list_artifacts(art, "strategy")
+    calibrations = tune.list_artifacts(art, "calibration")
+    valid = all(tune.load_strategy_artifact(p) for _, p in strategies)
+    valid = valid and all(tune.Calibration.load(p).ops == cal.ops
+                          for _, p in calibrations)
+    pointer = tune.incumbent_path(art, "dlrm", TUNE_DEVICES)
+    loaded = Strategy.load(pointer)
+    version = tele_metrics.STRATEGY_VERSION.value
+    r1, r2 = runs
+    ok = ((r1["verdict"], r1["version"], r1["parent_version"])
+          == ("first", 1, None)
+          and (r2["verdict"], r2["version"], r2["parent_version"])
+          == ("promoted", 2, 1)
+          and all(r["mae_pct_after"] < r["mae_pct_before"] for r in runs)
+          and valid and [v for v, _ in strategies] == [1, 2]
+          and len(loaded.configs) == len(model.layers) and version == 2)
+    log({"phase": "tune_artifacts", "strategies": len(strategies),
+         "calibrations": len(calibrations), "incumbent": pointer,
+         "incumbent_ops": len(loaded.configs),
+         "dlrm_strategy_version": version, "ok": ok})
+    if not ok:
+        raise AssertionError(f"search_tune: {runs}")
+    return runs, cal
+
+
+def _calibrated_searches(model, cal, art):
+    """The calibration's effect (information): each class's scales, the
+    calibrated best at 4 simulated devices against data-parallel, and
+    the analytic search's best at the same budget and seed beside it."""
+    log({"phase": "tune_calibration", "scales": {
+        k: {"forward": f, "backward": b} for k, (f, b) in
+        sorted(cal.scales.items())},
+        "mae_pct_before": cal.mae_pct_before,
+        "mae_pct_after": cal.mae_pct_after, "ops": cal.ops})
+    inc = tune.load_incumbent(art, "dlrm", TUNE_DEVICES)
+    best = tune.strategy_from_artifact(inc)
+    dp = data_parallel_strategy(model, TUNE_DEVICES)
+    calibrated = Simulator(model, TUNE_DEVICES,
+                           cost_model=CostModel(calibration=cal))
+    analytic = Simulator(model, TUNE_DEVICES, cost_model=CostModel())
+    analytic_best = mcmc_search(model, TUNE_DEVICES, budget=TUNE_BUDGET,
+                                seed=0, simulator=analytic,
+                                backend="python")
+    log({"phase": "tune_searches", "devices": TUNE_DEVICES,
+         "calibrated_best_ms": calibrated.simulate(best) * 1e3,
+         "calibrated_data_parallel_ms": calibrated.simulate(dp) * 1e3,
+         "analytic_best_ms": analytic.simulate(analytic_best) * 1e3,
+         "analytic_data_parallel_ms": analytic.simulate(dp) * 1e3,
+         "calibrated_best_under_analytic_ms":
+             analytic.simulate(best) * 1e3,
+         "ops_differing_from_analytic_best": sorted(
+             k for k in best.configs
+             if _configs(best)[k] != _configs(analytic_best)[k]),
+         "note": "information, not a claim"})
+
+
+def _real_gate(op_sink, tune_sink, art, model, cal):
+    """(c) ``tools/search_tune.py --bench real`` on (b)'s artifacts: the
+    candidate's and the incumbent's graphed steps on the card (the fused
+    graph's row-sparse step: its forward gathers the touched rows, so B2
+    runs and B3 does not).  The gate must return; its verdict is
+    information.  Returns (result, counts)."""
+    args = tune_tool.parse_args([
+        "--telemetry", op_sink, "--artifacts", art,
+        "--devices", str(TUNE_DEVICES), "--budget", str(TUNE_BUDGET),
+        "--seed", "0", "--bench", "real", "--batch", str(BATCH),
+        "--fused-interaction", "on", "--sink", tune_sink])
+    reset_counts()
+    r = tune_tool.run(args)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    dp1 = data_parallel_strategy(model, 1)
+    measured_s = min(r["candidate_s"], r["incumbent_s"])
+    sims = {name: Simulator(model, 1, cost_model=cm).simulate(dp1)
+            for name, cm in (("analytic", CostModel()),
+                             ("calibrated", CostModel(calibration=cal)))}
+    row = {"phase": "tune_real_gate", **r,
+           "candidate_step_ms": r["candidate_s"] * 1e3,
+           "incumbent_step_ms": r["incumbent_s"] * 1e3,
+           "one_card_simulated_over_measured": {
+               k: v / measured_s for k, v in sims.items()},
+           "launches": counts,
+           "note": "strategies execute alike on one card: the verdict "
+                   "is information"}
+    log(row)
+    if not (r["verdict"] in ("promoted", "rejected")
+            and all(np.isfinite([r["candidate_s"], r["incumbent_s"]]))
+            and r["candidate_s"] > 0 and r["incumbent_s"] > 0
+            and counts["row_update"] > 0):
+        raise AssertionError(f"the real gate: {row}")
+    return r, counts
+
+
+def _healthz(port) -> dict:
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz",
+                                timeout=30) as r:
+        return json.loads(r.read().decode())
+
+
+def _slo_serving(model, state, serve_p99_us, flight_dir, slo_sink, art):
+    """(d) The fused engine through the batcher under an SLOMonitor on a
+    fake clock, with /metrics up on 127.0.0.1: a healthy stretch with no
+    breach and /healthz ok; a delayed stretch with one breach of the
+    latency SLO, /healthz degraded and exactly one flight record in
+    ``flight_dir``; healthy ticks until one recover, /healthz ok again;
+    the burn and budget gauges scraped with one row per SLO; the
+    freshness SLO reading the incumbent strategy's age.  Returns (the
+    row, the launch counts, the dispatches' p99 in ms)."""
+    edges = tele_metrics.LATENCY_BUCKETS_US
+    # the latency objective: the histogram edge at or above 10x phase
+    # 4's p99 (the probe counts a request bad only past an edge), and a
+    # delay that puts every delayed request past that edge
+    edge_us = next((e for e in edges if e >= 10 * serve_p99_us),
+                   edges[-1])
+    spec = (f"p99_ms={edge_us / 1e3:g},availability=99.9,freshness=600")
+    clock = _FakeClock()
+    slos = tele_slo.parse_slos(spec, **SLO_WINDOWS)
+    engine = _DelayedEngine(model, state, buckets=list(BUCKETS))
+    rng = np.random.default_rng(23)
+    pool = [_request(rng, 1) for _ in range(64)]
+    srv = tele_exporter.MetricsServer(port=0).start()
+    monitor = tele_slo.SLOMonitor(slos, clock=clock, flight_dir=flight_dir)
+    batcher = DynamicBatcher(engine)
+    phases, health = [], {}
+
+    def tick(tag):
+        futures = [batcher.submit(pool[i % len(pool)])
+                   for i in range(SLO_TICK_REQUESTS)]
+        for f in futures:
+            f.result(timeout=120)
+        clock.t += 1.0
+        evs = monitor.tick()
+        phases.extend((tag, e["phase"], e["slo"]) for e in evs
+                      if e["phase"] != "eval")
+        return evs
+
+    try:
+        reset_counts()
+        with tele.event_log(path=slo_sink, mode="w"):
+            monitor.tick()  # the baseline sample
+            for _ in range(5):
+                tick("healthy")
+            health["healthy"] = _healthz(srv.port)
+            engine.delay_s = 1.5 * edge_us / 1e6
+            tick("delayed")
+            engine.delay_s = 0.0
+            health["breached"] = _healthz(srv.port)
+            scrape = urllib.request.urlopen(
+                f"http://127.0.0.1:{srv.port}/metrics", timeout=30
+            ).read().decode()
+            for _ in range(40):
+                tick("after")
+                if any(p == "recover" for _, p, _ in phases):
+                    break
+            for _ in range(2):
+                tick("after")
+            health["recovered"] = _healthz(srv.port)
+            summary = batcher.close()
+            batcher = None
+            fresh = monitor._state["freshness"]
+            age = tele_metrics.STRATEGY_AGE.value
+        counts = read_counts()
+    finally:
+        if batcher is not None:
+            batcher.close()
+        monitor.stop()
+        srv.stop()
+    inc = tune.load_incumbent(art, "dlrm", TUNE_DEVICES)
+    records = tele_fleet.find_flight_records(flight_dir)
+    rows = {fam: sorted(ln.split("{", 1)[1].split("}", 1)[0]
+                        for ln in scrape.splitlines()
+                        if ln.startswith(fam + "{"))
+            for fam in ("dlrm_slo_burn_rate", "dlrm_slo_error_budget_pct")}
+    names = sorted(f'slo="{s.name}"' for s in slos)
+    breaches = [x for x in phases if x[1] == "breach"]
+    recovers = [x for x in phases if x[1] == "recover"]
+    slo_events = tele_report.load_events(slo_sink, strict=True)
+    dominant = [e.get("dominant") for e in slo_events
+                if e["type"] == "slo" and e["phase"] == "breach"]
+    row = {"phase": "slo", "spec": spec, "threshold_us": edge_us,
+           "phase_4_p99_us": serve_p99_us,
+           "delay_ms": 1.5 * edge_us / 1e3, "transitions": phases,
+           "healthz": health, "flight_records": records,
+           "gauge_rows": rows, "breach_dominant_tail_phase": dominant,
+           "freshness_samples": len(fresh.samples),
+           "strategy_age_s": age, "launches": counts,
+           "requests": summary["requests"], "p99_us": summary.get("p99_us")}
+    log(row)
+    ok = (breaches == [("delayed", "breach", slos[0].name)]
+          and recovers == [("after", "recover", slos[0].name)]
+          and len(phases) == 2
+          and health["healthy"]["status"] == "ok"
+          and health["breached"]["status"] == "degraded"
+          and slos[0].name in health["breached"]["reason"]
+          and health["recovered"]["status"] == "ok"
+          and len(records) == 1
+          and rows["dlrm_slo_burn_rate"] == names
+          and rows["dlrm_slo_error_budget_pct"] == names
+          and len(fresh.samples) > 0 and fresh.samples[-1][2] == 0.0
+          and age is not None
+          and abs(age - (time.time() - inc["created_ts"])) < 60.0
+          and counts["fused_interact_fwd"] > 0)
+    if not ok:
+        raise AssertionError(f"SLO monitoring of the fused engine: {row}")
+    return row, counts, (summary.get("p99_us") or 0.0) / 1e3
+
+
+def _report_cli(*args):
+    out = subprocess.run(
+        [sys.executable, "-m", "dlrm_flexflow_tpu_torch.telemetry", *args],
+        capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    return out.returncode, out.stdout, out.stderr
+
+
+def _reports(sinks, record, history, card_name, real, p99_ms):
+    """(e) The report CLI on (a)-(d)'s sinks in a subprocess, as text and
+    as JSON: the per-op, calibration, tuning, serving and slo sections in
+    both forms, the same sections in each; ``report --flight`` on (d)'s
+    record; ``regress`` on this run's entries stamped with the card's
+    name, passing against itself and failing against a copy 20% slower."""
+    rc_t, text, err_t = _report_cli("report", sinks)
+    rc_j, js, err_j = _report_cli("report", sinks, "--format", "json")
+    rc_f, flight, err_f = _report_cli("report", "--flight", record)
+    data = json.loads(js) if rc_j == 0 else {}
+    heads = [ln for ln in text.splitlines()
+             if ln.startswith("== ") and ln != "== run summary =="]
+    json_sections = [k for k in data if k != "run"]
+    same = (len(heads) == len(json_sections) and all(
+        "\n".join(data[k]["lines"]) in text for k in json_sections))
+    entries = [{"metric": "dlrm_tune_step_ms", "fenced": True,
+                "value": real["candidate_s"] * 1e3, "device": card_name},
+               {"metric": "dlrm_tune_samples_per_s", "fenced": True,
+                "value": BATCH / real["candidate_s"], "device": card_name},
+               {"metric": "dlrm_serving_p99_ms", "fenced": True,
+                "value": p99_ms, "device": card_name}]
+    slower = [dict(e, value=e["value"] / 1.2 if e["metric"].endswith(
+        "_per_s") else e["value"] * 1.2) for e in entries]
+    base, slow = history + ".base.json", history + ".slow.json"
+    for path, doc in ((base, entries), (slow, slower)):
+        with open(path, "w") as f:
+            json.dump(doc, f)
+    rc_same, out_same, _ = _report_cli("regress", "--baseline", base,
+                                       "--new", base)
+    rc_slow, out_slow, _ = _report_cli("regress", "--baseline", base,
+                                       "--new", slow)
+    row = {"phase": "reports", "text_sections": heads,
+           "json_sections": json_sections, "same_sections": same,
+           "flight_rendered": "== flight record ==" in flight,
+           "regress_vs_itself_rc": rc_same, "regress_vs_slower_rc": rc_slow,
+           "regress_keys": sorted(tele_regress.load_metrics(base)),
+           "errors": [e[-400:] for e in (err_t, err_j, err_f) if e]}
+    log(row)
+    log("\n".join(["# report (text):", text, "# report --flight:", flight,
+                   "# regress against the slower copy:", out_slow]))
+    if not (rc_t == rc_j == rc_f == 0 and same
+            and set(REPORT_SECTIONS) <= set(json_sections)
+            and "== flight record ==" in flight
+            and rc_same == 0 and rc_slow != 0
+            and all(k.endswith(f":device={card_name}")
+                    for k in row["regress_keys"])
+            and out_same.strip().endswith("tolerance)")):
+        raise AssertionError(f"the reports: {row}")
+    return row
+
+
+def tuning_phase(card, serve_p99_us):
+    """Phase 23, the closed SOAP loop and its reports.  Every sink and
+    artifact lives under one temporary directory beside this script,
+    removed at the end.  Returns (row, launch counts)."""
+    root = tempfile.mkdtemp(prefix=".tune-",
+                            dir=os.path.dirname(os.path.abspath(__file__)))
+    sinks, art = os.path.join(root, "sinks"), os.path.join(root, "art")
+    flight_dir = os.path.join(root, "flight")
+    os.makedirs(sinks)
+    op_sink = os.path.join(sinks, "op_time.jsonl")
+    tune_sink = os.path.join(sinks, "tune.jsonl")
+    slo_sink = os.path.join(sinks, "slo.jsonl")
+    try:
+        model, state = _train_model(True, "float32", epoch_row_cache="off")
+        op_counts = _op_timer(model, state, op_sink)
+        runs, cal = _tune_runs(model, op_sink, tune_sink, art)
+        _calibrated_searches(model, cal, art)
+        real, real_counts = _real_gate(op_sink, tune_sink, art, model, cal)
+        _free()
+        slo_row, slo_counts, p99_ms = _slo_serving(
+            model, state, serve_p99_us, flight_dir, slo_sink, art)
+        records = tele_fleet.find_flight_records(flight_dir)
+        reports = _reports(sinks, records[0], os.path.join(root, "hist"),
+                           card.split(",")[0].strip(), real, p99_ms)
+        del model, state
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        _free()
+    counts = {k: op_counts[k] + real_counts[k] + slo_counts[k]
+              for k in op_counts}
+    log({"phase": "tune_launches", "launches": counts})
+    return {"runs": runs, "real": real, "slo": slo_row,
+            "reports": reports}, counts
+
+
 def _entry(name, launches, err, timing):
     source, replaces, _ = KERNELS[name]
     return {"name": name, "route": "cuda", "source": source,
@@ -3694,7 +4144,7 @@ def main() -> int:
     model, state = build_model()
     table = state.params["emb"]["embedding"]
     fwd_err = check_kernel_cases(table)
-    serve_launches, path_err = serve(model, state)
+    serve_launches, path_err, serve_p99_us = serve(model, state)
     top = time_kernel(model, state)[-1]  # the top serving bucket, B=256
     # phases 16-17: quantized serving, and telemetry on the card
     quantized = serve_quantized(model, state)
@@ -3762,9 +4212,14 @@ def main() -> int:
     # phase 22: the SOAP core on measured costs (B2, B3), the searches,
     # the strategy round trip and compile(strategy=) on the card
     soap, soap_counts = soap_phase(inputs, labels, headline["step_wall_ms"])
+    # phase 23: the closed loop (OpTimer's op_time telemetry, search_tune
+    # twice, the real gate), the SLO monitor over the fused engine, and
+    # the report and regress CLIs (B3, B4, B2)
+    tuned, tune_counts = tuning_phase(card, serve_p99_us)
     path_counts = (headline_counts, sparse_counts, dense_counts, dot_counts,
                    staged_counts, bag_counts, bf16_counts, bag16_counts,
-                   durable_counts, tiered_counts, lazy_counts, soap_counts)
+                   durable_counts, tiered_counts, lazy_counts, soap_counts,
+                   tune_counts)
     row_launches = sum(c["row_update"] for c in path_counts)
     prep_launches = sum(c["row_update_prep"] for c in path_counts)
     if prep_launches != row_launches:
@@ -3797,16 +4252,23 @@ def main() -> int:
          "lazy_staged_fit_samples_per_s": lazy["staged_fit_samples_per_s"],
          "soap_simulated_over_measured": {
              g: r["simulated_over_measured"] for g, r in soap.items()},
+         "tune_mae_pct": [tuned["runs"][-1]["mae_pct_before"],
+                          tuned["runs"][-1]["mae_pct_after"]],
+         "tune_real_step_ms": {
+             "candidate": tuned["real"]["candidate_s"] * 1e3,
+             "incumbent": tuned["real"]["incumbent_s"] * 1e3},
          "note": "walls include each path's eager step and capture"})
     log({"kernels": [
         _entry("fused_interact_fwd",
                serve_launches + sum(c["fused_interact_fwd"]
                                     for c in (dense_counts, dot_counts,
-                                              tiered_counts, soap_counts)),
+                                              tiered_counts, soap_counts,
+                                              tune_counts)),
                max(fwd_err, path_err), fwd_time),
         _entry("fused_interact_bwd",
                sum(c["fused_interact_bwd"] for c in (dense_counts,
-                                                     dot_counts)),
+                                                     dot_counts,
+                                                     tune_counts)),
                bwd_err, bwd_time),
         _entry("row_update", row_launches, row_err, row_time),
         _entry("row_update_prep", prep_launches, prep_err, prep_time),

@@ -12,10 +12,9 @@ Three cost sources, all memoized:
   * analytic   — roofline estimate max(FLOPs / peak, bytes / HBM rate)
                  plus one launch, from :class:`H100MachineModel`;
   * calibrated — the analytic roofline scaled by per-op-class factors
-                 (any object with ``scale_for(op) -> (fwd, bwd)``, such as
-                 the JAX package's ``sim.tune.Calibration``; the port's
-                 closed loop comes with the telemetry reports, ROADMAP.md
-                 item 6).
+                 (any object with ``scale_for(op) -> (fwd, bwd)``: the
+                 port's ``sim.tune.Calibration``, fitted from ``op_time``
+                 telemetry by the closed loop, or the JAX package's).
 
 The formulas are the JAX package's, so that under the same constants the
 two packages price every op, transfer and collective bit for bit; only

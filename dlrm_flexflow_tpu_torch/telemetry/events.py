@@ -63,11 +63,18 @@ class EventLog:
 
     ``mode="w"`` truncates (one file per run); the default ``"a"``
     appends across restarts.
+
+    ``stamp`` (a dict of schema COMMON_OPTIONAL fields, such as
+    ``{"pidx": 2, "slice": 1}``) is merged into every emitted event that
+    does not already carry those fields: how a multi-process run marks
+    which process produced each line, so ``report --fleet`` can merge the
+    per-process sinks (``fleet.py``).
     """
 
     def __init__(self, path: Optional[str] = None, ring: int = 4096,
-                 mode: str = "a"):
+                 mode: str = "a", stamp: Optional[Dict[str, Any]] = None):
         self.path = path
+        self.stamp = dict(stamp) if stamp else None
         self._ring: deque = deque(maxlen=ring)
         self._lock = threading.Lock()
         self._fh = open(path, mode) if path else None
@@ -86,6 +93,9 @@ class EventLog:
             v = _jsonable(v)  # may yield None (e.g. a NaN float): drop
             if v is not None:
                 ev[k] = v
+        if self.stamp:
+            for k, v in self.stamp.items():
+                ev.setdefault(k, v)
         errs = validate_event(ev)
         if errs:
             raise ValueError(
@@ -181,10 +191,11 @@ def suppressed():
 
 
 @contextlib.contextmanager
-def event_log(path: Optional[str] = None, ring: int = 4096, mode: str = "a"):
+def event_log(path: Optional[str] = None, ring: int = 4096, mode: str = "a",
+              stamp: Optional[Dict[str, Any]] = None):
     """Scoped telemetry: activate a fresh EventLog for the block, restore
     the previous active log (and close this one) on exit."""
-    log = EventLog(path=path, ring=ring, mode=mode)
+    log = EventLog(path=path, ring=ring, mode=mode, stamp=stamp)
     prev = set_event_log(log)
     try:
         yield log

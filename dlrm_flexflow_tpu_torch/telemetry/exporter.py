@@ -14,7 +14,8 @@ via :func:`start_metrics_server`.
 ``span`` events on per-thread tracks, with the run's ``step`` /
 ``compile`` / ``op_time`` / ``serve`` dispatch events on labelled
 synthetic tracks, as Chrome trace-event JSON that opens in Perfetto or
-chrome://tracing; :func:`export_trace` writes it from a JSONL file.
+chrome://tracing; :func:`export_trace` writes it from a JSONL file (read
+by ``report.load_events``).
 """
 
 from __future__ import annotations
@@ -28,10 +29,27 @@ from .metrics import REGISTRY, MetricsRegistry, render_exemplars
 
 # ------------------------------------------------------------- HTTP exporter
 
+# /healthz state: "ok" until an SLOMonitor breach flips it to "degraded"
+# (telemetry/slo.py).  The degraded reply names the breached objectives
+# and still returns 200: the probe reports quality, not liveness, so an
+# orchestrator's liveness check keeps passing (a breached server must be
+# scaled, not killed) while automation keys off the status field.
+_health_lock = threading.Lock()
+_health = {"status": "ok", "reason": ""}
+
+
+def set_health(status: str, reason: str = "") -> None:
+    """Set the /healthz verdict ("ok" / "degraded" + reason): called by
+    the SLOMonitor's breach and recover transitions."""
+    with _health_lock:
+        _health["status"] = str(status)
+        _health["reason"] = str(reason)
+
+
 def health() -> dict:
-    """The /healthz verdict.  The port has no SLO monitor yet (ROADMAP.md),
-    so a live endpoint reports "ok"."""
-    return {"status": "ok", "reason": ""}
+    """The current /healthz verdict (a copy)."""
+    with _health_lock:
+        return dict(_health)
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -136,32 +154,6 @@ def start_metrics_server(port: int, host: str = "127.0.0.1",
 
 
 # ----------------------------------------------------------- chrome tracing
-def load_events(path: str, strict: bool = False) -> List[dict]:
-    """Parse a telemetry JSONL file.  Malformed or invalid lines are
-    skipped (``strict=True`` raises instead), so a trace still renders
-    from a partly written file of a crashed run."""
-    from .schema import validate_event
-
-    out: List[dict] = []
-    with open(path) as f:
-        for i, line in enumerate(f):
-            line = line.strip()
-            if not line:
-                continue
-            try:
-                ev = json.loads(line)
-                errs = validate_event(ev)
-                if errs:
-                    raise ValueError("; ".join(errs))
-            except ValueError as e:
-                if strict:
-                    raise ValueError(f"{path}:{i + 1}: {e}") from e
-                continue
-            out.append(ev)
-    return out
-
-
-
 #: synthetic track ids for events that carry no thread identity (small
 #: ints cannot collide with real thread idents, which are pointers/tids)
 _TRACK_STEPS = 1
@@ -261,6 +253,8 @@ def chrome_trace(events: List[dict]) -> dict:
 def export_trace(jsonl_path: str, out_path: str) -> Dict[str, int]:
     """Read a telemetry JSONL, write the Chrome-trace JSON, return
     counts for the CLI's one-line summary."""
+    from .report import load_events
+
     events = load_events(jsonl_path)
     doc = chrome_trace(events)
     with open(out_path, "w") as f:

@@ -19,8 +19,10 @@ The families are those the port's trainer, engine, batcher and router
 produce (``track_router`` / ``retire_router`` keep the router's shed
 count monotone the same way), the durability families (checkpoint saves
 and age, sentinel rollbacks, the host watchdog's heartbeat age) and the
-tiered store's two gauges.  The SLO, fleet and strategy families come
-with their modules (ROADMAP.md).  The registry is process-wide, as the
+tiered store's two gauges, the fleet identity and skew, the closed
+tuning loop's calibration error and strategy version and age, and the SLO
+monitor's budget and burn rows.  ``dlrm_elastic_reshard_total`` comes
+with ``elastic/`` (ROADMAP.md).  The registry is process-wide, as the
 JAX package's is; ``reset`` clears its live and retained state (tests).
 """
 
@@ -125,6 +127,36 @@ FAMILIES: Dict[str, Tuple[str, str]] = {
         '(rejected while closing / replica lost), saturated (router '
         'found every replica queue full) — docs/slo.md; the '
         'availability SLO reads this split'),
+    "dlrm_process_index": (
+        "gauge", "this process' index in the multi-host fleet "
+                 "(jax.process_index; 0 single-host — "
+                 "docs/distributed.md)"),
+    "dlrm_process_count": (
+        "gauge", "host processes in the fleet (jax.process_count; a "
+                 "scraper joining per-host /metrics endpoints checks "
+                 "it saw them all — docs/distributed.md)"),
+    "dlrm_sim_calibration_error_pct": (
+        "gauge", "mean per-op sim-vs-measured relative error of the "
+                 "newest calibration fit, percent"),
+    "dlrm_strategy_age_s": (
+        "gauge", "seconds since the incumbent SOAP strategy artifact "
+                 "was created (strategy freshness)"),
+    "dlrm_strategy_version": (
+        "gauge", "version number of the incumbent SOAP strategy "
+                 "artifact"),
+    "dlrm_step_skew_ms": (
+        "gauge", "fleet straggler skew: slowest minus median host "
+                 "step wall of the newest aligned step across merged "
+                 "per-process telemetry (telemetry/fleet.py — "
+                 "docs/telemetry.md)"),
+    "dlrm_slo_error_budget_pct": (
+        "gauge", "error budget remaining per declared SLO since the "
+                 "monitor started, percent (100 = untouched, 0 = "
+                 "exhausted — telemetry/slo.py, docs/slo.md)"),
+    "dlrm_slo_burn_rate": (
+        "gauge", "worst-window burn rate per declared SLO: observed "
+                 "error rate over budgeted error rate (1.0 = burning "
+                 "exactly the budget — telemetry/slo.py, docs/slo.md)"),
 }
 
 
@@ -206,6 +238,11 @@ class LabeledCounter(Metric):
         return [f'{self.name}{{{self.label}="{k}"}} {_fmt(v)}'
                 for k, v in sorted(self._fn().items())]
 
+    def sample(self) -> Dict[str, float]:
+        """{label_value: value} right now (what a scrape would see): the
+        SLOMonitor's programmatic read (``slo.py``)."""
+        return dict(self._fn())
+
 
 class LabeledGauge(LabeledCounter):
     """Pull-based gauge family with one label: ``fn`` returns
@@ -225,6 +262,11 @@ class Histogram(Metric):
         super().__init__(name)
         self.buckets = tuple(buckets)
         self._fn = fn
+
+    def sample(self) -> Tuple[List[float], float, float]:
+        """(cumulative counts per edge + +Inf, sum, count) right now: the
+        SLOMonitor's programmatic read (``slo.py``)."""
+        return self._fn()
 
     def expose(self) -> List[str]:
         cum, total_sum, n = self._fn()
@@ -252,6 +294,11 @@ class LabeledHistogram(Metric):
         self.label = label
         self.buckets = tuple(buckets)
         self._fn = fn
+
+    def sample(self) -> Dict[str, Tuple[List[float], float, float]]:
+        """{label_value: (cumulative counts, sum, count)} right now: the
+        SLOMonitor's per-bucket latency read (``slo.py``)."""
+        return dict(self._fn())
 
     def expose(self) -> List[str]:
         lines: List[str] = []
@@ -281,6 +328,13 @@ class MetricsRegistry:
                     f"duplicate metric registration: {metric.name!r}")
             self._metrics[metric.name] = metric
         return metric
+
+    def get(self, name: str) -> Optional[Metric]:
+        """The registered instrument for ``name`` (None if absent): the
+        SLOMonitor samples instruments through this instead of parsing
+        the text exposition."""
+        with self._lock:
+            return self._metrics.get(name)
 
     def names(self) -> List[str]:
         with self._lock:
@@ -698,6 +752,58 @@ def _ckpt_age() -> Optional[float]:
     return None if _last_ckpt_ts is None else time.time() - _last_ckpt_ts
 
 
+def _slo_rows(which: str) -> Callable[[], Dict[str, float]]:
+    """Collector factory for the dlrm_slo_* gauge families: defers to
+    ``slo.py`` at scrape time (a lazy import: slo.py imports this module,
+    and a process with no live SLOMonitor exposes no rows)."""
+    def fn() -> Dict[str, float]:
+        try:
+            from . import slo as _slo
+            return _slo.gauge_rows(which)
+        except Exception:
+            return {}
+    return fn
+
+
+# ----------------------------------------------------- tuning-loop gauges
+_strategy_promoted_ts: Optional[float] = None
+
+
+def note_calibration(mae_pct: float) -> None:
+    """Called by ``sim.tune.fit_calibration`` on every fit: the
+    simulator-accuracy gauge tracks the newest calibration's residual
+    error."""
+    SIM_CALIBRATION_ERROR.set(float(mae_pct))
+
+
+def note_strategy_promotion(version: int,
+                            ts: Optional[float] = None) -> None:
+    """Called by ``sim.tune.promote`` on every incumbent move (and by a
+    consumer loading an incumbent at startup): the freshness gauge ages
+    from the artifact's ``created_ts``, so a server running a week-old
+    strategy shows a week, not its own uptime."""
+    global _strategy_promoted_ts
+    _strategy_promoted_ts = time.time() if ts is None else float(ts)
+    STRATEGY_VERSION.set(int(version))
+
+
+def _strategy_age() -> Optional[float]:
+    return (None if _strategy_promoted_ts is None
+            else time.time() - _strategy_promoted_ts)
+
+
+# the fleet identity, read at scrape time so a process that joins its
+# process group after the exporter started still reports it
+def _process_index() -> Optional[float]:
+    from .fleet import process_identity
+    return float(process_identity()[0])
+
+
+def _process_count() -> Optional[float]:
+    from .fleet import process_identity
+    return float(process_identity()[1])
+
+
 # ------------------------------------------------------- the default registry
 REGISTRY = MetricsRegistry()
 
@@ -728,6 +834,10 @@ SERVE_ROUTER_SHED = REGISTRY.register(
     Gauge("dlrm_serve_router_shed_total", fn=_router_shed_total))
 SERVE_REPLICAS = REGISTRY.register(
     Gauge("dlrm_serve_replicas", fn=_serve_replicas))
+PROCESS_INDEX = REGISTRY.register(
+    Gauge("dlrm_process_index", fn=_process_index))
+PROCESS_COUNT = REGISTRY.register(
+    Gauge("dlrm_process_count", fn=_process_count))
 TRAIN_STEPS = REGISTRY.register(Counter("dlrm_train_steps_total"))
 TRAIN_SAMPLES_PER_S = REGISTRY.register(
     Gauge("dlrm_train_samples_per_s"))
@@ -738,6 +848,16 @@ CHECKPOINT_AGE = REGISTRY.register(
     Gauge("dlrm_checkpoint_age_s", fn=_ckpt_age))
 SENTINEL_ROLLBACKS = REGISTRY.register(
     Counter("dlrm_sentinel_rollbacks_total"))
+# the closed tuning loop (sim/tune.py): the newest fit's residual error,
+# and the incumbent strategy's version and age
+SIM_CALIBRATION_ERROR = REGISTRY.register(
+    Gauge("dlrm_sim_calibration_error_pct"))
+STRATEGY_AGE = REGISTRY.register(
+    Gauge("dlrm_strategy_age_s", fn=_strategy_age))
+STRATEGY_VERSION = REGISTRY.register(Gauge("dlrm_strategy_version"))
+# fleet observability (telemetry/fleet.py): fleet_data folds the newest
+# aligned step's skew in
+STEP_SKEW_MS = REGISTRY.register(Gauge("dlrm_step_skew_ms"))
 # the per-batch fit loop's measured exposed share: host time blocked on
 # the final device fence as a percent of the fit window's wall
 EXPOSED_COMM_PCT = REGISTRY.register(Gauge("dlrm_exposed_comm_pct"))
@@ -755,6 +875,13 @@ EMBED_CACHE_MISS_STALL_US = REGISTRY.register(
     Gauge("dlrm_embed_cache_miss_stall_us"))
 SERVE_SHED = REGISTRY.register(
     LabeledCounter("dlrm_serve_shed_total", "cause", _shed_causes))
+# the serving SLO monitor (telemetry/slo.py): per-SLO budget and burn
+# rows, which appear with a live SLOMonitor and vanish with it
+SLO_ERROR_BUDGET = REGISTRY.register(
+    LabeledGauge("dlrm_slo_error_budget_pct", "slo",
+                 _slo_rows("budget_pct")))
+SLO_BURN_RATE = REGISTRY.register(
+    LabeledGauge("dlrm_slo_burn_rate", "slo", _slo_rows("burn")))
 
 
 def reset() -> None:
@@ -785,13 +912,15 @@ def reset() -> None:
         _retired_router_shed = 0
     for r in list(_live_routers):
         _live_routers.discard(r)
-    global _last_ckpt_ts
+    global _last_ckpt_ts, _strategy_promoted_ts
     _last_ckpt_ts = None
+    _strategy_promoted_ts = None
     for c in (TRAIN_STEPS, CHECKPOINT_SAVES, SENTINEL_ROLLBACKS,
               REPLICA_EJECTED):
         with c._lock:
             c._v = 0.0
     for g in (TRAIN_SAMPLES_PER_S, DATA_STALL_PCT, EXPOSED_COMM_PCT,
               HOST_HEARTBEAT_AGE, EMBED_CACHE_HIT_PCT,
-              EMBED_CACHE_MISS_STALL_US):
+              EMBED_CACHE_MISS_STALL_US, SIM_CALIBRATION_ERROR,
+              STRATEGY_VERSION, STEP_SKEW_MS):
         g._v = None

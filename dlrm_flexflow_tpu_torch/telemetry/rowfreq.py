@@ -258,3 +258,34 @@ def emit_all(log: Optional[EventLog] = None) -> int:
         if c.emit(log) is not None:
             emitted += 1
     return emitted
+
+
+def row_freq_summary(events: List[dict]) -> List[str]:
+    """The ``== row frequency ==`` report section: per table (newest
+    event wins), total and distinct ids, the hottest rows first, and
+    the power-of-two count histogram."""
+    rfs = [e for e in events if e.get("type") == "row_freq"]
+    if not rfs:
+        return []
+    latest: Dict[str, dict] = {}
+    for e in rfs:
+        latest[e["table"]] = e
+    lines = ["== row frequency =="]
+    for table in sorted(latest):
+        e = latest[table]
+        lines.append(f"{table}: {e['rows_seen']} ids seen, "
+                     f"{e['unique_ids']} distinct"
+                     + (f", {e['evicted']} cold ids evicted"
+                        if e.get("evicted") else ""))
+        ids = e.get("top_ids") or []
+        cts = e.get("top_counts") or []
+        if ids:
+            hot = "  ".join(f"{i}({c})" for i, c in
+                            list(zip(ids, cts))[:8])
+            lines.append(f"  hottest rows: {hot}")
+        buckets = e.get("bucket_counts") or []
+        if buckets:
+            hist = "  ".join(f"2^{b}:{n}" for b, n in
+                             enumerate(buckets) if n)
+            lines.append(f"  count histogram: {hist}")
+    return lines

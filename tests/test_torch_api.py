@@ -323,7 +323,10 @@ def test_public_pairs_cover_the_ported_modules():
                  "storage.policy:make_policy", "sim.search:mcmc_search",
                  "sim.simulator:Simulator",
                  "parallel.parallel_config:Strategy",
-                 "model:FFModel.compile"):
+                 "model:FFModel.compile", "sim.tune:search_tune",
+                 "sim.tune:gate_candidate", "telemetry.slo:SLOMonitor",
+                 "telemetry.report:report_data",
+                 "telemetry.regress:compare"):
         assert must in names, must
     assert set(_ALLOWED) <= names
 

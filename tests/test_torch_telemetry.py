@@ -42,6 +42,7 @@ from dlrm_flexflow_tpu_torch.bridge import params_from_jax
 from dlrm_flexflow_tpu_torch.serving import DynamicBatcher, InferenceEngine
 from dlrm_flexflow_tpu_torch.telemetry import exporter as pexporter
 from dlrm_flexflow_tpu_torch.telemetry import metrics as pmetrics
+from dlrm_flexflow_tpu_torch.telemetry import report as preport
 from dlrm_flexflow_tpu_torch.telemetry import rowfreq as prowfreq
 from dlrm_flexflow_tpu_torch.telemetry import schema as pschema
 
@@ -268,7 +269,7 @@ def test_chrome_trace_of_a_run(tmp_path):
     assert counts["spans"] == 6 and counts["events"] > counts["spans"]
     names = {e["name"] for e in doc["traceEvents"]}
     assert {"train.fit", "train.epoch", "train.dispatch"} <= names
-    assert doc == jexporter.chrome_trace(pexporter.load_events(str(sink)))
+    assert doc == jexporter.chrome_trace(preport.load_events(str(sink)))
 
 
 def test_rowfreq_top_k_matches_jax():
