@@ -31,7 +31,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      boundary, n from 0 to 65,536, d 16/64/128, f32/bf16 updates and
      a float or tensor scale, and twice for determinism; and on bf16
      tables (n = 2048 on 1M x 64, uniform and zipf, the small-R and the
-     wrap/drop cases);
+     wrap/drop cases); and at NMT's widths (n = 64 x 40 int32 ids into
+     20,480 rows of d = 1024 and 2048, uniform, zipf and one id, f32
+     and bf16 tables);
   7. hold the fused backward kernel against its plain version, with and
      without the safe ids it writes for the scatter (bit-exact against
      gids.clamp_min(0)): the model's table at B = 1, 7, 256 and bag 0,
@@ -182,7 +184,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
      sections (per_op, calibration, tuning, serving and slo among them),
      report --flight on (d)'s record, regress on this run's entries
      stamped with the card's name: 0 against themselves, non-zero
-     against a copy 20% slower.
+     against a copy 20% slower;
+ 24. the reference's five other apps at their published widths and
+     depth (apps/*.py defaults: AlexNet at 229, ResNet-50 3/4/6/3 at
+     224, Inception-v3 at 299, Candle-Uno, NMT at vocabulary 20,480 and
+     2048 wide), batch 64, each with its CLI's optimizer, loss and data:
+     NMT's step through B2 against the same step on row_update_ref bit
+     for bit, four graphed steps against four eager ones bit for bit
+     (batch-norm statistics included), then the main path, fit over the
+     CLI's four batches (NMT: B2 twice a step, B5 at the epoch cache's
+     writebacks), five timed graphed steps; the ops count, parameter
+     bytes, losses, peak memory, step wall, and the f64 dense layer's
+     forward and backward beside its step (AlexNet's 9216 -> 4096,
+     NMT's 20,480-wide projection) are printed;
+ 25. one forward and one SGD step (lr 0.01) of each app at batch 2, full
+     width, on the card against the port's CPU path from the same
+     parameters: logits, loss and the parameters' change within
+     CARD_VS_CPU_TOL (TF32 would show);
+ 26. B2 timed at NMT's shape (n = 2560, d = 2048, f32) beside its plain
+     version, index_add_ and the bytes bound;
+ 27. small graphs of the ops no app uses (batch norm, dropout, mixture of
+     experts, attention causal and not, split, reverse, the elementwise
+     ops): four graphed steps against four eager ones bit for bit, four
+     steps on the card against the CPU (losses and the change of every
+     parameter and running statistic within SMALL_TOL), the dropout
+     masks of each step equal on the card and the CPU, and at lr 0 the
+     loss of one batch different on every replay.  Each of phases
+     24-27 prints its wall.
 Profile lines carry the graph replays in their window, the graph pool's
 bytes and the host's launches per dispatch or step.
 The line before the last is the kernels' JSON record; the last line is
@@ -237,6 +265,7 @@ from dlrm_flexflow_tpu_torch.ops.row_update_kernel import (
     launch_row_update, prepare_row_update_cuda, prepare_row_update_ref,
     row_update_cuda, row_update_ref)
 from dlrm_flexflow_tpu_torch.ops.slotting import slot_rows
+from dlrm_flexflow_tpu_torch.ops.softmax import dropout_keep, fold_in
 from dlrm_flexflow_tpu_torch.parallel import Strategy
 from dlrm_flexflow_tpu_torch.profiling import OpTimer
 from dlrm_flexflow_tpu_torch.resilience import (CheckpointManager,
@@ -290,6 +319,10 @@ L2_ROWS = 100_000
 # BENCH_HOT_ROWS, BENCH_ID_DIST=zipf at its default exponent)
 HOT_ROWS = 4096
 ZIPF_ALPHA = 1.05
+# phases 24-26: the apps' batch (FFConfig's default) and NMT's embedding
+# tables (nmt.py defaults): 20,480 rows of 2048, 64 x 40 ids a step
+APP_BATCH = 64
+NMT_ROWS, NMT_DIM, NMT_IDS = 20 * 1024, 2048, APP_BATCH * 40
 KERNELS = {
     "fused_interact_fwd": (
         "dlrm_flexflow_tpu_torch/csrc/fused_interact.cu",
@@ -1055,6 +1088,12 @@ def _row_update_cases():
     cases += [c[:7] + (bf16,) for c in cases
               if c[0] == "wrap_drop" and c[7] == f32
               and c[2] in (None, 255, 256, 257, 2 ** 16, 2 ** 16 + 1)]
+    # NMT's embeddings (phase 24): n = 64 x 40 int32 token ids into
+    # 20,480 rows of d = 1024 and 2048 (the update kernel's widest column
+    # loops), updates in the table's dtype, f32 and bf16 tables
+    cases += [(k, NMT_IDS, NMT_ROWS, d, torch.int32, dt, "tensor", dt)
+              for k in ("uniform", "zipf", "one_id") for d in (1024, NMT_DIM)
+              for dt in (f32, bf16)]
     return cases
 
 
@@ -1284,9 +1323,10 @@ def _finite(mets) -> bool:
 
 
 def _tensors(state):
-    """``(path, tensor)`` of every parameter and every optimizer-state
-    tensor (step, lr and the slot tables) of ``state``."""
-    return flatten((state.params, state.opt_state))
+    """``(path, tensor)`` of every parameter, every optimizer-state
+    tensor (step, lr and the slot tables) and every batch-norm statistic
+    of ``state``."""
+    return flatten((state.params, state.opt_state, state.bn_state))
 
 
 def _same_step(model, state, inputs, labels, module, name, plain_fn,
@@ -1346,8 +1386,12 @@ def check_graphed_vs_eager(model, state, inputs, labels, config: str,
         eager, em = model.train_step(eager, x, y, False)
         graphed, gm = model.train_step(graphed, x, y)
         torch.cuda.synchronize()
-        same = same and all(torch.equal(em[m], gm[m]) for m in em)
-        err = max([err] + [float((em[m] - gm[m]).abs()) for m in em])
+        # NaN equal to NaN: NMT's sparse_cce metric reads the logits, as
+        # the JAX package's does (ROADMAP Queue C), and is NaN in both
+        same = same and all(torch.equal(em[m], gm[m]) or bool(
+            torch.isnan(em[m]) and torch.isnan(gm[m])) for m in em)
+        err = max([err] + [float((em[m] - gm[m]).abs().nan_to_num())
+                           for m in em])
     for (_, v), (_, w) in zip(_tensors(graphed), _tensors(eager)):
         same = same and torch.equal(v, w)
         err = max(err, float((v - w).abs().max()))
@@ -4123,6 +4167,502 @@ def tuning_phase(card, serve_p99_us):
             "reports": reports}, counts
 
 
+# -------------------------------------------------------------- phase 24
+#: the reference's five other apps, each at its published widths and
+#: depth (apps/*.py defaults) and the FFConfig default batch of 64
+APPS = ("alexnet", "resnet", "inception", "candle_uno", "nmt")
+#: each app's large f64-accumulated dense layer (ops/base.py::matmul), by
+#: op name: the share of the step it takes is information for ROADMAP
+#: Queue A item 1
+F64_LAYERS = {"alexnet": "dense", "nmt": "proj"}
+#: card against the port's CPU path at batch 2 (phase 25): of the loss's
+#: input (the logits) after one forward, the largest difference over the
+#: largest magnitude; of the loss, the relative difference; of the
+#: parameters' change after one SGD step, the L2 norm of the difference
+#: over the L2 norm of the change, all parameters together, within the
+#: larger of "update_l2" and "spread_x" times the CPU's own spread: the
+#: same CPU step's change on inputs moved by 1e-7 of their size.  A deep
+#: net without normalisation (ResNet-50 at random weights) is that
+#: sensitive: a pre-activation within rounding of zero takes the other
+#: side of a relu, and its whole term moves the gradients (2.0e-4 in L2
+#: between two CPU steps at batch 2 whose inputs differ by 1e-7).  The
+#: largest single difference and its tensor are printed.
+#: TF32 in the convolutions or their backward (10-bit mantissas) would
+#: show at about 1e-3 in the logits, and its rounding, some 1e4 times
+#: f32's, far above ten spreads in the update.
+CARD_VS_CPU_TOL = {"logits": 1e-4, "loss": 1e-5, "update_l2": 1e-4,
+                   "spread_x": 10.0}
+
+
+def _app(app, batch, optimizer=None):
+    """(model compiled with the CLI's optimizer and loss, or with
+    ``optimizer``; a function of n giving the CLI's data loader of n
+    batches)."""
+    from dlrm_flexflow_tpu_torch.apps import (alexnet, candle_uno,
+                                              inception, nmt, resnet)
+    ffc = FFConfig(batch_size=batch)
+    if app in ("alexnet", "resnet", "inception"):
+        mod = {"alexnet": alexnet, "resnet": resnet,
+               "inception": inception}[app]
+        model = getattr(mod, f"build_{app}")(ffc)
+        opt = SGDOptimizer(lr=0.001)
+        loader = lambda n: mod.cli_loader(ffc, n)  # noqa: E731
+    elif app == "candle_uno":
+        mod, cfg = candle_uno, candle_uno.CandleConfig()
+        model = mod.build_candle_uno(cfg, ffc)
+        opt = AdamOptimizer(lr=ffc.learning_rate)
+        loader = lambda n: mod.cli_loader(cfg, ffc, n)  # noqa: E731
+    else:
+        mod, cfg = nmt, nmt.NMTConfig()
+        model = mod.build_nmt(cfg, ffc)
+        opt = SGDOptimizer(lr=ffc.learning_rate)
+        loader = lambda n: mod.cli_loader(cfg, ffc, n)  # noqa: E731
+    model.compile(optimizer=optimizer or opt, loss_type=mod.LOSS,
+                  metrics=mod.METRICS)
+    return model, loader
+
+
+def _stacked(loader):
+    """A loader's batches as (num_batches, batch, ...) arrays."""
+    steps = list(loader)
+    return ({k: np.stack([s[0][k] for s in steps]) for k in steps[0][0]},
+            np.stack([s[1] for s in steps]))
+
+
+def _f64_layer_ms(model, state, name, batch):
+    """Device ms of one Linear op's forward and backward at the step's
+    shapes, as the port runs it (f64 accumulation, ``ops/base.py::
+    matmul``), and of the same three products in f32 (cuBLAS without
+    TF32; information: what the f64 rule costs)."""
+    op = model.get_op(name)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    shape = (batch,) + tuple(op.inputs[0].shape[1:])
+    x = torch.randn(shape, generator=gen, device="cuda").requires_grad_()
+    params = {k: v.detach().clone().requires_grad_()
+              for k, v in state.params[name].items()}
+    gy = torch.randn((batch,) + tuple(op.outputs[0].shape[1:]),
+                     generator=gen, device="cuda")
+    leaves = [x] + list(params.values())
+
+    def port():
+        (y,) = op.forward(params, [x])
+        return torch.autograd.grad(y, leaves, gy)
+
+    w = params["kernel"].detach()
+    xd, gd = x.detach().reshape(-1, w.shape[0]), gy.reshape(-1, w.shape[1])
+
+    def f32():
+        return xd @ w, gd @ w.t(), xd.t() @ gd
+
+    return graph_ms(port, [()]), graph_ms(f32, [()])
+
+
+def train_app(app):
+    """(i)-(iv) of phase 24 for one app at batch 64: one step through B2
+    held bit for bit against the same step on ``row_update_ref`` (NMT, the
+    app whose embeddings train row-sparse), four graphed steps against
+    four eager ones bit for bit, the main path (``fit`` over the CLI's
+    four batches, launches counted), then two warm and five timed graphed
+    steps (losses, step wall); the f64 dense layer's share of that step;
+    the parameter bytes and the peak memory.  Returns (row, main-path
+    launches)."""
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # earlier phases' live tensors
+    t_start = time.perf_counter()
+    model, loader = _app(app, APP_BATCH)
+    state = model.init(seed=0)
+    inputs, labels = _stacked(loader(4))
+    step0 = ({k: v[0] for k, v in inputs.items()}, labels[0])
+    if app == "nmt":
+        same, err = _same_step(model, state, *step0, emb_module,
+                               "row_update_cuda", row_update_ref)
+        log({"phase": "train_vs_plain", "config": app,
+             "plain": "row_update_ref", "bit_identical": same,
+             "max_abs_err": err})
+        if not same:
+            raise AssertionError("nmt step through the row-update kernel "
+                                 "!= the same step on row_update_ref")
+    check_graphed_vs_eager(model, state, inputs, labels, app)
+    graphs0, steps0 = _graph_counts(model), int(state.step)
+    reset_counts()  # the main path starts here
+    state, thpt = model.fit(state, loader(4), epochs=1, verbose=False)
+    torch.cuda.synchronize()
+    counts = read_counts()  # ... and ends here
+    fit_steps = int(state.step) - steps0  # fit's warm-up step included
+    fit_graphs = {k: v - graphs0[k] for k, v in _graph_counts(model).items()}
+    fit_means = model.get_perf_metrics().finalized_means()
+    losses = []
+    for i in range(7):
+        if i == 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, mets = model.train_step(state, {k: v[i % 4] for k, v in
+                                               inputs.items()}, labels[i % 4])
+        losses.append(mets["loss"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / 5
+    losses = [float(v) for v in losses]
+    row = {"phase": "app_train", "app": app, "batch": APP_BATCH,
+           "ops": len(model.layers),
+           "param_bytes": sum(v.numel() * v.element_size()
+                              for d in state.params.values()
+                              for v in d.values()),
+           "optimizer": type(model.optimizer).__name__,
+           "loss_type": model.loss_type, "sparse_ops":
+               [op.name for op in model._sparse_ops],
+           "fit_steps": fit_steps, "fit_launches": counts,
+           "fit_graphs": fit_graphs,
+           "fit_samples_per_s": thpt, "fit_metrics": fit_means,
+           "losses": losses, "graphed_step_wall_ms": step_ms,
+           "samples_per_s": APP_BATCH / step_ms * 1e3,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated() - held,
+           "held_before_bytes": held,
+           "cuts": "none (published widths and depth, batch 64)"}
+    if app in F64_LAYERS:
+        f64_ms, f32_ms = _f64_layer_ms(model, state, F64_LAYERS[app],
+                                       APP_BATCH)
+        row["f64_layer"] = {"op": F64_LAYERS[app], "fwd_bwd_ms": f64_ms,
+                            "share_of_step": f64_ms / step_ms,
+                            "f32_products_ms": f32_ms}
+    row["wall_s"] = time.perf_counter() - t_start
+    log(row)
+    # NMT's sparse_cce metric takes the log of its logits, NaN in the JAX
+    # package too (ROADMAP Queue C): every other metric must be finite
+    checked = [float(v) for k, v in fit_means.items()
+               if not (app == "nmt" and k == "sparse_cce")]
+    if not all(np.isfinite(losses + checked)):
+        raise AssertionError(f"{app}: a non-finite loss or metric")
+    if app == "nmt" and (counts["row_update"] != 2 * fit_steps
+                         or counts["row_update_prep"] != counts[
+                             "row_update"]):
+        raise AssertionError(f"nmt: {counts['row_update']} row updates "
+                             f"for {fit_steps} steps (2 a step)")
+    if app != "nmt" and any(counts.values()):
+        raise AssertionError(f"{app}: a kernel launched on a path that has "
+                             f"none: {counts}")
+    del model, state
+    _free()
+    return row, counts
+
+
+# -------------------------------------------------------------- phase 25
+def _rel(a, b) -> float:
+    """max |a - b| over max |b|, on the CPU in f64."""
+    a, b = a.detach().double().cpu(), b.detach().double().cpu()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def _logits(model, state, inputs):
+    """The loss's input (the logits under a Softmax op) of one eval
+    forward."""
+    dev = params_device_of(state)
+    with torch.no_grad():
+        values, _ = model._apply(state.params,
+                                 model._place_inputs(inputs, dev),
+                                 bn_state=state.bn_state)
+    return values[model._loss_uid]
+
+
+def params_device_of(state):
+    return next(v for d in state.params.values() for v in d.values()).device
+
+
+def _cpu_params(state):
+    """Copies of a state's parameters on the CPU."""
+    return {op: {k: v.to("cpu", copy=True) for k, v in d.items()}
+            for op, d in state.params.items()}
+
+
+def app_card_vs_cpu(app):
+    """One forward and one SGD step (lr 0.01) of one app at batch 2, full
+    width and depth, on the card and on the port's CPU path from the same
+    parameters: the logits, the loss and every parameter's change within
+    ``CARD_VS_CPU_TOL``.  Returns (row, launches)."""
+    model, loader = _app(app, 2, optimizer=SGDOptimizer(lr=0.01))
+    card = model.init(seed=0)
+    cpu = model.load_params(_cpu_params(card), device="cpu")
+    before = cpu.clone()
+    x, y = next(iter(loader(1)))
+    t0 = time.perf_counter()
+    logits_err = _rel(_logits(model, card, x), _logits(model, cpu, x))
+    reset_counts()
+    card, mc = model.train_step(card, x, y)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    cpu, mp = model.train_step(cpu, x, y)
+    loss_err = _rel(mc["loss"], mp["loss"])
+    # the CPU's own spread: the step on inputs moved by 1e-7 of their size
+    # (none for a graph of integer inputs alone: NMT's tokens)
+    rng = np.random.default_rng(19)
+    moved = {k: (v * (1 + 1e-7 * rng.standard_normal(v.shape))).astype(
+        v.dtype) if v.dtype.kind == "f" else v for k, v in x.items()}
+    spread_state = (model.train_step(before, moved, y, donate=False)[0]
+                    if any(v.dtype.kind == "f" for v in x.values()) else cpu)
+    diff = scale = sq_diff = sq_scale = sq_spread = 0.0
+    worst = (0.0, None)
+    for op, d in cpu.params.items():
+        for k, v in d.items():
+            want = (v - before.params[op][k]).double()
+            got = (card.params[op][k].cpu() - before.params[op][k]).double()
+            near = (spread_state.params[op][k] - before.params[op][k]
+                    ).double()
+            gap, size = float((got - want).abs().max()), float(
+                want.abs().max())
+            diff, scale = max(diff, gap), max(scale, size)
+            sq_diff += float(((got - want) ** 2).sum())
+            sq_spread += float(((near - want) ** 2).sum())
+            sq_scale += float((want ** 2).sum())
+            if size > 0 and gap / size > worst[0]:
+                worst = (gap / size, f"{op}/{k}")
+    upd_err = (sq_diff / max(sq_scale, 1e-300)) ** 0.5
+    spread = (sq_spread / max(sq_scale, 1e-300)) ** 0.5
+    upd_tol = max(CARD_VS_CPU_TOL["update_l2"],
+                  CARD_VS_CPU_TOL["spread_x"] * spread)
+    row = {"phase": "app_card_vs_cpu", "app": app, "batch": 2,
+           "logits_rel_err": logits_err, "loss_rel_err": loss_err,
+           "update_l2_rel_err": upd_err, "cpu_spread_l2": spread,
+           "update_l2_tolerance": upd_tol,
+           "update_max_rel_err": diff / max(scale, 1e-30),
+           "worst_tensor_update_rel_err": {"param": worst[1],
+                                           "err": worst[0]},
+           "tolerance": CARD_VS_CPU_TOL,
+           "launches": counts, "wall_s": time.perf_counter() - t0}
+    row["ok"] = (logits_err <= CARD_VS_CPU_TOL["logits"]
+                 and loss_err <= CARD_VS_CPU_TOL["loss"]
+                 and upd_err <= upd_tol)
+    log(row)
+    if not row["ok"]:
+        raise AssertionError(f"{app}: the card's forward or step differs "
+                             f"from the CPU's beyond the tolerance")
+    del model, card, cpu, before
+    _free()
+    return row, counts
+
+
+# -------------------------------------------------------------- phase 26
+def time_row_update_nmt(sets: int = 16):
+    """B2 at NMT's shape (n = 64 * 40 uniform token ids into a 20,480 x
+    2048 f32 table, f32 updates, as ``src_embed``'s step): the whole call
+    from a CUDA graph, beside its plain version, ``index_add_`` (the same
+    sum in an atomic order) and the bytes bound."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    table = _rows_tensor(gen, NMT_ROWS, NMT_DIM)
+    arg_sets = [(table, torch.randint(0, NMT_ROWS, (NMT_IDS,), generator=gen,
+                                      device="cuda", dtype=torch.int32),
+                 torch.randn((NMT_IDS, NMT_DIM), generator=gen,
+                             device="cuda"),
+                 torch.tensor(-0.01, device="cuda")) for _ in range(sets)]
+    uniq = sum(int(torch.unique(a[1]).numel()) for a in arg_sets) / sets
+    n, d = NMT_IDS, NMT_DIM
+    nbytes = 2 * uniq * d * 4 + n * d * 4 + n * 4
+    bound_ms, bound_by = _bound(nbytes, 2 * n * d)
+    row = {"phase": "timing", "kernel": "row_update", "shape": "nmt",
+           "n": n, "d": d, "rows": NMT_ROWS, "table_dtype": "float32",
+           "distinct_rows": uniq,
+           "mean_longest_run": sum(_longest_run(a[1].long(), NMT_ROWS)
+                                   for a in arg_sets) / sets,
+           "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
+           "ms": graph_ms(row_update_cuda, arg_sets),
+           "plain_ms": wall_ms(row_update_ref, arg_sets[:8]),
+           "library_ms": graph_ms(
+               lambda t, i, u, s: t.index_add_(0, i, u, alpha=-0.01),
+               arg_sets)}
+    row["share_of_bound"] = bound_ms / row["ms"]
+    log(row)
+    del table, arg_sets
+    _free()
+    return row
+
+
+# -------------------------------------------------------------- phase 27
+def _small_graph(kind):
+    """(model, inputs (4, B, ...), labels (4, B, ...)) of one small graph
+    of the ops that no app uses, compiled with SGD at 0.05 (``kind``
+    "dropout_fixed": the dropout graph at lr 0, so only the masks move
+    its loss)."""
+    b = 8
+    m = FFModel(FFConfig(batch_size=b))
+    rng = np.random.default_rng(17)
+    loss, nout = "mean_squared_error", 1
+    if kind == "batch_norm":
+        x = m.create_tensor((b, 3, 12, 12), name="x")
+        t = m.conv2d(x, 8, 3, 3, 1, 1, 1, 1)
+        t = m.batch_norm(t, relu=True)
+        t = m.pool2d(t, 2, 2, 2, 2, 0, 0)
+        t = m.batch_norm(t)
+        t = m.dense(m.flat(t), 5)
+        m.softmax(t)
+        loss, nout = "sparse_categorical_crossentropy", 5
+        shape = (3, 12, 12)
+    elif kind in ("dropout", "dropout_fixed"):
+        x = m.create_tensor((b, 64), name="x")
+        t = m.dense(x, 256, activation="relu")
+        t = m.dropout(t, 0.5)
+        t = m.dense(t, 64, activation="tanh")
+        t = m.dropout(t, 0.25, seed=3)
+        m.dense(t, 1)
+        shape = (64,)
+    elif kind == "moe":
+        x = m.create_tensor((b, 32), name="x")
+        t = m.moe(x, 8, 64, top_k=2)
+        t = m.moe(t, 4, 16, top_k=4)
+        m.dense(t, 1)
+        shape = (32,)
+    elif kind == "attention":
+        x = m.create_tensor((b, 16, 32), name="x")
+        t = m.multihead_attention(x, x, x, 32, 4, causal=True)
+        t = m.multihead_attention(t, x, x, 32, 2, causal=False)
+        m.dense(m.flat(t), 1)
+        shape = (16, 32)
+    else:  # split, reverse and the elementwise ops
+        x = m.create_tensor((b, 48), name="x")
+        t = m.dense(x, 48)
+        a, c, e = m.split(t, [16, 16, 16], 1)
+        c = m.reverse(c, 1)
+        t = m.add(m.multiply(m.sigmoid(a), m.tanh(c)),
+                  m.divide(m.exp(m.scalar_multiply(e, 0.1)),
+                           m.scalar_add(m.pow(m.relu(e), 2.0), 1.0)))
+        t = m.subtract(m.gelu(t), m.elu(m.scalar_sub(t, 0.5)))
+        t = m.identity(m.scalar_truediv(t, 3.0))
+        m.dense(t, 1)
+        shape = (48,)
+    lr = 0.0 if kind == "dropout_fixed" else 0.05
+    m.compile(optimizer=SGDOptimizer(lr=lr), loss_type=loss, metrics=())
+    xs = rng.standard_normal((4, b) + shape).astype(np.float32)
+    if kind == "dropout_fixed":
+        xs[:] = xs[0]
+    if nout == 1:
+        ys = rng.standard_normal((4, b, 1)).astype(np.float32)
+    else:
+        ys = rng.integers(0, nout, size=(4, b, 1)).astype(np.int32)
+    return m, {"x": xs}, ys
+
+
+SMALL_GRAPHS = ("batch_norm", "dropout", "dropout_fixed", "moe",
+                "attention", "elementwise")
+#: the small graphs' card against CPU after 4 SGD steps: each loss
+#: relative to itself; the change of every parameter and batch-norm
+#: statistic over the 4 steps, all together, in L2 relative to the
+#: change's own L2 (a tensor whose gradient is zero in exact arithmetic,
+#: such as a convolution's bias in front of a batch norm, moves by
+#: rounding alone, differently on each device; the worst tensor is
+#: printed)
+SMALL_TOL = 1e-4
+
+
+def _change_l2(card_now, cpu_now, start):
+    """(L2 of the card's change minus the CPU's over L2 of the CPU's
+    change, all tensors together; the tensor where they differ most,
+    relative to its own change)."""
+    sq_diff = sq_scale = 0.0
+    worst = (0.0, None)
+    for (p, c), (_, h), (_, s0) in zip(flatten(card_now), flatten(cpu_now),
+                                       flatten(start)):
+        got = (c.detach().cpu() - s0).double()
+        want = (h - s0).double()
+        sq_diff += float(((got - want) ** 2).sum())
+        sq_scale += float((want ** 2).sum())
+        size = float(want.abs().max())
+        if size > 0:
+            gap = float((got - want).abs().max()) / size
+            if gap > worst[0]:
+                worst = (gap, "/".join(map(str, p)))
+    err = (sq_diff / sq_scale) ** 0.5 if sq_scale else sq_diff ** 0.5
+    return err, worst
+
+
+def small_graph(kind):
+    """One small graph on the card: four graphed steps against four eager
+    ones bit for bit (parameters, batch-norm statistics, metrics), then
+    the same four steps on the port's CPU path from the same state within
+    ``SMALL_TOL``; for the dropout graphs each step's masks drawn on the
+    card equal the CPU's, and at lr 0 the graphed losses of one batch
+    differ from replay to replay."""
+    model, inputs, labels = _small_graph(kind)
+    state = model.init(seed=0)
+    cpu = model.load_params(_cpu_params(state), device="cpu")
+    check_graphed_vs_eager(model, state, inputs, labels, kind)
+    masks_equal, losses = None, []
+    if kind.startswith("dropout"):
+        masks_equal = True
+        for step in range(4):
+            for st in (state, cpu):
+                st.step.fill_(step)
+            key_card = fold_in(state.rng, state.step)
+            key_cpu = fold_in(cpu.rng, cpu.step)
+            masks_equal = masks_equal and torch.equal(
+                key_card.cpu(), key_cpu) and torch.equal(
+                dropout_keep(key_card, (8, 256), 0.5).cpu(),
+                dropout_keep(key_cpu, (8, 256), 0.5))
+        for st in (state, cpu):
+            st.step.fill_(0)
+    held_bn = {k: v.clone() for k, v in flatten(state.bn_state)}
+    start = _cpu_params(cpu), {
+        op: {k: v.clone() for k, v in d.items()}
+        for op, d in cpu.bn_state.items()}
+    for i in range(4):
+        x, y = {"x": inputs["x"][i]}, labels[i]
+        state, mc = model.train_step(state, x, y)
+        cpu, mp = model.train_step(cpu, x, y)
+        losses.append((float(mc["loss"]), float(mp["loss"])))
+    torch.cuda.synchronize()
+    loss_err = max(_rel(torch.tensor(a), torch.tensor(b)) for a, b in losses)
+    change_err, worst = _change_l2((state.params, state.bn_state),
+                                   (cpu.params, cpu.bn_state), start)
+    err = max(loss_err, change_err)
+    bn_moved = (all(not torch.equal(v, held_bn[p])
+                    for p, v in flatten(state.bn_state))
+                if state.bn_state else None)
+    row = {"phase": "small_graph", "graph": kind,
+           "ops": sorted({op.op_type for op in model.layers}),
+           "losses_card_cpu": losses, "loss_rel_err": loss_err,
+           "change_l2_rel_err": change_err,
+           "worst_tensor": {"name": worst[1], "err": worst[0]},
+           "tolerance": SMALL_TOL, "bn_state_moved": bn_moved,
+           "masks_card_eq_cpu": masks_equal}
+    ok = (err <= SMALL_TOL and bn_moved in (None, True)
+          and masks_equal in (None, True))
+    if kind == "dropout_fixed":
+        card_losses = [a for a, _ in losses]
+        row["replay_losses_distinct"] = len(set(card_losses)) == 4
+        ok = ok and row["replay_losses_distinct"]
+    row["ok"] = bool(ok)
+    log(row)
+    if not ok:
+        raise AssertionError(f"small graph {kind} failed on the card")
+    del model, state, cpu
+    _free()
+
+
+def apps_phase():
+    """Phases 24-27: the five apps trained at their published widths, each
+    against the port's CPU path at batch 2, B2 at NMT's shape, the small
+    graphs of the other ops.  Returns (rows, main-path launches, B2's
+    NMT timing)."""
+    rows, total = {}, None
+    for app in APPS:
+        t0 = time.perf_counter()
+        row, counts = train_app(app)
+        log({"phase": "wall", "name": f"app_train {app}",
+             "wall_s": time.perf_counter() - t0})
+        rows[app] = row
+        total = counts if total is None else {k: total[k] + counts[k]
+                                              for k in total}
+    t0 = time.perf_counter()
+    for app in APPS:
+        app_card_vs_cpu(app)
+    log({"phase": "wall", "name": "app_card_vs_cpu",
+         "wall_s": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    nmt_b2 = time_row_update_nmt()
+    for kind in SMALL_GRAPHS:
+        small_graph(kind)
+    log({"phase": "wall", "name": "b2_nmt_timing and small_graphs",
+         "wall_s": time.perf_counter() - t0})
+    return rows, total, nmt_b2
+
+
 def _entry(name, launches, err, timing):
     source, replaces, _ = KERNELS[name]
     return {"name": name, "route": "cuda", "source": source,
@@ -4216,10 +4756,14 @@ def main() -> int:
     # twice, the real gate), the SLO monitor over the fused engine, and
     # the report and regress CLIs (B3, B4, B2)
     tuned, tune_counts = tuning_phase(card, serve_p99_us)
+    # phases 24-27: the five other apps at their published widths (NMT's
+    # embeddings through B2 and B5), each against the CPU path, B2 at
+    # NMT's shape, the small graphs of the other ops
+    apps, apps_counts, nmt_b2 = apps_phase()
     path_counts = (headline_counts, sparse_counts, dense_counts, dot_counts,
                    staged_counts, bag_counts, bf16_counts, bag16_counts,
                    durable_counts, tiered_counts, lazy_counts, soap_counts,
-                   tune_counts)
+                   tune_counts, apps_counts)
     row_launches = sum(c["row_update"] for c in path_counts)
     prep_launches = sum(c["row_update_prep"] for c in path_counts)
     if prep_launches != row_launches:
@@ -4257,6 +4801,15 @@ def main() -> int:
          "tune_real_step_ms": {
              "candidate": tuned["real"]["candidate_s"] * 1e3,
              "incumbent": tuned["real"]["incumbent_s"] * 1e3},
+         "app_graphed_step_wall_ms": {
+             a: r["graphed_step_wall_ms"] for a, r in apps.items()},
+         "app_peak_memory_bytes": {
+             a: r["peak_memory_bytes"] for a, r in apps.items()},
+         "f64_layer_share_of_step": {
+             a: r["f64_layer"]["share_of_step"] for a, r in apps.items()
+             if "f64_layer" in r},
+         "row_update_nmt_ms": {k: nmt_b2[k] for k in (
+             "ms", "plain_ms", "library_ms", "bound_ms")},
          "note": "walls include each path's eager step and capture"})
     log({"kernels": [
         _entry("fused_interact_fwd",
@@ -4273,8 +4826,8 @@ def main() -> int:
         _entry("row_update", row_launches, row_err, row_time),
         _entry("row_update_prep", prep_launches, prep_err, prep_time),
         _entry("row_set", staged_counts["row_set"] + bf16_counts["row_set"]
-               + tiered_counts["row_set"] + lazy_counts["row_set"], set_err,
-               set_time),
+               + tiered_counts["row_set"] + lazy_counts["row_set"]
+               + apps_counts["row_set"], set_err, set_time),
         _entry("embedding_bag", bag_counts["embedding_bag"]
                + bag16_counts["embedding_bag"], bag_err, bag_time)]})
     log({"ok": True, "device": {"platform": "gpu",

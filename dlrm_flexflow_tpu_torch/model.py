@@ -43,6 +43,14 @@ Checkpoints and resilient training are the durability slice
 hands any of its checkpoint, resume or sentinel options, and installed
 faults, to ``resilience.loop.resilient_fit``.
 
+Every training path runs the ops in training mode.  Batch norm's running
+statistics ride in the state's ``bn_state`` and each step writes them in
+place; dropout's masks are hashed on the device from the state's key and
+step (``ops/softmax.py``).  Both therefore live inside the captured step,
+and a replay draws new masks.  A graph ending in a Softmax op trains on
+the softmax's input through the from-logits loss, as the JAX package
+does.
+
 Tables are stored in ``FFConfig.embedding_dtype`` (f32 or bf16) through
 every path above: a bf16 table's row-sparse step, cache writebacks and
 bag go through the row-update, row-set and bag kernels on bf16 storage.
@@ -81,13 +89,17 @@ from .graphs import (GraphRunner, StaleGraphError, flatten, run_eager,
 from .initializers import derive_seed
 from .losses import get_loss
 from .metrics import MetricsAccumulator, compute_metrics
-from .ops import (BatchMatmul, Concat, Embedding, Flat, FusedEmbedInteract,
-                  Linear, Op, RaggedStackedEmbedding, Reshape,
-                  StackedEmbedding, Transpose)
+from .ops import (LSTM, BatchMatmul, BatchNorm, Concat, Conv2D, Dropout,
+                  ElementBinary, ElementUnary, Embedding, Flat,
+                  FusedEmbedInteract, Linear, MixtureOfExperts,
+                  MultiHeadAttention, Op, Pool2D, RaggedStackedEmbedding,
+                  Reshape, Reverse, Softmax, Split, StackedEmbedding,
+                  Transpose)
 from .ops.embedding import lane_pack, take_rows
 from .ops.quantized import QUANT_MODES
 from .ops.row_update_kernel import row_update_cuda
 from .ops.slotting import slot_rows
+from .ops.softmax import fold_in
 from .data.prefetch import BatchPlacer, PrefetchLoader
 from .optim import Optimizer, SGDOptimizer
 from .parallel.parallel_config import Strategy
@@ -112,11 +124,16 @@ class TrainState:
     and the step count, on one device: the JAX package's fields in its
     order (``model.py:76-84``), so a checkpoint holds the same leaves.
 
-    ``bn_state`` is ``{}`` for every graph the port builds (batch norm
-    comes with the op set, ROADMAP.md Queue A item 9).  ``rng`` is an
-    opaque uint32 ``(2,)`` key the port carries and checkpoints but never
-    draws from until dropout is ported: a step leaves it as it was, as the
-    JAX step does for a graph with no stochastic op (``model.py:979-981``).
+    ``bn_state`` maps each batch-norm op to its running ``mean`` and
+    ``var`` (``{}`` for a graph without one); a training step writes the
+    new statistics into those tensors in place.  ``rng`` is the run's
+    uint32 ``(2,)`` key and ``step`` the count of steps taken.  A step
+    never advances ``rng`` (the JAX step splits it): the port's dropout
+    masks are a counter-based hash (``ops/softmax.py``) of the key
+    ``fold_in(fold_in(rng, step), op index)``, with the op's ``seed``
+    folded in when nonzero, so each step's masks depend on ``rng`` and
+    the step count alone, and a run resumed from a checkpoint draws the
+    masks of the run it was cut from.
 
     ``FFModel.train_step`` consumes its input state, as the JAX package's
     donated step does: the tables and dense parameters are updated in
@@ -142,8 +159,8 @@ class TrainState:
 def initial_rng(seed: int, device) -> torch.Tensor:
     """The uint32 ``(2,)`` key ``init`` puts in a state: ``[0, seed]``,
     the layout of ``jax.random.PRNGKey(seed)``.  It is not the key the JAX
-    package's ``init`` keeps (that one is split from it); nothing in the
-    port draws from it."""
+    package's ``init`` keeps (that one is split from it); the port's
+    dropout masks are hashed from it (``TrainState``)."""
     key = np.array([0, int(seed) & 0xFFFFFFFF], dtype=np.uint32)
     return torch.from_numpy(key).to(device)
 
@@ -300,6 +317,128 @@ class FFModel:
                                      trans_a, trans_b,
                                      self._op_compute_dtype()))
 
+    def conv2d(self, input_tensor, out_channels, kernel_h, kernel_w,
+               stride_h, stride_w, padding_h, padding_w, activation=None,
+               use_bias=True, groups=1, kernel_initializer=None,
+               bias_initializer=None, name=None):
+        op = Conv2D(self._name("conv2d", name), input_tensor, out_channels,
+                    kernel_h, kernel_w, stride_h, stride_w, padding_h,
+                    padding_w, activation, use_bias, groups,
+                    kernel_initializer, bias_initializer,
+                    self._op_compute_dtype())
+        return self._add(op)
+
+    def pool2d(self, input_tensor, kernel_h, kernel_w, stride_h, stride_w,
+               padding_h, padding_w, pool_type="max", activation=None,
+               name=None):
+        op = Pool2D(self._name("pool2d", name), input_tensor, kernel_h,
+                    kernel_w, stride_h, stride_w, padding_h, padding_w,
+                    pool_type, activation)
+        return self._add(op)
+
+    def batch_norm(self, input_tensor, relu=False, name=None):
+        return self._add(BatchNorm(self._name("batch_norm", name),
+                                   input_tensor, relu))
+
+    def split(self, input_tensor, sizes, axis, name=None):
+        """The pieces as a list, one tensor per size."""
+        op = Split(self._name("split", name), input_tensor, sizes, axis)
+        self.layers.append(op)
+        return op.outputs
+
+    def reverse(self, input_tensor, axis, name=None):
+        return self._add(Reverse(self._name("reverse", name), input_tensor,
+                                 axis))
+
+    def softmax(self, input_tensor, axis=-1, name=None):
+        return self._add(Softmax(self._name("softmax", name), input_tensor,
+                                 axis))
+
+    def lstm(self, input_tensor, hidden_dim, return_sequences=True,
+             reverse=False, initial_state=None, return_state=False,
+             name=None):
+        """The output sequence (or last state); with ``return_state``,
+        ``[output, h, c]``."""
+        op = LSTM(self._name("lstm", name), input_tensor, hidden_dim,
+                  return_sequences, reverse, initial_state=initial_state,
+                  return_state=return_state,
+                  compute_dtype=self._op_compute_dtype())
+        self.layers.append(op)
+        return op.outputs if return_state else op.outputs[0]
+
+    def moe(self, input_tensor, num_experts, hidden_dim, top_k=2,
+            activation="relu", name=None):
+        return self._add(MixtureOfExperts(
+            self._name("moe", name), input_tensor, num_experts, hidden_dim,
+            top_k, activation))
+
+    def dropout(self, input_tensor, rate=0.5, seed=0, name=None):
+        return self._add(Dropout(self._name("dropout", name), input_tensor,
+                                 rate, seed))
+
+    def multihead_attention(self, query, key, value, embed_dim, num_heads,
+                            causal=False, seq_parallel=False, name=None):
+        return self._add(MultiHeadAttention(
+            self._name("attention", name), query, key, value, embed_dim,
+            num_heads, causal, seq_parallel=seq_parallel,
+            compute_dtype=self._op_compute_dtype()))
+
+    # elementwise binary (reference model.h add/subtract/multiply/divide)
+    def _binary(self, fn, a, b, name):
+        return self._add(ElementBinary(self._name(fn, name), a, b, fn))
+
+    def add(self, a, b, name=None):
+        return self._binary("add", a, b, name)
+
+    def subtract(self, a, b, name=None):
+        return self._binary("sub", a, b, name)
+
+    def multiply(self, a, b, name=None):
+        return self._binary("mul", a, b, name)
+
+    def divide(self, a, b, name=None):
+        return self._binary("div", a, b, name)
+
+    # elementwise unary (reference model.h exp/relu/... and scalar_*)
+    def _unary(self, fn, x, name, scalar=None):
+        return self._add(ElementUnary(self._name(fn, name), x, fn, scalar))
+
+    def exp(self, x, name=None):
+        return self._unary("exp", x, name)
+
+    def relu(self, x, name=None):
+        return self._unary("relu", x, name)
+
+    def sigmoid(self, x, name=None):
+        return self._unary("sigmoid", x, name)
+
+    def tanh(self, x, name=None):
+        return self._unary("tanh", x, name)
+
+    def elu(self, x, name=None):
+        return self._unary("elu", x, name)
+
+    def gelu(self, x, name=None):
+        return self._unary("gelu", x, name)
+
+    def identity(self, x, name=None):
+        return self._unary("identity", x, name)
+
+    def scalar_add(self, x, scalar, name=None):
+        return self._unary("scalar_add", x, name, scalar)
+
+    def scalar_sub(self, x, scalar, name=None):
+        return self._unary("scalar_sub", x, name, scalar)
+
+    def scalar_multiply(self, x, scalar, name=None):
+        return self._unary("scalar_mul", x, name, scalar)
+
+    def scalar_truediv(self, x, scalar, name=None):
+        return self._unary("scalar_truediv", x, name, scalar)
+
+    def pow(self, x, exponent, name=None):
+        return self._unary("pow", x, name, exponent)
+
     def _op_compute_dtype(self):
         cd = self.config.compute_dtype
         return cd if cd != "float32" else None
@@ -315,28 +454,53 @@ class FFModel:
         return self.layers[-1].outputs[0]
 
     def _output_is_softmaxed(self) -> bool:
-        """Whether the graph output is already probabilities: a layer
-        with a softmax activation, followed only by shape ops."""
+        """Whether the graph output is already probabilities: a Softmax
+        op or a layer with a softmax activation, followed only by
+        value-preserving shape ops."""
         for op in reversed(self.layers):
+            if isinstance(op, Softmax):
+                return True
             if getattr(op, "activation", None) == "softmax":
                 return True
-            if not isinstance(op, (Reshape, Transpose, Flat)):
+            if not isinstance(op, (Reshape, Transpose, Reverse, Flat)):
                 return False
         return False
 
+    @property
+    def has_stochastic(self) -> bool:
+        """Whether a training step draws randomness (a dropout op with a
+        nonzero rate)."""
+        return any(isinstance(op, Dropout) and op.rate > 0.0
+                   for op in self.layers)
+
     # --------------------------------------------------------------- forward
-    def _apply(self, params, input_values: Dict[str, torch.Tensor]):
-        """Run the graph: every op once, in build order."""
+    def _apply(self, params, input_values: Dict[str, torch.Tensor], *,
+               training: bool = False, rng=None, bn_state=None):
+        """Run the graph: every op once, in build order.  ``rng`` is the
+        step's key (``fold_in(state.rng, step)``): the dropout op at
+        position ``i`` draws from ``fold_in(rng, i)``.  A stateful op
+        (batch norm) reads its entry of ``bn_state``.  Returns the values
+        by tensor uid and the stateful ops' new state."""
         values: Dict[int, torch.Tensor] = {}
         for t in self._inputs:
             if t.name in input_values:
                 values[t.uid] = input_values[t.name]
-        for op in self.layers:
+        new_bn: Dict[str, Any] = {}
+        for i, op in enumerate(self.layers):
             xs = [values[t.uid] for t in op.inputs]
-            outs = op.forward(params.get(op.name, {}), xs)
+            kw = {}
+            stateful = getattr(op, "has_state", False)
+            if stateful:
+                kw["state"] = bn_state.get(op.name) if bn_state else None
+            op_rng = (fold_in(rng, i) if isinstance(op, Dropout) and training
+                      and rng is not None else None)
+            outs = op.forward(params.get(op.name, {}), xs,
+                              training=training, rng=op_rng, **kw)
+            if stateful:
+                new_bn[op.name] = op._last_state
             for o, t in zip(outs, op.outputs):
                 values[t.uid] = o
-        return values
+        return values, new_bn
 
     def compile(self, optimizer: Optional[Optimizer] = None,
                 loss_type="mean_squared_error", metrics=("accuracy",),
@@ -392,13 +556,22 @@ class FFModel:
         self.loss_type = (loss_type if isinstance(loss_type, str)
                           else getattr(loss_type, "__name__", "custom"))
         self._loss_fn = get_loss(loss_type)
-        if self.loss_type in _CCE and not self._output_is_softmaxed():
-            # a graph ending in raw logits trains with the stable fused
-            # softmax + CCE form
+        # the tensor the loss reads (predictions and metrics read the
+        # final output): for a graph ending in a Softmax op, the softmax's
+        # input through the stable from-logits form, as the JAX package
+        # fuses softmax and CCE (model.py:455-475); a graph ending in raw
+        # logits takes the from-logits form on its output
+        self._loss_uid = self.final_tensor.uid
+        if self.loss_type in _CCE:
             base = ("sparse_categorical_crossentropy"
                     if "sparse" in self.loss_type
                     else "categorical_crossentropy")
-            self._loss_fn = get_loss(base + "_from_logits")
+            last = self.layers[-1]
+            if isinstance(last, Softmax):
+                self._loss_uid = last.inputs[0].uid
+                self._loss_fn = get_loss(base + "_from_logits")
+            elif not self._output_is_softmaxed():
+                self._loss_fn = get_loss(base + "_from_logits")
         self.metrics = tuple(metrics)
         out = self.final_tensor
         final_uid, final_dtype = out.uid, out.dtype
@@ -423,14 +596,17 @@ class FFModel:
                             and not getattr(op, "use_pallas", False)
                             and op.inputs[0].uid in input_uids]
 
-        def forward(params, inputs):
+        def forward(params, inputs, bn_state=None):
             with torch.inference_mode():
-                return self._apply(params, inputs)[final_uid].to(final_dtype)
+                values, _ = self._apply(params, inputs,
+                                        bn_state=bn_state or {})
+                return values[final_uid].to(final_dtype)
 
         self._forward_fn = forward
         # the step graphs baked in the old loss, metrics and optimizer
         self._step_graphs.clear()
         self._step_seen.clear()
+        self._drop_pool_if_empty()
         return self
 
     def _resolve_strategy(self, strategy: Optional[Strategy]) -> None:
@@ -489,12 +665,18 @@ class FFModel:
         return self._state(params, None, dev, seed)
 
     def _state(self, params, opt_state, dev, seed) -> TrainState:
+        """A fresh state: the optimizer's initial state unless given, the
+        stateful ops' initial state (``op.init_state``), the key of
+        ``seed`` and step 0, all on ``dev``."""
         if opt_state is None:
             opt_state = (self.optimizer.init(params)
                          if self.optimizer is not None else {})
         else:
             opt_state = self._place_opt_state(opt_state, dev)
-        return TrainState(params, opt_state, {}, initial_rng(seed, dev),
+        bn_state = {op.name: op.init_state(device=dev) for op in self.layers
+                    if getattr(op, "has_state", False)}
+        return TrainState(params, opt_state, bn_state,
+                          initial_rng(seed, dev),
                           torch.zeros((), dtype=torch.int32, device=dev))
 
     def load_params(self, params, device=None, opt_state=None) -> TrainState:
@@ -503,7 +685,10 @@ class FFModel:
         (default: this model's device, else the CUDA card).  Names, shapes
         and dtypes must match the graph's parameter specs exactly.
         ``opt_state`` (for example ``bridge.opt_state_from_jax``) is
-        placed beside them; by default the optimizer starts afresh."""
+        placed beside them; by default the optimizer starts afresh.  Each
+        batch norm starts at its ``init_state`` (a whole state, running
+        statistics included, crosses with ``bridge.state_from_jax`` or
+        an npz checkpoint)."""
         dev = resolve_device(device if device is not None else self.device)
         expected = {op.name: {s.param_name: s for s in op.param_specs()}
                     for op in self.layers if op.param_specs()}
@@ -595,8 +780,18 @@ class FFModel:
         if self._forward_fn is None:
             raise ValueError("model must be compile()d before predict")
         params = getattr(params_or_state, "params", params_or_state)
+        bn_state = getattr(params_or_state, "bn_state", None) or {}
+        if not bn_state and any(getattr(op, "has_state", False)
+                                for op in self.layers):
+            # bare params would run batch norm on the batch's statistics:
+            # rows would leak into each other
+            raise ValueError(
+                "model has BatchNorm state; predict needs a TrainState "
+                "(or any object with .params/.bn_state) so eval runs on "
+                "running statistics, not a bare params dict")
         return self._forward_fn(
-            params, self._place_inputs(inputs, params_device(params)))
+            params, self._place_inputs(inputs, params_device(params)),
+            bn_state)
 
     def forward(self, state: TrainState, inputs) -> torch.Tensor:
         return self.predict(state, inputs)
@@ -609,7 +804,8 @@ class FFModel:
     def _loss_and_preds(self, values, labels):
         final = self.final_tensor
         preds = values[final.uid].to(final.dtype)
-        return self._loss_fn(preds, labels), preds
+        loss_in = values[self._loss_uid].to(final.dtype)
+        return self._loss_fn(loss_in, labels), preds
 
     def train_step(self, state: TrainState, inputs, labels,
                    donate: bool = True, *, slot_override=None):
@@ -657,7 +853,10 @@ class FFModel:
         batch = {"inputs": self._place_inputs(inputs, dev),
                  "labels": self._place_labels(labels, dev),
                  "slots": dict(slot_override or {})}
-        carried = (state.params, state.opt_state, step)
+        # the key only where a dropout op draws from it, so a graph
+        # without one never depends on where the key lives
+        carried = (state.params, state.opt_state, step, state.bn_state,
+                   state.rng if self.has_stochastic else None)
         packed = (self._step(batch, carried) if donate
                   else self._step_body(batch, carried))
         return (TrainState(state.params, state.opt_state, state.bn_state,
@@ -691,6 +890,7 @@ class FFModel:
                 return out
             except StaleGraphError:
                 del self._step_graphs[sig]
+                self._drop_pool_if_empty()
         key = state_key(carried)
         dev = carried[2].device
         if self._step_seen.pop(sig, None) != key:
@@ -711,14 +911,31 @@ class FFModel:
         self.graph_replays += 1
         return out
 
+    def _drop_pool_if_empty(self) -> None:
+        """Forget the graph pool once no step graph holds it.  A pool
+        dies with its last graph, and a capture into a dead pool's handle
+        fails (the caching allocator asserts the pool's use count), so
+        the next capture takes a new handle."""
+        if not self._step_graphs:
+            self._graph_pool = None
+
     def _step_body(self, batch, carried):
         """One step on placed tensors (``batch``: inputs, labels and
-        slots; ``carried``: params, optimizer state and step count), every
-        carried tensor updated in place; the body that ``_step``
-        captures.  Nothing here synchronises with the host or reads a
-        value on it.  Returns the metrics packed into one vector
-        (``_unpack_metrics``), so a replay's result is one small copy."""
-        params, opt_state, step = carried
+        slots; ``carried``: params, optimizer state, step count, batch
+        norm state and the key), every carried tensor updated in place;
+        the body that ``_step`` captures.  The ops run in training mode:
+        dropout draws from ``fold_in(key, step)`` (a replay reads the
+        step by address, so each replay draws new masks), and batch
+        norm's new running statistics are copied into ``bn_state``.
+        Nothing here synchronises with the host or reads a value on it.
+        Returns the metrics packed into one vector (``_unpack_metrics``),
+        so a replay's result is one small copy."""
+        params, opt_state, step, bn_state, key = carried
+        if self.has_stochastic:
+            if key is None:
+                raise ValueError("a graph with dropout trains from a "
+                                 "state with an rng key")
+            key = fold_in(key, step)
         inputs, labels = batch["inputs"], batch["labels"]
         slot_override = batch["slots"]
         sparse_names = {op.name for op in self._sparse_ops}
@@ -736,14 +953,18 @@ class FFModel:
             run[op.name] = {"embedding": table, "rows__": rows[op.name]}
         flat = [(op, k) for op, d in leaves.items() for k in d]
         with torch.enable_grad():
-            loss, preds = self._loss_and_preds(self._apply(run, inputs),
-                                               labels)
+            values, new_bn = self._apply(run, inputs, training=True,
+                                         rng=key, bn_state=bn_state)
+            loss, preds = self._loss_and_preds(values, labels)
             wrt = [leaves[op][k] for op, k in flat] + list(rows.values())
             # a parameter the loss does not reach gets a zero gradient,
             # as jax.grad gives it
             grads = torch.autograd.grad(loss, wrt, allow_unused=True,
                                         materialize_grads=True)
         with torch.no_grad():
+            for name, new in new_bn.items():
+                for k, v in new.items():
+                    bn_state[name][k].copy_(v)
             dgrads: Dict[str, Dict[str, torch.Tensor]] = {}
             for (op, k), g in zip(flat, grads):
                 dgrads.setdefault(op, {})[k] = g
@@ -831,8 +1052,9 @@ class FFModel:
         inputs = self._place_inputs(inputs, dev)
         labels = self._place_labels(labels, dev)
         with torch.no_grad():
-            loss, preds = self._loss_and_preds(
-                self._apply(state.params, inputs), labels)
+            values, _ = self._apply(state.params, inputs,
+                                    bn_state=state.bn_state)
+            loss, preds = self._loss_and_preds(values, labels)
             mets = compute_metrics(preds, labels, self.metrics,
                                    self.loss_type)
             mets["loss"] = loss

@@ -84,7 +84,13 @@ class Op:
                 for spec in self.param_specs()}
 
     def forward(self, params: Dict[str, torch.Tensor],
-                xs: List[torch.Tensor]) -> List[torch.Tensor]:
+                xs: List[torch.Tensor], *, training: bool = False,
+                rng=None) -> List[torch.Tensor]:
+        """The op's outputs from its parameters and inputs.  ``training``
+        selects the training-mode behaviour of the ops that have one
+        (dropout, batch norm); ``rng`` is the op's dropout key
+        (``ops/softmax.py::dropout_keep``), None outside training.  Ops
+        without such behaviour take both and ignore them."""
         raise NotImplementedError
 
     # ---- cost model hooks (sim/) -------------------------------------------

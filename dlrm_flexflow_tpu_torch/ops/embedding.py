@@ -179,7 +179,7 @@ class Embedding(Op):
                               dtype=self.table_dtype,
                               initializer=self.kernel_initializer)]
 
-    def forward(self, params, xs):
+    def forward(self, params, xs, *, training=False, rng=None):
         (idx,) = xs
         rows = params.get("rows__")
         qscale = params.get(QSCALE_KEY)
@@ -251,7 +251,7 @@ class StackedEmbedding(Op):
                              device=idx.device)[:, None]
                 * self.num_entries)
 
-    def forward(self, params, xs):
+    def forward(self, params, xs, *, training=False, rng=None):
         (idx,) = xs  # (batch, T, bag)
         rows = params.get("rows__")  # sparse-update path: (B, T, bag, d)
         qscale = params.get(QSCALE_KEY)
@@ -359,7 +359,7 @@ class RaggedStackedEmbedding(Op):
             self._consts[device] = c
         return c
 
-    def forward(self, params, xs):
+    def forward(self, params, xs, *, training=False, rng=None):
         (idx,) = xs
         rows = params.get("rows__")
         if rows is None:

@@ -126,7 +126,7 @@ class FusedEmbedInteract(RaggedStackedEmbedding):
         w = interact_width(interact, self.num_tables, out_dim, bot_dim)
         self.outputs = [self._make_output((b, w), dtype)]
 
-    def forward(self, params, xs):
+    def forward(self, params, xs, *, training=False, rng=None):
         idx, bottom = xs
         out_dtype = self.outputs[0].dtype
         offsets, row_counts = self.table_consts(idx.device)

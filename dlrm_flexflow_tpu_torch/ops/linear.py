@@ -44,7 +44,7 @@ class Linear(Op):
                                        initializer=self.bias_initializer))
         return specs
 
-    def forward(self, params, xs):
+    def forward(self, params, xs, *, training=False, rng=None):
         (x,) = xs
         y = matmul(x, params["kernel"], self.compute_dtype)
         if self.use_bias:

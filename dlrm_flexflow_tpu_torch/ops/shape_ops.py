@@ -1,10 +1,10 @@
-"""Shape and layout operators: Concat, Reshape, Transpose, Flat and
-BatchMatmul (counterparts in ``dlrm_flexflow_tpu/ops/shape_ops.py``).
+"""Shape and layout operators: Concat, Split, Reshape, Transpose,
+Reverse, Flat and BatchMatmul (counterparts in
+``dlrm_flexflow_tpu/ops/shape_ops.py``).
 
 They are plain PyTorch calls whose backward is autograd's.  Reshape (when
 it keeps the batch dim) and Flat are batch-polymorphic, as in the JAX
-package, so one graph serves every batch size.  Split and Reverse come
-with the op-set slice.
+package, so one graph serves every batch size.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ class Concat(Op):
         out[axis] = sum(t.shape[axis] for t in tensors)
         self.outputs = [self._make_output(tuple(out), tensors[0].dtype)]
 
-    def forward(self, params, xs):
+    def forward(self, params, xs, *, training=False, rng=None):
         return [torch.cat(xs, dim=self.axis)]
 
     def input_rect(self, pc, input_idx, part_idx):
@@ -47,6 +47,30 @@ class Concat(Op):
         b = max(min(hi[self.axis] - off, ext), a)
         lo[self.axis], hi[self.axis] = a, b
         return tuple(lo), tuple(hi)
+
+
+class Split(Op):
+    """Cut one tensor into ``len(sizes)`` along ``axis``; one output per
+    piece."""
+
+    op_type = "Split"
+
+    def __init__(self, name, input_tensor, sizes, axis: int):
+        super().__init__(name, [input_tensor])
+        axis = axis % input_tensor.ndim
+        self.axis = axis
+        self.sizes = [int(s) for s in sizes]
+        if sum(self.sizes) != input_tensor.shape[axis]:
+            raise ValueError(f"split sizes {self.sizes} do not add up to "
+                             f"{input_tensor.shape[axis]} on axis {axis}")
+        for i, s in enumerate(self.sizes):
+            shape = list(input_tensor.shape)
+            shape[axis] = s
+            self.outputs.append(self._make_output(tuple(shape),
+                                                  input_tensor.dtype, idx=i))
+
+    def forward(self, params, xs, *, training=False, rng=None):
+        return list(torch.split(xs[0], self.sizes, dim=self.axis))
 
 
 class Reshape(Op):
@@ -65,7 +89,7 @@ class Reshape(Op):
         # a reshape that keeps dim 0 stays polymorphic in the batch
         self._batch_poly = shape[0] == input_tensor.shape[0]
 
-    def forward(self, params, xs):
+    def forward(self, params, xs, *, training=False, rng=None):
         (x,) = xs
         if self._batch_poly:
             return [x.reshape((x.shape[0],) + self.outputs[0].shape[1:])]
@@ -86,7 +110,7 @@ class Transpose(Op):
         out_shape = tuple(input_tensor.shape[p] for p in self.perm)
         self.outputs = [self._make_output(out_shape, input_tensor.dtype)]
 
-    def forward(self, params, xs):
+    def forward(self, params, xs, *, training=False, rng=None):
         return [xs[0].permute(self.perm)]
 
     def input_rect(self, pc, input_idx, part_idx):
@@ -100,6 +124,27 @@ class Transpose(Op):
         return tuple(ilo), tuple(ihi)
 
 
+class Reverse(Op):
+    op_type = "Reverse"
+
+    def __init__(self, name, input_tensor, axis: int):
+        super().__init__(name, [input_tensor])
+        self.axis = axis % input_tensor.ndim
+        self.outputs = [self._make_output(input_tensor.shape,
+                                          input_tensor.dtype)]
+
+    def forward(self, params, xs, *, training=False, rng=None):
+        return [torch.flip(xs[0], dims=(self.axis,))]
+
+    def input_rect(self, pc, input_idx, part_idx):
+        """Output rect mirrored on the reversed axis."""
+        lo, hi = rect_of_part(pc, self.outputs[0].shape, part_idx)
+        ext = self.inputs[0].shape[self.axis]
+        lo, hi = list(lo), list(hi)
+        lo[self.axis], hi[self.axis] = ext - hi[self.axis], ext - lo[self.axis]
+        return tuple(lo), tuple(hi)
+
+
 class Flat(Op):
     """(batch, ...) -> (batch, prod(...)) for any batch."""
 
@@ -111,7 +156,7 @@ class Flat(Op):
         self.outputs = [self._make_output((input_tensor.shape[0], rest),
                                           input_tensor.dtype)]
 
-    def forward(self, params, xs):
+    def forward(self, params, xs, *, training=False, rng=None):
         (x,) = xs
         return [x.reshape(x.shape[0], -1)]
 
@@ -142,7 +187,7 @@ class BatchMatmul(Op):
         self.outputs = [self._make_output(tuple(sa[:-1] + [sb[-1]]),
                                           a.dtype)]
 
-    def forward(self, params, xs):
+    def forward(self, params, xs, *, training=False, rng=None):
         a, b = xs
         if self.trans_a:
             a = a.transpose(-1, -2)

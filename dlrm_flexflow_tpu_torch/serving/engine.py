@@ -153,6 +153,17 @@ class InferenceEngine:
             self._build_tiered()
         self._params = {op: {k: v.to(self.device) for k, v in d.items()}
                         for op, d in self._params.items()}
+        # batch norm's running statistics (the JAX engine's): bare params
+        # would serve on batch statistics, rows leaking into each other
+        bn = getattr(params_or_state, "bn_state", None) or {}
+        if not bn and any(getattr(op, "has_state", False)
+                          for op in model.layers):
+            raise ValueError(
+                "model has BatchNorm state but none was provided: pass a "
+                "TrainState (bare params would serve on batch statistics, "
+                "breaking the padding contract)")
+        self._bn = {op: {k: v.to(self.device) for k, v in d.items()}
+                    for op, d in bn.items()}
         # the tables re-encoded on a copy of the params tree, on the card
         self._params, self.quantization = quantize_embedding_params(
             model.layers, self._params, quantize)
@@ -321,7 +332,7 @@ class InferenceEngine:
         return sum(r.replays for r in self._graphs.values())
 
     def _forward(self, static, params):
-        return self.model._forward_fn(params, static)
+        return self.model._forward_fn(params, static, self._bn)
 
     def _ensure(self, b: int) -> GraphRunner:
         """Bucket ``b``'s runner, built under the engine's lock at its

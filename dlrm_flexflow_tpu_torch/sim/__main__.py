@@ -7,8 +7,8 @@ SimTask event simulation and the MCMC search need no card.
     python -m dlrm_flexflow_tpu_torch.sim --app dlrm --devices 8 \\
         --budget 500 --export strategy.json
 
-``--measure`` times the ops on the CUDA card instead.  The DLRM app is
-the one ported; the others come with their ops (ROADMAP.md item 9).
+``--app`` is any of the reference's apps (``APPS``); ``--measure`` times
+the ops on the CUDA card instead.
 """
 
 from __future__ import annotations
@@ -27,11 +27,21 @@ def build_app(app: str, batch: int):
     if app == "dlrm":
         from ..apps.dlrm import DLRMConfig, build_dlrm
         return build_dlrm(DLRMConfig(), fc)
-    if app in APPS:
-        raise NotImplementedError(
-            f"--app {app}: its ops (conv, pooling, batchnorm, LSTM, "
-            "attention, softmax) come with the op-set slice, ROADMAP.md "
-            "item 9")
+    if app == "alexnet":
+        from ..apps.alexnet import build_alexnet
+        return build_alexnet(fc)
+    if app == "resnet":
+        from ..apps.resnet import build_resnet
+        return build_resnet(fc)
+    if app == "inception":
+        from ..apps.inception import build_inception
+        return build_inception(fc)
+    if app == "candle_uno":
+        from ..apps.candle_uno import build_candle_uno
+        return build_candle_uno(ffconfig=fc)
+    if app == "nmt":
+        from ..apps.nmt import build_nmt
+        return build_nmt(ffconfig=fc)
     raise SystemExit(f"unknown app {app!r}")
 
 
