@@ -210,7 +210,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
      parameter and running statistic within SMALL_TOL), the dropout
      masks of each step equal on the card and the CPU, and at lr 0 the
      loss of one batch different on every replay.  Each of phases
-     24-27 prints its wall.
+     24-27 prints its wall;
+ 28. last (host-heavy), the hetero Criteo-Kaggle DLRM
+     (criteo_kaggle_config, one Embedding per table, B = 256, SGD at
+     lr 0.01 without weight decay, MSE, Zipf 1.05 ids from seed 0):
+     (a) the strategy dlrm_strategy(26, 1, hetero_cpu_embeddings=True,
+     stacked=False), all 26 tables (412 MB) in host memory; (b) only the
+     four tables of over 1M rows on the host and 22 on the card (B2).
+     Each run: native/ffruntime.cpp built from the checkout and used for
+     every lookup and deposit (the numpy branches raise); 8 steps of fit
+     against the same steps on the port's CPU path from the same
+     weights, tables and data (losses and the change of every parameter
+     and table within CARD_VS_CPU_TOL); the tables and every handle
+     move; no CUDA graph captured; the bytes init allocates on the card
+     (memory_allocated after it less before it, since earlier phases
+     hold some) within the card's own params and below the host tables'
+     bytes (412 MB in (a)); B2's
+     launches 22 a step in (b), none in (a); a save and restore of the
+     host tables bit for bit; the step split into host lookup, H2D,
+     device, D2H, host gradient and host update (hetero.timing(),
+     information), beside the card's name and power limit.
 Profile lines carry the graph replays in their window, the graph pool's
 bytes and the host's launches per dispatch or step.
 The line before the last is the kernels' JSON record; the last line is
@@ -242,9 +261,15 @@ from dlrm_flexflow_tpu_torch import (AdamOptimizer, FFConfig, FFModel,
                                      SGDOptimizer, SyntheticDLRMLoader,
                                      ZipfDLRMLoader, _cuda)
 from dlrm_flexflow_tpu_torch import epoch_cache as cache_module
+from dlrm_flexflow_tpu_torch import native_lib
 from dlrm_flexflow_tpu_torch import model as model_module
 from dlrm_flexflow_tpu_torch import telemetry as tele
-from dlrm_flexflow_tpu_torch.apps.dlrm import DLRMConfig, build_dlrm
+from dlrm_flexflow_tpu_torch.apps.dlrm import (KAGGLE_TABLES, DLRMConfig,
+                                               build_dlrm,
+                                               criteo_kaggle_config)
+from dlrm_flexflow_tpu_torch.checkpoint import (restore_checkpoint,
+                                                save_checkpoint)
+from dlrm_flexflow_tpu_torch.data import native as native_module
 from dlrm_flexflow_tpu_torch.data.loader import ArrayDataLoader, zipf_ids
 from dlrm_flexflow_tpu_torch.frontends.keras_callbacks import (
     Callback, LearningRateScheduler)
@@ -252,6 +277,7 @@ from dlrm_flexflow_tpu_torch.graphs import flatten
 from dlrm_flexflow_tpu_torch.ops import Embedding, FusedEmbedInteract
 from dlrm_flexflow_tpu_torch.ops import embedding as emb_module
 from dlrm_flexflow_tpu_torch.ops import fused_interact as fused_module
+from dlrm_flexflow_tpu_torch.ops import hetero as hetero_module
 from dlrm_flexflow_tpu_torch.ops.bag_kernel import (embedding_bag_cuda,
                                                    embedding_bag_ref)
 from dlrm_flexflow_tpu_torch.ops.quantized import BF16_ATOL, INT8_ATOL
@@ -267,6 +293,7 @@ from dlrm_flexflow_tpu_torch.ops.row_update_kernel import (
 from dlrm_flexflow_tpu_torch.ops.slotting import slot_rows
 from dlrm_flexflow_tpu_torch.ops.softmax import dropout_keep, fold_in
 from dlrm_flexflow_tpu_torch.parallel import Strategy
+from dlrm_flexflow_tpu_torch.parallel.strategy_pb import dlrm_strategy
 from dlrm_flexflow_tpu_torch.profiling import OpTimer
 from dlrm_flexflow_tpu_torch.resilience import (CheckpointManager,
                                                 NaNSentinel, Preemption,
@@ -4191,7 +4218,11 @@ F64_LAYERS = {"alexnet": "dense", "nmt": "proj"}
 #: show at about 1e-3 in the logits, and its rounding, some 1e4 times
 #: f32's, far above ten spreads in the update.
 CARD_VS_CPU_TOL = {"logits": 1e-4, "loss": 1e-5, "update_l2": 1e-4,
-                   "spread_x": 10.0}
+                   "spread_x": 10.0,
+                   # phase 28: each of the 8 losses, relative; the change
+                   # of every parameter and host table over the 8 steps,
+                   # in L2 relative to the change's own L2
+                   "hetero_loss": 1e-5, "hetero_update_l2": 1e-4}
 
 
 def _app(app, batch, optimizer=None):
@@ -4663,6 +4694,250 @@ def apps_phase():
     return rows, total, nmt_b2
 
 
+# --------------------------------------------------------------- phase 28
+#: the hetero Kaggle phase: the steps of each run and the row count above
+#: which the mixed run keeps a table on the host
+HETERO_STEPS = 8
+HETERO_BIG_ROWS = 1_000_000
+
+
+def _kaggle(host_tables):
+    """The Criteo-Kaggle DLRM (``criteo_kaggle_config``, one ``Embedding``
+    per table, batch 256) compiled with the CLI's SGD at FFConfig's rate
+    without weight decay (``--wd 0``: plain SGD, so tables on the card
+    take the row-sparse path), MSE loss, accuracy and MSE metrics, and a
+    strategy placing tables ``host_tables`` on the host: every table is
+    the reference generator's ``dlrm_strategy(26, 1,
+    hetero_cpu_embeddings=True, stacked=False)``."""
+    cfg = criteo_kaggle_config()
+    t = len(cfg.embedding_size)
+    model = build_dlrm(cfg, FFConfig(batch_size=BATCH),
+                       stacked_embeddings=False)
+    full = dlrm_strategy(t, 1, hetero_cpu_embeddings=True, stacked=False)
+    strategy = Strategy()
+    for i in host_tables:
+        strategy[f"emb_{i}"] = full[f"emb_{i}"]
+    model.compile(optimizer=SGDOptimizer(lr=FFConfig().learning_rate),
+                  loss_type="mean_squared_error",
+                  metrics=("accuracy", "mean_squared_error"),
+                  strategy=strategy)
+    return model
+
+
+def _host_tables(model):
+    return {op.name: op.host_table.array for op in model._hetero_ops}
+
+
+def _fit_losses(model, state, loader):
+    """``fit`` over the loader (one epoch, no warmup step) with each
+    step's loss and host-placed ops' handles recorded by a wrapper around
+    the step it dispatches."""
+    losses, handles, step = [], [], model._train_step
+
+    def recorded(*args, **kw):
+        out = step(*args, **kw)
+        losses.append(float(out[1]["loss"]))
+        handles.append({op.name: float(out[0].params[op.name]["handle"])
+                        for op in model._hetero_ops})
+        return out
+    model._train_step = recorded
+    try:
+        state, _ = model.fit(state, loader, epochs=1, verbose=False,
+                             warmup=False)
+    finally:
+        del model._train_step
+    return state, losses, handles
+
+
+def _numpy_branch_off():
+    """The hetero numpy branches raise while the card runs: the native
+    library (built from native/ffruntime.cpp) does every lookup and
+    deposit."""
+    def refuse(*_a, **_k):
+        raise AssertionError("the numpy branch ran: ffruntime.cpp was not "
+                             "used")
+    stack = contextlib.ExitStack()
+    for name in ("bag_numpy", "bag_grad_numpy"):
+        stack.enter_context(_plain(hetero_module, name, refuse))
+    return stack
+
+
+def _hetero_times(model, state, loader, steps: int = HETERO_STEPS):
+    """The host-side split of a step (hetero.timing(): each part waits
+    for the card first) averaged over ``steps`` steps, the timed step's
+    wall, and the untimed step's wall, in ms."""
+    batches = list(loader)[:steps]
+    for x, y in batches[:2]:  # warm: allocator and cuBLAS
+        state, _ = model.train_step(state, x, y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for x, y in batches:
+        state, m = model.train_step(state, x, y)
+    float(m["loss"])
+    plain_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with hetero_module.timing() as parts:
+        t0 = time.perf_counter()
+        for x, y in batches:
+            state, m = model.train_step(state, x, y)
+        float(m["loss"])
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    split = {k: v * 1e3 / steps for k, v in parts.items()}
+    split["device"] = wall_ms - sum(split.values())
+    return state, split, wall_ms, plain_ms
+
+
+def hetero_run(card, name, host_tables, loader, root):
+    """One hetero run (phase 28): the model on the card with its host
+    tables, ``HETERO_STEPS`` steps through ``fit`` against the same steps
+    on the port's CPU path from the same weights, tables and data; a
+    save and restore of the host tables; the step's split."""
+    model = _kaggle(host_tables)
+    hosted = {op.name for op in model._hetero_ops}
+    table_bytes = sum(4 * r * model.get_op(f"emb_{i}").out_dim
+                      for i, r in enumerate(KAGGLE_TABLES))
+    host_bytes = sum(4 * op.num_entries * op.out_dim
+                     for op in model._hetero_ops)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    state = model.init(seed=0)
+    torch.cuda.synchronize()
+    mem = torch.cuda.memory_allocated()
+    card_bytes = sum(t.numel() * t.element_size()
+                     for _, t in flatten((state.params, state.opt_state)))
+    start_tables = {k: v.copy() for k, v in _host_tables(model).items()}
+    start = _cpu_params(state)
+    twin = _kaggle(host_tables)
+    cpu_state = twin.load_params(start, device="cpu",
+                                 opt_state=_cpu_opt(state.opt_state),
+                                 host_tables=start_tables)
+    reset_counts()
+    t0 = time.perf_counter()
+    with _numpy_branch_off():
+        state, card_losses, card_handles = _fit_losses(model, state, loader)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    counts = read_counts()
+    cpu_state, cpu_losses, _ = _fit_losses(twin, cpu_state, loader)
+    loss_err = max(abs(a - b) / max(abs(b), 1e-30)
+                   for a, b in zip(card_losses, cpu_losses))
+    tables = {k: torch.from_numpy(v) for k, v in _host_tables(model).items()}
+    cpu_tables = {k: torch.from_numpy(v) for k, v in _host_tables(twin).items()}
+    start_t = {k: torch.from_numpy(v) for k, v in start_tables.items()}
+    update_err, worst = _change_l2((state.params, tables),
+                                   (cpu_state.params, cpu_tables),
+                                   (start, start_t))
+    tables_moved = all(not torch.equal(tables[k], start_t[k])
+                       for k in tables)
+    # a handle moves by a few ulps of 1.0 a step (lr 0.01 times a small
+    # gradient) and may round back to 1.0: each must leave 1.0 at a step
+    handles = {n: float(state.params[n]["handle"]) for n in sorted(hosted)}
+    handles_moved = all(any(h[n] != 1.0 for h in card_handles)
+                        for n in hosted)
+    # the checkpoint round trip of the host tables, bit for bit
+    trained = {k: v.clone() for k, v in tables.items()}
+    path = os.path.join(root, name)
+    t0 = time.perf_counter()
+    save_checkpoint(path, state, model=model)
+    save_s = time.perf_counter() - t0
+    npz_bytes = os.path.getsize(os.path.join(path, "state.npz"))
+    for op in model._hetero_ops:
+        op.host_table.array = np.zeros_like(op.host_table.array)
+    t0 = time.perf_counter()
+    back = restore_checkpoint(path, model)
+    restore_s = time.perf_counter() - t0
+    round_trip = (all(torch.equal(torch.from_numpy(v), trained[k])
+                      for k, v in _host_tables(model).items())
+                  and all(torch.equal(a, b) for (_, a), (_, b) in zip(
+                      flatten(back.params), flatten(state.params))))
+    shutil.rmtree(path, ignore_errors=True)
+    with _numpy_branch_off():
+        state, split, timed_ms, step_ms = _hetero_times(model, back, loader)
+    row = {"phase": "hetero", "run": name, "card": card,
+           "host_tables": len(hosted), "card_tables":
+               len(KAGGLE_TABLES) - len(hosted),
+           "host_table_bytes": host_bytes, "all_table_bytes": table_bytes,
+           "memory_allocated_after_init": mem,
+           "memory_allocated_init_delta": mem - base,
+           "card_param_and_slot_bytes": card_bytes,
+           "losses_card": card_losses, "losses_cpu": cpu_losses,
+           "loss_rel_err": loss_err, "change_l2_rel_err": update_err,
+           "worst_tensor": {"name": worst[1], "err": worst[0]},
+           "tolerance": {k: CARD_VS_CPU_TOL[k]
+                         for k in ("hetero_loss", "hetero_update_l2")},
+           "tables_moved": tables_moved, "handles": handles,
+           "handles_moved": handles_moved,
+           "graph_captures": model.graph_captures,
+           "launches": counts, "fit_wall_s": fit_s,
+           "checkpoint": {"npz_bytes": npz_bytes, "save_s": save_s,
+                          "restore_s": restore_s,
+                          "host_tables_bit_for_bit": round_trip},
+           "step_ms": step_ms, "timed_step_ms": timed_ms,
+           "split_ms": split}
+    ok = (loss_err <= CARD_VS_CPU_TOL["hetero_loss"]
+          and update_err <= CARD_VS_CPU_TOL["hetero_update_l2"]
+          and tables_moved and handles_moved and model.graph_captures == 0
+          and twin.graph_captures == 0 and round_trip
+          and mem - base <= card_bytes + (1 << 20)
+          and mem - base < host_bytes
+          and all(np.isfinite(card_losses)))
+    if len(hosted) < len(KAGGLE_TABLES):
+        # the tables on the card step through B2 next to the host tables
+        want = (len(KAGGLE_TABLES) - len(hosted)) * HETERO_STEPS
+        ok = ok and counts["row_update"] == counts["row_update_prep"] == want
+    else:
+        ok = ok and not any(counts.values())
+    row["ok"] = bool(ok)
+    log(row)
+    if not ok:
+        raise AssertionError(f"hetero run {name} failed on the card")
+    del model, twin, state, cpu_state, back
+    _free()
+    return row, counts
+
+
+def _cpu_opt(opt_state):
+    """A copy of an optimizer state on the CPU."""
+    if isinstance(opt_state, dict):
+        return {k: _cpu_opt(v) for k, v in opt_state.items()}
+    return opt_state.to("cpu", copy=True)
+
+
+def hetero_phase(card):
+    """Phase 28: the hetero Kaggle DLRM, every table on the host, then the
+    four tables of over 1M rows on the host and 22 on the card.  Returns
+    ({run: row}, launches of both runs)."""
+    t0 = time.perf_counter()
+    tb = time.perf_counter()
+    if not native_module.native_available():
+        raise AssertionError("native/ffruntime.cpp did not build")
+    lib = native_module.get_lib()._name
+    log({"phase": "hetero", "native_library": os.path.relpath(
+        lib, os.path.dirname(os.path.abspath(__file__))),
+         "compilers_tried_in_order": native_lib.compilers(),
+         "build_or_load_s": time.perf_counter() - tb})
+    if "dlrm_flexflow_tpu_torch/_build/ffruntime-" not in lib:
+        raise AssertionError(f"unexpected native library {lib}")
+    loader = ZipfDLRMLoader(HETERO_STEPS * BATCH, 13, KAGGLE_TABLES, 1,
+                            BATCH, stacked=False, a=ZIPF_ALPHA, seed=0)
+    root = tempfile.mkdtemp(prefix=".hetero-",
+                            dir=os.path.dirname(os.path.abspath(__file__)))
+    rows, total = {}, None
+    try:
+        for name, tables in (
+                ("all_host", range(len(KAGGLE_TABLES))),
+                ("mixed", [i for i, r in enumerate(KAGGLE_TABLES)
+                           if r > HETERO_BIG_ROWS])):
+            rows[name], counts = hetero_run(card, name, list(tables), loader,
+                                            root)
+            total = counts if total is None else {k: total[k] + counts[k]
+                                                  for k in total}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log({"phase": "wall", "name": "hetero", "wall_s":
+         time.perf_counter() - t0})
+    return rows, total
+
+
 def _entry(name, launches, err, timing):
     source, replaces, _ = KERNELS[name]
     return {"name": name, "route": "cuda", "source": source,
@@ -4760,10 +5035,14 @@ def main() -> int:
     # embeddings through B2 and B5), each against the CPU path, B2 at
     # NMT's shape, the small graphs of the other ops
     apps, apps_counts, nmt_b2 = apps_phase()
+    # phase 28: the hetero Kaggle DLRM (tables in host memory through
+    # native/ffruntime.cpp; the mixed run's card tables through B2), last:
+    # host-heavy
+    hetero, hetero_counts = hetero_phase(card)
     path_counts = (headline_counts, sparse_counts, dense_counts, dot_counts,
                    staged_counts, bag_counts, bf16_counts, bag16_counts,
                    durable_counts, tiered_counts, lazy_counts, soap_counts,
-                   tune_counts, apps_counts)
+                   tune_counts, apps_counts, hetero_counts)
     row_launches = sum(c["row_update"] for c in path_counts)
     prep_launches = sum(c["row_update_prep"] for c in path_counts)
     if prep_launches != row_launches:
@@ -4810,6 +5089,8 @@ def main() -> int:
              if "f64_layer" in r},
          "row_update_nmt_ms": {k: nmt_b2[k] for k in (
              "ms", "plain_ms", "library_ms", "bound_ms")},
+         "hetero_step_ms": {r: hetero[r]["step_ms"] for r in hetero},
+         "hetero_split_ms": {r: hetero[r]["split_ms"] for r in hetero},
          "note": "walls include each path's eager step and capture"})
     log({"kernels": [
         _entry("fused_interact_fwd",

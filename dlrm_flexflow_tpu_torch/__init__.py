@@ -10,16 +10,25 @@ at first use.  Entry points run on the card unless the caller passes
 
 from .config import FFConfig
 from .data import ArrayDataLoader, SyntheticDLRMLoader, ZipfDLRMLoader
+from .initializers import (ConstantInitializer, GlorotUniform,
+                           NormInitializer, UniformInitializer,
+                           ZeroInitializer)
 from .losses import get_loss
 from .metrics import MetricsAccumulator, compute_metrics
 from .model import FFModel, TrainState
 from .optim import AdamOptimizer, SGDOptimizer
-from .serving import (DynamicBatcher, InferenceEngine, LatencyStats,
-                      parse_buckets)
+from .parallel.parallel_config import ParallelConfig, Strategy
+from .serving import (DeadlineExceeded, DynamicBatcher, InferenceEngine,
+                      LatencyStats, Rejected, parse_buckets)
 from .tensor import ParameterSpec, Tensor
 
-__all__ = ["FFConfig", "FFModel", "TrainState", "SGDOptimizer",
-           "AdamOptimizer", "get_loss", "compute_metrics",
-           "MetricsAccumulator", "ArrayDataLoader", "SyntheticDLRMLoader",
-           "ZipfDLRMLoader", "DynamicBatcher", "InferenceEngine",
-           "LatencyStats", "parse_buckets", "ParameterSpec", "Tensor"]
+__version__ = "0.1.0"
+
+__all__ = ["FFConfig", "FFModel", "TrainState", "Tensor", "SGDOptimizer",
+           "AdamOptimizer", "ParallelConfig", "Strategy", "GlorotUniform",
+           "ZeroInitializer", "UniformInitializer", "NormInitializer",
+           "ConstantInitializer", "get_loss", "compute_metrics",
+           "MetricsAccumulator", "InferenceEngine", "DynamicBatcher",
+           "LatencyStats", "Rejected", "DeadlineExceeded",
+           "ArrayDataLoader", "SyntheticDLRMLoader", "ZipfDLRMLoader",
+           "parse_buckets", "ParameterSpec"]

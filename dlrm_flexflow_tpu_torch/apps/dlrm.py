@@ -13,7 +13,8 @@ batch_matmul).
 
 trains the run_random.sh model on the CUDA card: ``fit`` stages the 64
 batches on the card and runs both epochs as one ``train_epochs`` with the
-epoch row cache.
+epoch row cache.  ``--dataset FILE.h5`` trains on a Criteo HDF5 file
+(``data/loader.py::load_criteo_h5``, which needs h5py).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from dataclasses import dataclass, field
 from typing import List, Optional, Sequence
 
 from ..config import FFConfig
-from ..data.loader import SyntheticDLRMLoader
+from ..data.loader import ArrayDataLoader, SyntheticDLRMLoader, load_criteo_h5
 from ..model import FFModel
 from ..optim import SGDOptimizer
 
@@ -194,6 +195,8 @@ def build_dlrm(cfg: DLRMConfig, ffconfig: Optional[FFConfig] = None,
             f"interaction width {z.shape[1]} != mlp_top[0] {cfg.mlp_top[0]}")
     sig = cfg.sigmoid_top if cfg.sigmoid_top >= 0 else len(cfg.mlp_top) - 2
     _create_mlp(model, z, cfg.mlp_top, sig, "top")
+    # the ids' layout the graph reads (one stacked tensor or one per table)
+    model._dlrm_stacked = stacked_embeddings
     return model
 
 
@@ -211,7 +214,9 @@ def cli_loader(cfg: DLRMConfig, ffconfig: FFConfig) -> SyntheticDLRMLoader:
 def run(argv: Sequence[str] = ()) -> float:
     """The reference app's CLI: MSE loss with accuracy and MSE metrics,
     SGD at the config's learning rate and weight decay, synthetic data
-    (``cli_loader``), trained by ``fit`` on the CUDA card.  Returns
+    (``cli_loader``) or with ``--dataset FILE`` a Criteo HDF5 file read
+    in the graph's ids layout (``load_criteo_h5``; ImportError naming
+    h5py without it), trained by ``fit`` on the CUDA card.  Returns
     samples/s.  ``--embedding-dtype bfloat16`` stores the tables in bf16;
     ``--serve-quantize`` is the model config's default for an
     ``InferenceEngine`` built on it; ``--metrics-port`` starts the
@@ -223,18 +228,19 @@ def run(argv: Sequence[str] = ()) -> float:
     writes it; on one card a strategy changes no value."""
     ffconfig = FFConfig.parse_args(argv)
     cfg = DLRMConfig.parse_args(argv)
-    if cfg.dataset:
-        raise NotImplementedError(
-            "--dataset (Criteo HDF5) needs h5py: load_criteo_h5 comes with "
-            "the optimizer and data slice in ROADMAP.md")
     model = build_dlrm(cfg, ffconfig)
     model.compile(optimizer=SGDOptimizer(ffconfig.learning_rate, 0.0, False,
                                          ffconfig.weight_decay),
                   loss_type="mean_squared_error",
                   metrics=("accuracy", "mean_squared_error"))
     state = model.init()
-    state, thpt = model.fit(state, cli_loader(cfg, ffconfig),
-                            epochs=ffconfig.epochs)
+    if cfg.dataset:
+        inputs, labels = load_criteo_h5(cfg.dataset,
+                                        stacked=model._dlrm_stacked)
+        loader = ArrayDataLoader(inputs, labels, ffconfig.batch_size)
+    else:
+        loader = cli_loader(cfg, ffconfig)
+    state, thpt = model.fit(state, loader, epochs=ffconfig.epochs)
     if ffconfig.profiling:
         # the reference's --profiling: per-op times after training
         from ..profiling import OpTimer

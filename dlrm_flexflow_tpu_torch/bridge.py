@@ -19,6 +19,11 @@ bf16 tables arrive as numpy arrays of ``ml_dtypes.bfloat16``, which
 ``uint16`` view.  ``params_to_numpy`` is the way back (the tests feed its
 arrays to ``jnp.asarray``).
 
+A hetero model's host tables (the JAX ``op.host_table.array`` of each
+CPU-placed op) are outside its state: ``host_tables_from_jax(jax_model)``
+copies them, keyed by op name, and ``load_params(...,
+host_tables=...)`` installs them in the port model's host-placed ops.
+
 A whole training state crosses the same way: ``state_from_jax`` takes a
 JAX ``TrainState`` (or any object with its five fields, leaves anything
 ``np.asarray`` reads) and returns the port's :class:`TrainState` of CPU
@@ -71,6 +76,16 @@ def params_from_jax(np_params: Mapping[str, Mapping[str, object]]
     return {op_name: {pname: _tensor(f"{op_name}/{pname}", value)
                       for pname, value in params.items()}
             for op_name, params in np_params.items()}
+
+
+def host_tables_from_jax(jax_model) -> Dict[str, np.ndarray]:
+    """A JAX hetero model's host tables, ``{op name: f32 (R, d) array}``
+    (copies of each CPU-placed op's ``host_table.array``), for
+    ``FFModel.load_params(..., host_tables=)``; ``{}`` for a model
+    without host tables."""
+    return {op.name: np.array(op.host_table.array, dtype=np.float32)
+            for op in getattr(jax_model, "_hetero_ops", [])
+            if getattr(op, "host_table", None) is not None}
 
 
 def opt_state_from_jax(np_opt_state: Mapping[str, object]) -> Dict[str, object]:

@@ -8,6 +8,12 @@ the JAX package writes them with ``use_orbax=False``: the flat keys
 ``{"step": ..., "format": "npz"}`` plus ``"mesh": {}`` when a model is
 given.  So either package restores the other's checkpoints.
 
+Host-placed tables (the hetero strategy, ``ops/hetero.py``) live outside
+the state: ``save_checkpoint(..., model=)`` writes each as
+``host_tables/<op name>`` beside the state, as the JAX package does, and
+``restore_checkpoint(..., model=)`` puts each back into its op's live
+table, warning about any that has no such op to land in.
+
 bf16 leaves: the JAX package's ``np.asarray`` of a bf16 array is an
 ``ml_dtypes.bfloat16`` array, which ``np.savez`` stores as raw 2-byte
 voids (``|V2``).  The port writes the same bytes without ``ml_dtypes``
@@ -18,9 +24,8 @@ that payload, ``checkpoint.py:501``; ROADMAP.md Queue C.)
 What the port does not have raises :class:`CheckpointError` naming the way
 out: an orbax checkpoint (re-save it with ``use_orbax=False``), the
 multi-host ``podshard`` format and a restore across mesh topologies
-(ROADMAP.md Queue A item 8).  The port has no mesh, no packed table
-storage and no CPU-placed tables, so its topology is ``{}`` and leaves
-pass through unreshaped.
+(ROADMAP.md Queue A item 8).  The port has no mesh and no packed table
+storage, so its topology is ``{}`` and leaves pass through unreshaped.
 
 Transfers move whole tensors: ``.cpu()`` on save (which returns once the
 device has produced the values, so a save never holds a later step's
@@ -145,8 +150,18 @@ def _to_device(tree, dev):
     return tree
 
 
-def _flat_state(state: TrainState) -> dict:
-    """The flat key -> leaf map of a state, in the JAX package's order."""
+def _host_tables_of(model) -> dict:
+    """A model's host-placed tables, ``{op name: array}`` (the arrays
+    themselves, not copies); ``{}`` without a model."""
+    return {op.name: op.host_table.array
+            for op in getattr(model, "_hetero_ops", [])
+            if getattr(op, "host_table", None) is not None}
+
+
+def _flat_state(state: TrainState, host_tables: Optional[dict] = None
+                ) -> dict:
+    """The flat key -> leaf map of a state and a model's host tables, in
+    the JAX package's order."""
     flat = {}
     flat.update({f"params/{k}": v
                  for k, v in _flatten(state.params).items()})
@@ -154,6 +169,8 @@ def _flat_state(state: TrainState) -> dict:
                  for k, v in _flatten(state.opt_state).items()})
     flat.update({f"bn_state/{k}": v
                  for k, v in _flatten(state.bn_state or {}).items()})
+    flat.update({f"host_tables/{_esc(k)}": v
+                 for k, v in (host_tables or {}).items()})
     flat["rng"] = state.rng
     flat["step"] = state.step
     return flat
@@ -166,8 +183,9 @@ def save_checkpoint(path: str, state: TrainState, step: Optional[int] = None,
 
     ``model`` records its topology (``{}``: one device) in ``meta.json``,
     as the JAX package does, so a restore onto another fleet shape is
-    detected.  ``use_orbax`` may be None or False: the port writes npz
-    only.  ``multihost=True`` (the pod format) is not ported."""
+    detected, and adds its host-placed tables (``host_tables/<op>``).
+    ``use_orbax`` may be None or False: the port writes npz only.
+    ``multihost=True`` (the pod format) is not ported."""
     if multihost:
         raise NotImplementedError(
             f"the multi-host (podshard) checkpoint is not ported: {_ITEM8}")
@@ -179,7 +197,7 @@ def save_checkpoint(path: str, state: TrainState, step: Optional[int] = None,
             "format": "npz"}
     if model is not None:
         meta["mesh"] = mesh_topology(None)
-    flat = _flat_state(state)
+    flat = _flat_state(state, _host_tables_of(model))
     np.savez(os.path.join(path, "state.npz"),
              **{k: _host(v) for k, v in flat.items() if v is not None})
     with open(os.path.join(path, "meta.json"), "w") as f:
@@ -221,6 +239,10 @@ def restore_checkpoint(path: str, model=None, inference_only: bool = False,
     optimizer slots: present slots are skipped unread, and the state
     carries ``opt_state={}``.  A training restore (the default) requires
     them, and an archive without them raises :class:`CheckpointError`.
+
+    The checkpoint's host tables go into ``model``'s host-placed ops
+    (``op.host_table.array`` rebound); any without such an op, or read
+    without a model, is dropped with a ``RuntimeWarning``.
 
     Raises :class:`CheckpointError` (naming the path and what is missing
     or corrupt) for a nonexistent directory, an absent or truncated
@@ -295,7 +317,9 @@ def restore_checkpoint(path: str, model=None, inference_only: bool = False,
                 head, rest = k.split("/", 1)
                 if inference_only and head == "opt_state":
                     continue  # slots skipped unread
-                groups[head][rest] = _tensor(data[k])
+                groups[head][rest] = (np.array(data[k])
+                                      if head == "host_tables"
+                                      else _tensor(data[k]))
     except (ValueError, OSError, zipfile.BadZipFile) as e:
         raise CheckpointError(
             f"{npz_path!r} is unreadable ({e}) — truncated or "
@@ -311,14 +335,21 @@ def restore_checkpoint(path: str, model=None, inference_only: bool = False,
             f"training resume (the optimizer would silently restart "
             f"from scratch).  Pass inference_only=True to load params "
             f"for serving")
-    if groups["host_tables"]:
-        # the JAX package's CPU-placed (hetero) tables: the port has no
-        # such op to put them back into
+    # host-placed tables go back into the model's live ones
+    host_tables = {_unesc(k): v for k, v in groups["host_tables"].items()}
+    restored = set()
+    for op in getattr(model, "_hetero_ops", ()):
+        if op.name in host_tables and getattr(op, "host_table",
+                                              None) is not None:
+            op.host_table.array = host_tables[op.name]
+            restored.add(op.name)
+    dropped = set(host_tables) - restored
+    if dropped:
         warnings.warn(
-            f"checkpoint holds host tables "
-            f"{sorted(_unesc(k) for k in groups['host_tables'])} (the JAX "
-            f"package's CPU-placed tables), which the port has no op to "
-            f"restore into; they are dropped", RuntimeWarning)
+            f"checkpoint holds host tables {sorted(dropped)} but the "
+            "model has no matching initialized hetero op; call "
+            "model.init() before restore or the CPU-placed weights are "
+            "lost", RuntimeWarning)
     if device is None:
         if model is None:
             return state

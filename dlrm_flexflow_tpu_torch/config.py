@@ -10,11 +10,19 @@ The other fields arrive with the slices that read them.
 The SOAP fields (``num_devices``, ``search_*`` and the strategy files)
 are the JAX package's, read by ``FFModel.compile`` and the search.
 
+``iterations`` and ``simulator_work_space_size`` are accepted and read
+nowhere, as in the JAX package.  The TPU lane-layout switches
+(``packed_tables``, ``epoch_cache_view``, ``epoch_cache_segmented``,
+``epoch_cache_regions``) are validated where the JAX package validates
+them and change no value on Hopper: the port stores every table as its
+logical ``(R, d)`` and has no packed view, segmented slots or region
+plans (the JAX ``(R/pack, 128)`` storage answers the TPU's lane tiling).
+
 Only ``epochs`` and ``batch_size`` are positional, in the JAX order.
 Every later field is keyword-only: the port lacks some of the JAX
-fields in between (``iterations``, ``mesh_shape``), so a positional call
-written for the JAX class would bind its values to other fields here; it
-raises instead.
+fields in between (``mesh_shape``, ``table_exchange``, which come with
+the scale-out slice), so a positional call written for the JAX class
+would bind its values to other fields here; it raises instead.
 """
 
 from __future__ import annotations
@@ -24,6 +32,9 @@ from typing import Optional, Sequence
 
 #: the table storage dtypes ``embedding_dtype`` takes
 EMBEDDING_DTYPES = ("float32", "bfloat16")
+#: the TPU lane-layout switches: validated, no effect on Hopper
+LAYOUT_FIELDS = ("packed_tables", "epoch_cache_view",
+                 "epoch_cache_segmented", "epoch_cache_regions")
 
 
 @dataclasses.dataclass
@@ -31,6 +42,10 @@ class FFConfig:
     epochs: int = 1
     batch_size: int = 64
     _: dataclasses.KW_ONLY
+    # the reference's iterations and simulator work space (config.h:65-103,
+    # :95): accepted, read nowhere (as in the JAX package)
+    iterations: int = 1
+    simulator_work_space_size: int = 2 * 1024 * 1024 * 1024
     # SOAP: the device count the search and the strategy target (None:
     # every visible CUDA card, resolved_num_devices), the MCMC budget and
     # temperature (search_budget > 0 searches at compile), the simulated
@@ -81,6 +96,16 @@ class FFConfig:
     # Ladder shape: "auto", "off" (no in-graph levels) or explicit block
     # sizes, outermost first ("16,8").
     epoch_cache_levels: str = "auto"
+    # The JAX package's TPU lane-layout switches ("auto"|"on"|"off"; its
+    # lane-packed (R/pack, 128) tables, the view-row cache transport,
+    # first-touch-segmented slots and block-major cache regions).
+    # Validated as the JAX package validates them, and no value changes
+    # on Hopper, where a table is its logical (R, d) and a cached row is
+    # a logical row.
+    packed_tables: str = "auto"
+    epoch_cache_view: str = "auto"
+    epoch_cache_segmented: str = "auto"
+    epoch_cache_regions: str = "auto"
     # fit() stages an array-backed, unshuffled, drop_last dataset of at
     # most this many bytes on the device and trains it by whole epochs
     # (0 keeps every fit on the per-batch loop)
@@ -135,6 +160,7 @@ class FFConfig:
         flags = {
             ("-e", "--epochs"): ("epochs", int),
             ("-b", "--batch-size"): ("batch_size", int),
+            ("-i", "--iterations"): ("iterations", int),
             ("--lr", "--learning-rate"): ("learning_rate", float),
             ("--wd", "--weight-decay"): ("weight_decay", float),
             ("--seed",): ("seed", int),

@@ -3,8 +3,12 @@
 NumPy only: the full dataset lives in host memory and each batch is a
 slice of it; ``FFModel.train_step`` moves a batch to the parameters'
 device.  For the same seed these loaders yield arrays identical to the
-JAX package's.  ``load_criteo_h5`` needs ``h5py`` and comes with the
-optimizer and data slice in ROADMAP.md.
+JAX package's.  The Criteo reader and its preprocessor need ``h5py``,
+imported when they are called, so this module imports without it.
+
+    python -m dlrm_flexflow_tpu_torch.data.loader -i day.npz -o day.h5
+
+converts a Criteo ``.npz`` to the training HDF5 file.
 """
 
 from __future__ import annotations
@@ -199,3 +203,59 @@ class ZipfDLRMLoader(ArrayDataLoader):
         signal = signal + dense[:, 0]
         labels = (signal > np.median(signal)).astype(np.float32)[:, None]
         super().__init__(inputs, labels, batch_size)
+
+
+def load_criteo_h5(path: str, stacked: bool = False):
+    """Read a Criteo-format HDF5 file (reference ``dlrm.cc:266-382``:
+    datasets ``X_int`` dense features, ``X_cat`` categorical ids, ``y``
+    labels) as ``(inputs, labels)`` for ``ArrayDataLoader``: ``dense``
+    f32 ``(N, 13)``, the ids int64 as one ``sparse`` ``(N, T, 1)``
+    (``stacked``) or ``sparse_<i>`` ``(N, 1)`` per table, labels f32
+    ``(N, 1)``."""
+    import h5py  # optional: only the Criteo files need it
+
+    with h5py.File(path, "r") as f:
+        x_int = np.asarray(f["X_int"], dtype=np.float32)
+        x_cat = np.asarray(f["X_cat"], dtype=np.int64)
+        y = np.asarray(f["y"], dtype=np.float32).reshape(-1, 1)
+    inputs = {"dense": x_int}
+    if stacked:
+        # (N, T) single-hot -> (N, T, 1) bag layout
+        inputs["sparse"] = x_cat[:, :, None]
+    else:
+        for i in range(x_cat.shape[1]):
+            inputs[f"sparse_{i}"] = x_cat[:, i:i + 1]
+    return inputs, y
+
+
+def preprocess_criteo_npz(input_path: str, output_path: str):
+    """A Criteo ``.npz`` to the training HDF5 file (reference
+    ``examples/cpp/DLRM/preprocess_hdf.py``): ``X_cat`` as int64,
+    ``X_int`` as ``log(x + 1)`` in f32, ``y`` as f32.  Returns
+    ``output_path``."""
+    import h5py  # optional: only the Criteo files need it
+
+    data = np.load(input_path)
+    with h5py.File(output_path, "w") as hdf:
+        hdf.create_dataset("X_cat", data=data["X_cat"].astype(np.int64))
+        hdf.create_dataset(
+            "X_int", data=np.log(data["X_int"].astype(np.float32) + 1))
+        hdf.create_dataset("y", data=data["y"].astype(np.float32))
+    return output_path
+
+
+def _preprocess_main(argv=None):
+    import argparse
+
+    p = argparse.ArgumentParser(
+        description="Criteo npz -> HDF5 (reference preprocess_hdf.py)")
+    p.add_argument("-i", "--input", required=True,
+                   help="Path to input numpy file")
+    p.add_argument("-o", "--output", required=True,
+                   help="Path to output HDF file")
+    args = p.parse_args(argv)
+    preprocess_criteo_npz(args.input, args.output)
+
+
+if __name__ == "__main__":
+    _preprocess_main()

@@ -75,13 +75,16 @@ class BatchPlacer:
     thread runs before it uses them (module docstring).  On the CPU it
     converts and returns ``ready=None``.  On the card it stages through a
     ring of pinned buffers per input; the CUDA stream is made at the
-    first batch, in the worker thread."""
+    first batch, in the worker thread.  The inputs named in ``host`` (the
+    ids of host-placed tables) are converted and copied on the host and
+    stay there."""
 
     def __init__(self, device, dtypes: Dict[str, torch.dtype],
-                 label_dtype: torch.dtype):
+                 label_dtype: torch.dtype, *, host=()):
         self.device = torch.device(device)
         self.dtypes = dict(dtypes)
         self.label_dtype = label_dtype
+        self.host = frozenset(host)
         self._stream = None
         # name -> ring of [pinned buffer or None, event of its last copy]
         self._rings: Dict[str, list] = {}
@@ -122,6 +125,11 @@ class BatchPlacer:
         slots, placed = [], {}
         with torch.cuda.stream(self._stream):
             for k, v in inputs.items():
+                if k in self.host:
+                    # a copy: a loader's batch may be a view it reuses
+                    placed[k] = self._host(
+                        v, self.dtypes.get(k, torch.float32)).clone()
+                    continue
                 placed[k], slot = self._to_device(
                     k, v, self.dtypes.get(k, torch.float32))
                 slots.append(slot)
@@ -131,7 +139,7 @@ class BatchPlacer:
             done.record(self._stream)
         for slot in slots:
             slot[1] = done
-        tensors = list(placed.values()) + [lab]
+        tensors = [v for k, v in placed.items() if k not in self.host] + [lab]
 
         def ready():
             current = torch.cuda.current_stream(self.device)

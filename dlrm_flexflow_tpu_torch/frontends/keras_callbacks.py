@@ -105,8 +105,9 @@ class EpochVerifyMetrics(Callback):
 class ModelCheckpoint(Callback):
     """Save the whole training state every ``period`` epochs, and the
     final state at the end of training unless the last epoch's save wrote
-    it, through ``checkpoint.save_checkpoint`` (npz).  ``filepath`` may
-    hold ``{epoch}``; ``checkpoint.restore_checkpoint`` reads it back."""
+    it, through ``checkpoint.save_checkpoint`` (npz), with the model's
+    host-placed tables.  ``filepath`` may hold ``{epoch}``;
+    ``checkpoint.restore_checkpoint`` reads it back."""
 
     def __init__(self, filepath: str, period: int = 1, verbose: bool = False):
         super().__init__()
@@ -130,6 +131,7 @@ class ModelCheckpoint(Callback):
         if state is None:
             return
         path = self.filepath.format(epoch=epoch)
+        # the model carries its hetero host tables into the checkpoint
         save_checkpoint(path, state, model=_ffmodel_of(self.model))
         self.saved.append(path)
         if self.verbose:

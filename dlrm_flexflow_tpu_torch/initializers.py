@@ -53,17 +53,49 @@ class ZeroInitializer(Initializer):
         return torch.zeros(shape, dtype=dtype, device=generator.device)
 
 
-class UniformInitializer(Initializer):
-    """Uniform in [minval, maxval)."""
+def seeded(generator: torch.Generator, seed: int) -> torch.Generator:
+    """``generator`` itself for seed 0; otherwise a new generator on its
+    device whose seed hashes ``seed`` with ``generator``'s current state,
+    the counterpart of ``jax.random.fold_in(key, seed)``: the draw
+    depends on both, and ``generator`` is not advanced."""
+    if not seed:
+        return generator
+    state = bytes(generator.get_state().tolist())
+    return torch.Generator(device=generator.device).manual_seed(
+        derive_seed(state, int(seed)))
 
-    def __init__(self, minval: float = -0.05, maxval: float = 0.05):
+
+class UniformInitializer(Initializer):
+    """Uniform in [minval, maxval); a nonzero ``seed`` is folded into the
+    generator (``seeded``), as the JAX initializer folds it into its
+    key."""
+
+    def __init__(self, minval: float = -0.05, maxval: float = 0.05,
+                 seed: int = 0):
         self.minval = minval
         self.maxval = maxval
+        self.seed = seed
 
     def __call__(self, generator, shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device=generator.device
                            ).uniform_(self.minval, self.maxval,
-                                      generator=generator)
+                                      generator=seeded(generator, self.seed))
+
+
+class NormInitializer(Initializer):
+    """Gaussian: ``mean + stddev * N(0, 1)``, a nonzero ``seed`` folded in
+    as in ``UniformInitializer``."""
+
+    def __init__(self, mean: float = 0.0, stddev: float = 1.0,
+                 seed: int = 0):
+        self.mean = mean
+        self.stddev = stddev
+        self.seed = seed
+
+    def __call__(self, generator, shape, dtype=torch.float32):
+        z = torch.empty(shape, dtype=dtype, device=generator.device
+                        ).normal_(generator=seeded(generator, self.seed))
+        return self.mean + self.stddev * z
 
 
 class ConstantInitializer(Initializer):

@@ -38,6 +38,17 @@ every block, chunk and epoch of a shape: ``fit(epochs=2)`` of the run_random.sh 
 batches) captures once.  The prologue, the block fetches and writebacks
 and the epilogue stay eager.  A mesh comes with the scale-out slice.
 
+A model with host-placed tables (the hetero strategy: ``compile``'s
+``"cpu"`` placements, ``ops/hetero.py``) runs every step eagerly, since
+a host round trip cannot sit inside a CUDA graph, and after each step
+applies the host SGD step to its tables at ``optimizer.lr``
+(``apply_host_sgd``, whatever optimizer the device parameters take, as
+in the JAX package).  The ids that feed those tables alone stay in host
+memory.  Such a model takes no staged epoch, epoch cache or ladder:
+``fit`` runs batch by batch, as the JAX package's does, and
+``train_epoch(s)`` steps batch by batch with the host update after each
+step (the JAX scanned epoch never applies it: ROADMAP.md Queue C).
+
 Checkpoints and resilient training are the durability slice
 (``checkpoint.py``, ``resilience/``, ``data/prefetch.py``): ``fit``
 hands any of its checkpoint, resume or sentinel options, and installed
@@ -96,6 +107,7 @@ from .ops import (LSTM, BatchMatmul, BatchNorm, Concat, Conv2D, Dropout,
                   Reshape, Reverse, Softmax, Split, StackedEmbedding,
                   Transpose)
 from .ops.embedding import lane_pack, take_rows
+from .ops.hetero import apply_host_sgd
 from .ops.quantized import QUANT_MODES
 from .ops.row_update_kernel import row_update_cuda
 from .ops.slotting import slot_rows
@@ -192,6 +204,11 @@ class FFModel:
         self.metrics: Tuple[str, ...] = ()
         self._loss_fn = None
         self._sparse_ops: List[Op] = []
+        # the hetero ops (compile): tables in host memory, updated on the
+        # host after each step, and the inputs that feed them alone,
+        # which stay in host memory
+        self._hetero_ops: List[Op] = []
+        self._host_inputs: frozenset = frozenset()
         # lazy mode (compile): the optimizer slot tables updated on touch
         self._lazy_slots: Tuple[str, ...] = ()
         self._lazy_mode = False
@@ -504,7 +521,7 @@ class FFModel:
 
     def compile(self, optimizer: Optional[Optimizer] = None,
                 loss_type="mean_squared_error", metrics=("accuracy",),
-                mesh=None, strategy: Optional[Strategy] = None, *,
+                mesh=None, strategy: Optional[Strategy] = None,
                 donate_state: bool = True):
         """Fix the optimizer (default: SGD at the config's learning rate
         and weight decay), the loss and the metrics; choose the row-sparse
@@ -519,8 +536,11 @@ class FFModel:
         ``export_strategy_file`` when set).  Each op named in the
         strategy gets its ``parallel_config``.  On one device, without a
         mesh, a strategy changes no value: the model computes as it
-        would without one.  A ``"cpu"`` placement (tables in host memory)
-        raises: it comes with ``ops/hetero.py`` (ROADMAP.md item 9).
+        would without one.  A ``"cpu"`` device type places an op that
+        has a ``placement`` (the per-table ``Embedding``) on the host:
+        its table lives in host memory (``ops/hetero.py``), and the op
+        joins ``_hetero_ops``; on any other op it is ignored, as in the
+        JAX package (``model.py:493-503``).
 
         ``donate_state=False`` (JAX ``compile``'s flag) keeps every input
         state: ``train_step`` then steps a clone whatever its ``donate``,
@@ -535,7 +555,9 @@ class FFModel:
         if act != "float32":
             raise NotImplementedError(
                 f"activation_dtype={act!r} is not ported yet (float32 only)")
-        for name in ("sparse_embedding_updates", "epoch_row_cache"):
+        for name in ("sparse_embedding_updates", "epoch_row_cache",
+                     "packed_tables", "epoch_cache_view",
+                     "epoch_cache_segmented"):
             mode = getattr(self.config, name)
             if mode not in _MODES:
                 raise ValueError(f"{name} must be 'auto'|'on'|'off', "
@@ -589,11 +611,13 @@ class FFModel:
         input_uids = {t.uid for t in self._inputs}
         sparse_ok = (self.config.sparse_embedding_updates != "off"
                      and (plain_sgd or self._lazy_mode))
-        # the bag-kernel ops (use_pallas) keep the dense gradient, as the
-        # JAX package's _device_table_op leaves them out
+        # the bag-kernel ops (use_pallas) keep the dense gradient and
+        # host-placed ops their host update, as the JAX package's
+        # _device_table_op leaves both out
         self._sparse_ops = [op for op in self.layers
                             if sparse_ok and isinstance(op, EMBEDDING_OPS)
                             and not getattr(op, "use_pallas", False)
+                            and getattr(op, "placement", "tpu") != "cpu"
                             and op.inputs[0].uid in input_uids]
 
         def forward(params, inputs, bn_state=None):
@@ -626,16 +650,27 @@ class FFModel:
                 alpha=self.config.search_alpha, verbose=True)
             if self.config.export_strategy_file:
                 self.strategy.save(self.config.export_strategy_file)
-        for op in self.layers:
-            pc = self.strategy.configs.get(op.name)
-            if pc is not None and pc.device_type == "cpu":
-                raise NotImplementedError(
-                    f"{op.name}: a 'cpu' placement (the table in host "
-                    "memory, updated on the host) comes with "
-                    "ops/hetero.py, ROADMAP.md item 9")
+        self._hetero_ops = []
         for op in self.layers:
             if op.name in self.strategy:
                 op.parallel_config = self.strategy[op.name]
+            pc = op.parallel_config
+            if (pc is not None and pc.device_type == "cpu"
+                    and hasattr(op, "placement")):
+                # the hetero placement (JAX model.py:493-503): the table
+                # in host memory, updated on the host after each step;
+                # a "cpu" config on an op without a placement is ignored
+                op.placement = "cpu"
+                self._hetero_ops.append(op)
+        # the ids that feed host-placed ops only stay in host memory
+        consumers: Dict[int, List[Op]] = {}
+        for op in self.layers:
+            for t in op.inputs:
+                consumers.setdefault(t.uid, []).append(op)
+        self._host_inputs = frozenset(
+            t.name for t in self._inputs if consumers.get(t.uid) and all(
+                getattr(op, "placement", "tpu") == "cpu"
+                for op in consumers[t.uid]))
 
     # ------------------------------------------------------------ parameters
     def _place_opt_state(self, opt_state, dev):
@@ -679,7 +714,8 @@ class FFModel:
                           initial_rng(seed, dev),
                           torch.zeros((), dtype=torch.int32, device=dev))
 
-    def load_params(self, params, device=None, opt_state=None) -> TrainState:
+    def load_params(self, params, device=None, opt_state=None, *,
+                    host_tables=None) -> TrainState:
         """Install ``{op: {param: array or tensor}}`` (for example
         ``bridge.params_from_jax`` of a JAX model's params) on ``device``
         (default: this model's device, else the CUDA card).  Names, shapes
@@ -688,7 +724,28 @@ class FFModel:
         placed beside them; by default the optimizer starts afresh.  Each
         batch norm starts at its ``init_state`` (a whole state, running
         statistics included, crosses with ``bridge.state_from_jax`` or
-        an npz checkpoint)."""
+        an npz checkpoint).
+
+        ``host_tables`` (``{op name: (R, d) array}``, for example
+        ``bridge.host_tables_from_jax`` of a JAX hetero model) become the
+        host-placed ops' tables, copied; a host-placed op that gets none
+        keeps the table it has, and one without a table raises."""
+        host_tables = dict(host_tables or {})
+        for op in self._hetero_ops:
+            if op.name in host_tables:
+                arr = np.asarray(host_tables.pop(op.name))
+                if arr.shape != (op.num_entries, op.out_dim):
+                    raise ValueError(
+                        f"{op.name}: host table {arr.shape}, expected "
+                        f"{(op.num_entries, op.out_dim)}")
+                op.set_host_table(np.array(arr, dtype=np.float32))
+            elif getattr(op, "host_table", None) is None:
+                raise ValueError(f"{op.name} is placed on the host and has "
+                                 "no table: pass it in host_tables, or "
+                                 "init the model first")
+        if host_tables:
+            raise KeyError(f"host_tables name {sorted(host_tables)}, which "
+                           "are not host-placed ops of this model")
         dev = resolve_device(device if device is not None else self.device)
         expected = {op.name: {s.param_name: s for s in op.param_specs()}
                     for op in self.layers if op.param_specs()}
@@ -732,6 +789,9 @@ class FFModel:
 
     # ------------------------------------------------------------- inference
     def _place_inputs(self, inputs, device) -> Dict[str, torch.Tensor]:
+        """Every model input as a tensor of its dtype on ``device``, but
+        the ids that feed host-placed ops only (``_host_inputs``), which
+        stay in host memory: the host lookup reads them there."""
         placed = {}
         for t in self._inputs:
             if t.name not in inputs:
@@ -740,7 +800,8 @@ class FFModel:
             v = inputs[t.name]
             if not isinstance(v, torch.Tensor):
                 v = torch.from_numpy(np.asarray(v, dtype=numpy_dtype(t.dtype)))
-            placed[t.name] = v.to(device=device, dtype=t.dtype)
+            dev = "cpu" if t.name in self._host_inputs else device
+            placed[t.name] = v.to(device=dev, dtype=t.dtype)
         return placed
 
     def _place_labels(self, labels, device) -> torch.Tensor:
@@ -763,13 +824,14 @@ class FFModel:
         """The placement ``fit`` gives its own ``PrefetchLoader``: a whole
         batch cast to the graph's input and label dtypes on the host and
         copied to the model's device, on the card through pinned staging
-        buffers on a stream of its own (``data/prefetch.py``)."""
+        buffers on a stream of its own (``data/prefetch.py``), but the
+        ids of host-placed tables, which stay on the host."""
         self._require_compiled()
         dev = self.device if self.device is not None else resolve_device()
         labels = (torch.int64 if "sparse" in (self.loss_type or "")
                   else self.final_tensor.dtype)
         return BatchPlacer(dev, {t.name: t.dtype for t in self._inputs},
-                           labels)
+                           labels, host=self._host_inputs)
 
     def predict(self, params_or_state, inputs) -> torch.Tensor:
         """Labels-free inference: the public forward for serving.
@@ -857,8 +919,17 @@ class FFModel:
         # without one never depends on where the key lives
         carried = (state.params, state.opt_state, step, state.bn_state,
                    state.rng if self.has_stochastic else None)
-        packed = (self._step(batch, carried) if donate
+        # a host round trip cannot be captured: a model with host tables
+        # steps eagerly, and its tables take the host SGD step after it
+        # (JAX model.py:2075-2085)
+        packed = (self._step(batch, carried)
+                  if donate and not self._hetero_ops
                   else self._step_body(batch, carried))
+        if self._hetero_ops:
+            lr = getattr(self.optimizer, "lr", 0.01)
+            for op in self._hetero_ops:
+                if hasattr(op, "host_table"):
+                    apply_host_sgd(op.host_table, lr)
         return (TrainState(state.params, state.opt_state, state.bn_state,
                            state.rng, step),
                 self._unpack_metrics(packed))
@@ -1065,10 +1136,11 @@ class FFModel:
         """Set ``_epoch_cache_active`` for tables on ``dev``: "on" anywhere,
         "auto" on the CUDA card (config.py says why the port departs from
         the JAX package's TPU-only rule), "off" never; always with at
-        least one row-sparse op."""
+        least one row-sparse op, and never for a model with host tables."""
         mode = self.config.epoch_row_cache
-        self._epoch_cache_active = bool(self._sparse_ops) and (
-            mode == "on" or (mode == "auto" and dev.type == "cuda"))
+        self._epoch_cache_active = (
+            bool(self._sparse_ops) and not self._hetero_ops
+            and (mode == "on" or (mode == "auto" and dev.type == "cuda")))
 
     def cache_prologue(self, state: TrainState, inputs):
         """Per row-sparse op, map the epoch's ids to unique cache slots and
@@ -1083,6 +1155,11 @@ class FFModel:
         opt_state = state.opt_state
         slots_ep, writebacks, originals = {}, [], {}
         cache_ops = self._sparse_ops if self._epoch_cache_active else ()
+        if cache_ops and self.config.epoch_cache_regions not in _MODES:
+            # where the JAX package checks it: at a prologue with cache ops
+            raise ValueError(
+                f"epoch_cache_regions must be 'auto'|'on'|'off', "
+                f"got {self.config.epoch_cache_regions!r}")
         for op in cache_ops:
             ids = inputs[op.inputs[0].name].to(torch.int32)
             tb = params[op.name]["embedding"]
@@ -1423,10 +1500,11 @@ class FFModel:
         """The whole dataset stacked as ``(num_batches, batch, ...)`` and
         placed on ``device`` for fit's staged branch (JAX
         ``_stage_scan_dataset``), or None when fit keeps the per-batch
-        loop: a loader that is not array-backed, shuffles, keeps a last
-        short batch, is empty, or holds more than ``fit_scan_max_bytes``."""
+        loop: a model with host tables (as in JAX), or a loader that is
+        not array-backed, shuffles, keeps a last short batch, is empty, or
+        holds more than ``fit_scan_max_bytes``."""
         cap = self.config.fit_scan_max_bytes
-        if not (cap > 0
+        if not (cap > 0 and not self._hetero_ops
                 and getattr(dataloader, "inputs", None) is not None
                 and getattr(dataloader, "drop_last", False)
                 and not getattr(dataloader, "shuffle", True)

@@ -23,9 +23,15 @@ table gradient, never the row-sparse path.
 Id contracts, as in the JAX package: a gather reads ``jnp.take``'s way
 (an id in ``[-R, 0)`` wraps, any other out-of-range id reads a NaN row);
 the scatter follows ``.at[].add`` (an id in ``[-R, 0)`` wraps, any other
-out-of-range id is dropped).  The JAX package's lane-packed storage and
-CPU-placed tables are TPU or later-slice features with no counterpart
-here.
+out-of-range id is dropped).  The JAX package's lane-packed storage is a
+TPU feature with no counterpart here.
+
+An ``Embedding`` placed on the host (``placement == "cpu"``, set by
+``FFModel.compile`` from a strategy's ``"cpu"`` device type: the hetero
+strategy) keeps its table in host memory (``ops/hetero.py``): its
+params hold only the scalar ``handle``, ``init_params`` draws the table
+on the host, and the forward pools bagged ``(B, bag)`` ids through
+``host_embedding_bag``.
 
 Tables are stored in ``table_dtype``, f32 or bf16
 (``FFConfig.embedding_dtype``).  The forward follows the JAX package's
@@ -43,7 +49,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..initializers import UniformInitializer
+from ..initializers import ConstantInitializer, UniformInitializer
 from ..tensor import ParameterSpec
 from .bag_kernel import embedding_bag_cuda
 from .base import Op
@@ -162,6 +168,9 @@ class Embedding(Op):
         # (the d % 128 rule is the TPU's lane tiling; the Hopper kernel
         # needs none of it, but the op must take the reference's path)
         self.use_pallas = use_pallas and out_dim % 128 == 0
+        # "tpu" (the accelerator, the strategy files' name for it) or
+        # "cpu" (the table in host memory), set by compile
+        self.placement = "tpu"
         self.kernel_initializer = (kernel_initializer
                                    or UniformInitializer(-0.05, 0.05))
         ishape = input_tensor.shape
@@ -174,13 +183,51 @@ class Embedding(Op):
         self.outputs = [self._make_output(out_shape, dtype)]
 
     def param_specs(self):
+        if self.placement == "cpu":
+            # the table is in host memory: the params hold the handle
+            return [ParameterSpec(self.name, "handle", (),
+                                  initializer=ConstantInitializer(1.0))]
         return [ParameterSpec(self.name, "embedding",
                               (self.num_entries, self.out_dim),
                               dtype=self.table_dtype,
                               initializer=self.kernel_initializer)]
 
+    def init_params(self, generator):
+        """The params (``Op.init_params``); a host-placed op also draws
+        its f32 table on the host, from a CPU generator seeded as
+        ``generator`` was, so the table is the same whatever device the
+        params go to, and evicts it from the store when the op dies."""
+        if self.placement == "cpu":
+            host = torch.Generator().manual_seed(generator.initial_seed())
+            self.set_host_table(self.kernel_initializer(
+                host, (self.num_entries, self.out_dim)).numpy())
+        return super().init_params(generator)
+
+    def set_host_table(self, array) -> None:
+        """Install ``array`` as this host-placed op's table: a new store
+        entry at the first call (evicted when the op dies), a rebind
+        after."""
+        if getattr(self, "host_table", None) is not None:
+            self.host_table.array = array
+            return
+        import weakref
+
+        from .hetero import HostEmbeddingTable
+        self.host_table = HostEmbeddingTable(f"{self.name}@{id(self)}",
+                                             array)
+        weakref.finalize(self, HostEmbeddingTable.drop, self.host_table.key)
+
     def forward(self, params, xs, *, training=False, rng=None):
         (idx,) = xs
+        if self.placement == "cpu":
+            from .hetero import host_embedding_bag
+            if idx.dim() != 2:
+                raise ValueError(f"{self.name}: a host-placed table takes "
+                                 f"bagged (B, bag) ids, got {tuple(idx.shape)}")
+            aggr = self.aggr if self.aggr != "none" else "sum"
+            out = host_embedding_bag(idx, params["handle"],
+                                     self.host_table.key, self.out_dim, aggr)
+            return [out.to(self.outputs[0].dtype)]
         rows = params.get("rows__")
         qscale = params.get(QSCALE_KEY)
         if rows is None:

@@ -20,8 +20,10 @@ rejected, or resumed mid-epoch.  When any resilience option is active,
   anomalous step is rejected one step late — the pre-dispatch state is
   still live (the step runs with ``donate=False`` while a sentinel is
   armed), the speculative in-flight step computed from the poisoned
-  state is discarded (its injected faults are un-consumed), and the
-  batch is skipped or retried at a backed-off learning rate;
+  state is discarded (its injected faults are un-consumed), a hetero
+  model's host tables are put back as they were before the rejected
+  step, and the batch is skipped or retried at a backed-off learning
+  rate;
 * honors the fault-injection harness (``FF_FAULTS`` / ``FFConfig.faults``
   / ``faultinject.install``) at its step boundary;
 * prefetches input batches (``FFConfig.prefetch_depth`` > 0,
@@ -77,11 +79,11 @@ class _Pending:
     the pre-dispatch world), or retry its batch at a backed-off rate."""
 
     __slots__ = ("pre_state", "new_state", "mets", "step", "lr", "span",
-                 "inputs", "labels", "loader_sd", "n_samples",
+                 "inputs", "labels", "host_snap", "loader_sd", "n_samples",
                  "data_wait_s", "dispatch_wall_s")
 
     def __init__(self, pre_state, new_state, mets, step, lr, span,
-                 inputs, labels, loader_sd, n_samples,
+                 inputs, labels, host_snap, loader_sd, n_samples,
                  data_wait_s=0.0, dispatch_wall_s=0.0):
         self.pre_state = pre_state
         self.new_state = new_state
@@ -91,6 +93,7 @@ class _Pending:
         self.span = span
         self.inputs = inputs
         self.labels = labels
+        self.host_snap = host_snap
         self.loader_sd = loader_sd
         self.n_samples = n_samples
         self.data_wait_s = data_wait_s
@@ -171,6 +174,21 @@ def resilient_fit(model, state, dataloader, epochs: int, verbose: bool,
 
     global_step = int(state.step)
     donate = sentinel is None  # rejection needs the pre-dispatch state live
+    # hetero host tables take their SGD step inside the dispatch
+    # (train_step), so a rejection rolls them back too.  apply_host_sgd
+    # rebinds each table's array, so the pre-dispatch snapshot holds
+    # references, not copies: restoring a two-step-old snapshot undoes
+    # the rejected step and the discarded in-flight one
+    hetero_ops = [op for op in getattr(model, "_hetero_ops", [])
+                  if getattr(op, "host_table", None) is not None
+                  ] if sentinel else []
+
+    def host_snapshot():
+        return {op.name: op.host_table.array for op in hetero_ops}
+
+    def host_restore(snap):
+        for op in hetero_ops:
+            op.host_table.array = snap[op.name]
     losses, loss_steps = [], []
     samples = [0]
     epochs_run = 0
@@ -260,6 +278,7 @@ def resilient_fit(model, state, dataloader, epochs: int, verbose: bool,
             faultinject.maybe_host_fault("step", step=p.step)
             binputs, blabels = faultinject.poison_batch(
                 p.inputs, p.labels, step=p.step)
+            host_snap = host_snapshot()
             td = time.perf_counter()
             new_state, mets = model.train_step(retry_state, binputs,
                                                blabels, donate=False)
@@ -273,13 +292,14 @@ def resilient_fit(model, state, dataloader, epochs: int, verbose: bool,
                 state = new_state
                 global_step = p.step + 1
                 adopt(_Pending(retry_state, new_state, mets, p.step, lr,
-                               rspan, p.inputs, p.labels, p.loader_sd,
-                               p.n_samples, p.data_wait_s,
+                               rspan, p.inputs, p.labels, host_snap,
+                               p.loader_sd, p.n_samples, p.data_wait_s,
                                p.dispatch_wall_s),
                       loss_f, ep, wait_s=wait)
                 return
             rspan.set_attr("policy", sentinel.policy)
             rspan.end(status="rejected")
+            host_restore(host_snap)
             retry_state = model.set_learning_rate(
                 retry_state, lr * sentinel.lr_factor)
 
@@ -310,6 +330,7 @@ def resilient_fit(model, state, dataloader, epochs: int, verbose: bool,
         p.span.end(status="rejected")
         state = p.pre_state
         global_step = p.step
+        host_restore(p.host_snap)
         if discard is not None:
             discard()
         if sentinel.policy == "lr_backoff":
@@ -368,6 +389,7 @@ def resilient_fit(model, state, dataloader, epochs: int, verbose: bool,
                     faultinject.maybe_host_fault("step", step=global_step)
                     binputs, blabels = faultinject.poison_batch(
                         inputs, labels, step=global_step)
+                    host_snap = host_snapshot()
                     td = time.perf_counter()
                     new_state, mets = model.train_step(
                         state, binputs, blabels, donate=donate)
@@ -375,8 +397,8 @@ def resilient_fit(model, state, dataloader, epochs: int, verbose: bool,
                     dispatch_s[0] += dwall
                     lr = float(getattr(model.optimizer, "lr", 0.0))
                     cur = _Pending(state, new_state, mets, global_step,
-                                   lr, dspan, inputs, labels, loader_sd,
-                                   n_samples, bstall, dwall)
+                                   lr, dspan, inputs, labels, host_snap,
+                                   loader_sd, n_samples, bstall, dwall)
                     # speculatively advance so the PREVIOUS dispatch's
                     # loss check overlaps this one's device window
                     state = new_state

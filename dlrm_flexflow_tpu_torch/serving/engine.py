@@ -98,7 +98,8 @@ class InferenceEngine:
     which stay where they are and are copied to the host.  ``buckets``
     overrides ``model.config.serve_buckets``; ``aot=False`` runs the
     forward eagerly instead of replaying a CUDA graph (``None`` or
-    ``True``: graphs); ``quantize`` overrides
+    ``True``: graphs; ``None`` runs a model with host-placed tables
+    eagerly, since a host lookup cannot be captured); ``quantize`` overrides
     ``model.config.serve_quantize`` ("off", "int8" or "bf16"): the tables
     are quantized on a copy of the params, so the training state is never
     touched.  ``storage`` overrides ``model.config.serve_storage``
@@ -141,7 +142,8 @@ class InferenceEngine:
         if buckets is None:
             buckets = getattr(model.config, "serve_buckets", None)
         self.buckets = parse_buckets(buckets)
-        self._aot = True if aot is None else bool(aot)
+        self._aot = (not getattr(model, "_hetero_ops", None)
+                     if aot is None else bool(aot))
         self._params = dict(getattr(params_or_state, "params",
                                     params_or_state))
         # tiered storage, built before the params move to the card (a

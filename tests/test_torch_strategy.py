@@ -292,20 +292,31 @@ def test_import_export_and_search_at_compile(tmp_path):
 
 
 def test_cpu_placement_raises_naming_hetero(tmp_path):
-    """A hetero strategy (tables in host memory) is refused at compile,
-    given or imported, and from the CLI's ``--import`` before anything
-    is placed on a device."""
+    """A hetero strategy (tables in host memory) used to be refused at
+    compile; it is honoured now, as in the JAX package: given on the
+    per-table graph it places every table on the host, imported for the
+    stacked graph (whose op has no placement) it places none, and the
+    CLI's ``--import`` of it compiles and goes on to place the model on
+    the card (here, without one, that raises)."""
     hetero = ppb.dlrm_strategy(len(TABLES), 2, hetero_cpu_embeddings=True,
                                stacked=False)
     model = _port_model(stacked=False)
-    with pytest.raises(NotImplementedError, match="ops/hetero.py"):
-        model.compile(strategy=hetero)
+    model.compile(strategy=hetero)
+    assert [op.name for op in model._hetero_ops] == \
+        [f"emb_{i}" for i in range(len(TABLES))]
+    jm = _jax_model(stacked=False)
+    jm.compile(strategy=jpb.dlrm_strategy(len(TABLES), 2,
+                                          hetero_cpu_embeddings=True,
+                                          stacked=False), mesh=False)
+    assert [op.name for op in jm._hetero_ops] == \
+        [op.name for op in model._hetero_ops]
     path = tmp_path / "hetero.json"
     ppb.dlrm_strategy(len(TABLES), 2, hetero_cpu_embeddings=True).save(
         str(path))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        _compiled(import_strategy_file=str(path))
-    with pytest.raises(NotImplementedError, match="ops/hetero.py"):
+    assert _compiled(import_strategy_file=str(path))._hetero_ops == []
+    if torch.cuda.is_available():
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         cli_run(["--import", str(path), "-b", "16",
                  "--arch-embedding-size", "300-200-120",
                  "--arch-sparse-feature-size", "8",
