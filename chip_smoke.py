@@ -229,7 +229,39 @@ Phases, each of which fails the run (non-zero exit, no result line):
      launches 22 a step in (b), none in (a); a save and restore of the
      host tables bit for bit; the step split into host lookup, H2D,
      device, D2H, host gradient and host update (hetero.timing(),
-     information), beside the card's name and power limit.
+     information), beside the card's name and power limit;
+ 29. bf16 activation storage (FFConfig(activation_dtype="bfloat16")),
+     each graph first checked to declare every op output bf16 but the
+     final output and the loss input, and to store one forward's values
+     so: (a) the run_random.sh classic graph at bf16 compute: one step
+     through B2 against row_update_ref bit for bit, four graphed steps
+     against four eager ones bit for bit, 16 losses beside the
+     f32-activation model's from the same weights (within 0.05, the JAX
+     package's policy), three steps against the port's CPU path (losses
+     within rtol 1e-3), then the main path, train_epoch over the 64
+     batches with the epoch cache (B2 a step, B5); (b) the fused model
+     served through the batcher over buckets 1-256 (B3), the padding
+     contract and every bucket's graph against the eager forward bit for
+     bit; (c) Inception-v3 at 299, batch 64, bf16 compute and
+     activations: four graphed steps against four eager ones bit for
+     bit, the graphed step's wall and peak memory beside the same
+     model's under f32 activations, and at batch 2 the logits and the
+     loss against the port's CPU path (ACT_INCEPTION_TOL);
+ 30. bf16 tiered serving: the run_random.sh tables stored bf16 (1.02 GB),
+     4096 hot rows a table, phase 20's 512 zipf-1.05 requests from 8
+     clients, bit for bit the resident bf16 engine's; hit %, QPS and p99
+     beside phase 20's f32 run; B5 bf16 installs counted; then a bf16
+     store's scatter_apply on the card against the CPU store, bit for
+     bit (bf16 grads through B2 on the bf16 rows, f32 grads through B2
+     on an f32 copy of the touched rows, set back by B5);
+ 31. the frontends: the keras examples seq_mnist_mlp (784-512-512-10)
+     and func_cifar10_cnn at their widths on keras_datasets' data, and
+     a torch.fx conversion of a torch CNN (weights imported from the
+     module's CUDA tensors), each four steps on the card against the
+     same model on the CPU, then fit, timed steps and evaluate;
+     ONNXModel refusing without onnx.  No kernel runs in this phase.
+The phases that train epochs of the run_random.sh model ask for the
+epoch row cache ("on"): "auto" is off on the card.
 Profile lines carry the graph replays in their window, the graph pool's
 bytes and the host's launches per dispatch or step.
 The line before the last is the kernels' JSON record; the last line is
@@ -271,8 +303,11 @@ from dlrm_flexflow_tpu_torch.checkpoint import (restore_checkpoint,
                                                 save_checkpoint)
 from dlrm_flexflow_tpu_torch.data import native as native_module
 from dlrm_flexflow_tpu_torch.data.loader import ArrayDataLoader, zipf_ids
+from dlrm_flexflow_tpu_torch.frontends import keras as keras_frontend
+from dlrm_flexflow_tpu_torch.frontends import onnx_model
 from dlrm_flexflow_tpu_torch.frontends.keras_callbacks import (
     Callback, LearningRateScheduler)
+from dlrm_flexflow_tpu_torch.frontends.torch_fx import PyTorchModel
 from dlrm_flexflow_tpu_torch.graphs import flatten
 from dlrm_flexflow_tpu_torch.ops import Embedding, FusedEmbedInteract
 from dlrm_flexflow_tpu_torch.ops import embedding as emb_module
@@ -555,14 +590,14 @@ def check_kernel_cases(table) -> float:
 
 
 # --------------------------------------------------------------- phase 4
-def build_model():
+def build_model(**config):
     """The run_random.sh DLRM with the fused interaction, at full width
     and depth: 8 tables of 1M x 64 f32 (2.05 GB), bottom 64-512-512-64,
     cat to 576, top 576-1024-1024-1024-1, bf16 compute, random weights
-    from seed 0, on the card."""
+    from seed 0, on the card; ``config`` adds FFConfig fields."""
     cfg = DLRMConfig(embedding_size=[ROWS] * TABLES, fused_interaction="on")
     ffc = FFConfig(batch_size=BUCKETS[-1], compute_dtype="bfloat16",
-                   serve_buckets=",".join(map(str, BUCKETS)))
+                   serve_buckets=",".join(map(str, BUCKETS)), **config)
     model = build_dlrm(cfg, ffc).compile()
     t0 = time.perf_counter()
     state = model.init(seed=0)
@@ -705,7 +740,8 @@ def serve(model, state):
     return launches, err, summary.get("p99_us")
 
 
-def check_buckets_vs_eager(model, state, engine, rng) -> None:
+def check_buckets_vs_eager(model, state, engine, rng,
+                           config: str = "serving") -> None:
     """Every bucket's graph, after the traffic's replays, against the eager
     ``model.predict`` on the same rows, bit for bit: a full bucket and a
     partial one (padded by the engine, unpadded eagerly)."""
@@ -721,7 +757,7 @@ def check_buckets_vs_eager(model, state, engine, rng) -> None:
                          "bit_identical": bool(np.array_equal(got, want)),
                          "max_abs_err": float(np.abs(got - want).max())})
     ok = all(r["bit_identical"] and r["replayed"] == 1 for r in rows)
-    log({"phase": "graph_vs_eager", "config": "serving", "cases": rows,
+    log({"phase": "graph_vs_eager", "config": config, "cases": rows,
          "ok": ok})
     if not ok:
         raise AssertionError("a bucket's graph != the eager forward")
@@ -1318,7 +1354,11 @@ def _train_model(fused, compute_dtype, sparse="auto", interact="cat",
                  optimizer=None, strategy=None, **config):
     """The run_random.sh model, or with ``interact="dot"`` its dot form
     (top MLP 145-1024-1024-1024-1), under SGD at lr 0.01 unless an
-    ``optimizer`` is given, compiled with ``strategy`` when given."""
+    ``optimizer`` is given, compiled with ``strategy`` when given.  The
+    epoch row cache is on unless ``epoch_row_cache`` says otherwise:
+    "auto" is off on the card, and the phases that train epochs here
+    drive the cached path and its row-set launches."""
+    config.setdefault("epoch_row_cache", "on")
     top0 = interact_width(interact, TABLES, DIM, BOT)
     cfg = DLRMConfig(embedding_size=[ROWS] * TABLES,
                      fused_interaction="on" if fused else "off",
@@ -3255,34 +3295,43 @@ def serve_tiered(model, state, pool, resident):
     return {"hot4096": row, "hot512_router": rrow}, counts, store
 
 
-def check_tiered_scatter(rounds: int = 12):
-    """Phase 20(e): ``scatter_apply`` of a stacked store on the card (the
-    row-update kernel, installs by the row-set kernel, writebacks of
-    evicted dirty rows) against the same store on the CPU (the plain
-    versions), bit for bit: each round's ``gather_rows`` and the final
-    ``cold_full``.  Returns (max abs err, path launches)."""
+def check_tiered_scatter(rounds: int = 12, dtype=torch.float32):
+    """Phase 20(e) (and 30 on a bf16 table): ``scatter_apply`` of a
+    stacked store on the card (the row-update kernel, installs by the
+    row-set kernel, writebacks of evicted dirty rows) against the same
+    store on the CPU (the plain versions), bit for bit: each round's
+    ``gather_rows`` and the final ``cold_full``.  On a bf16 table the
+    rounds alternate bf16 grads (B2 on the bf16 hot tier) and f32 grads
+    (B2 on an f32 copy of the touched rows, set back by B5).  Returns
+    (max abs err, path launches)."""
     rng = np.random.default_rng(5)
-    cold = rng.standard_normal((TABLES, 100_000, DIM)).astype(np.float32)
+    cold = torch.from_numpy(rng.standard_normal(
+        (TABLES, 100_000, DIM)).astype(np.float32)).to(dtype)
     card = TieredEmbeddingTable("sparse", cold, 512)
     host = TieredEmbeddingTable("sparse", cold, 512, device="cpu")
     err = 0.0
     reset_counts()  # the main path starts here
-    for _ in range(rounds):
+    for r in range(rounds):
         ids = zipf_ids(rng, 100_000, (BUCKETS[-1], TABLES, 1), a=ZIPF_ALPHA)
-        grads = rng.standard_normal(ids.shape + (DIM,)).astype(np.float32)
+        grads = torch.from_numpy(rng.standard_normal(
+            ids.shape + (DIM,)).astype(np.float32))
+        if dtype == torch.bfloat16 and r % 2:
+            grads = grads.to(torch.bfloat16)
         card.scatter_apply(ids, grads, -0.01)
         host.scatter_apply(ids, grads, -0.01)
-        a = card.gather_rows(ids).cpu().numpy()
-        b = host.gather_rows(ids).numpy()
-        err = max(err, float(np.abs(a - b).max()))
-        if not np.array_equal(a, b):
+        a = card.gather_rows(ids).cpu()
+        b = host.gather_rows(ids)
+        err = max(err, float((a.float() - b.float()).abs().max()))
+        if not torch.equal(a, b):
             raise AssertionError("tiered scatter_apply: card != plain")
     counts = read_counts()  # ... and ends here (the CPU store counts none)
     cs, hs = card.stats(), host.stats()
-    same = np.array_equal(card.cold_full(), host.cold_full())
+    same = torch.equal(torch.as_tensor(card.cold_full()),
+                       torch.as_tensor(host.cold_full()))
     log({"phase": "kernel_vs_plain", "kernel": "row_update",
-         "config": "TieredEmbeddingTable.scatter_apply, (8, 100000, 64), "
-                   "hot 512", "rounds": rounds, "launches": counts,
+         "config": "TieredEmbeddingTable.scatter_apply, (8, 100000, 64) "
+                   f"{str(dtype).replace('torch.', '')}, hot 512",
+         "rounds": rounds, "launches": counts,
          "evictions": cs["evictions"], "writebacks": cs["writebacks"],
          "stats_equal": {k: cs[k] == hs[k] for k in (
              "hits", "misses", "evictions", "writebacks", "dirty")},
@@ -4225,13 +4274,14 @@ CARD_VS_CPU_TOL = {"logits": 1e-4, "loss": 1e-5, "update_l2": 1e-4,
                    "hetero_loss": 1e-5, "hetero_update_l2": 1e-4}
 
 
-def _app(app, batch, optimizer=None):
+def _app(app, batch, optimizer=None, **config):
     """(model compiled with the CLI's optimizer and loss, or with
-    ``optimizer``; a function of n giving the CLI's data loader of n
-    batches)."""
+    ``optimizer``, under FFConfig fields ``config``; a function of n
+    giving the CLI's data loader of n batches)."""
     from dlrm_flexflow_tpu_torch.apps import (alexnet, candle_uno,
                                               inception, nmt, resnet)
-    ffc = FFConfig(batch_size=batch)
+    # NMT's staged fit writes its epoch cache back through B5 under "on"
+    ffc = FFConfig(batch_size=batch, epoch_row_cache="on", **config)
     if app in ("alexnet", "resnet", "inception"):
         mod = {"alexnet": alexnet, "resnet": resnet,
                "inception": inception}[app]
@@ -4412,7 +4462,7 @@ def app_card_vs_cpu(app):
     ``CARD_VS_CPU_TOL``.  Returns (row, launches)."""
     model, loader = _app(app, 2, optimizer=SGDOptimizer(lr=0.01))
     card = model.init(seed=0)
-    cpu = model.load_params(_cpu_params(card), device="cpu")
+    cpu = model.load_params(card.params, device="cpu")
     before = cpu.clone()
     x, y = next(iter(loader(1)))
     t0 = time.perf_counter()
@@ -4612,7 +4662,7 @@ def small_graph(kind):
     differ from replay to replay."""
     model, inputs, labels = _small_graph(kind)
     state = model.init(seed=0)
-    cpu = model.load_params(_cpu_params(state), device="cpu")
+    cpu = model.load_params(state.params, device="cpu")
     check_graphed_vs_eager(model, state, inputs, labels, kind)
     masks_equal, losses = None, []
     if kind.startswith("dropout"):
@@ -4937,6 +4987,566 @@ def hetero_phase(card):
          time.perf_counter() - t0})
     return rows, total
 
+# -------------------------------------------------------------- phase 29
+#: the JAX package's policy for bf16 activation storage (its
+#: test_ops.py:484-491): a loss within 0.05 of the f32-activation run's
+ACT_LOSS_TOL = 0.05
+#: steps of the loss trajectories, and of the card against the CPU
+ACT_STEPS, ACT_CPU_STEPS = 16, 3
+#: the card against the port's CPU path under bf16 activations: losses
+#: at the repo's bf16 gate (rtol 1e-3)
+ACT_CARD_VS_CPU_RTOL = 1e-3
+#: Inception-v3 under bf16 compute and activations, the card against the
+#: port's CPU path at batch 2: the logits within two bf16 ulps of the
+#: largest (cuDNN and the CPU sum each convolution in another f32 order,
+#: so a bf16 output near a rounding step may round the other way), the
+#: loss at the repo's bf16 gate
+ACT_INCEPTION_TOL = {"logits": 2.0 ** -7, "loss": ACT_CARD_VS_CPU_RTOL}
+
+
+def _losses(model, state, inputs, labels, steps):
+    """``steps`` donated steps over the first batches; (state, losses)."""
+    out = []
+    for i in range(steps):
+        state, m = model.train_step(state, {k: v[i] for k, v in
+                                            inputs.items()}, labels[i])
+        out.append(m["loss"])
+    return state, [float(v) for v in out]
+
+
+def _declared(model) -> dict:
+    """How many op outputs the compile declared of each dtype."""
+    return dict(collections.Counter(str(t.dtype).replace("torch.", "")
+                                    for op in model.layers
+                                    for t in op.outputs))
+
+
+def _check_storage(model, state, inputs, exempt: int, config: str) -> dict:
+    """The bf16-activation rewrite on the card: every op output declared
+    bf16 but the ``exempt`` f32 ones (the final output and the loss
+    input), and every value of one eval forward stored in its declared
+    dtype.  Returns the declared counts; raises otherwise."""
+    declared = _declared(model)
+    n = sum(declared.values())
+    dev = params_device_of(state)
+    with torch.no_grad():
+        values, _ = model._apply(state.params,
+                                 model._place_inputs(inputs, dev),
+                                 bn_state=state.bn_state)
+    wrong = [(op.name, str(values[t.uid].dtype)) for op in model.layers
+             for t in op.outputs if values[t.uid].dtype != t.dtype]
+    del values
+    if declared != {"bfloat16": n - exempt, "float32": exempt} or wrong:
+        raise AssertionError(f"{config}: declared {declared} ({exempt} "
+                             f"f32 expected), stored otherwise: {wrong}")
+    return declared
+
+
+def bf16_act_classic(inputs, labels):
+    """Phase 29(a): the run_random.sh classic graph (bf16 compute) under
+    ``activation_dtype="bfloat16"``: one step through B2 against the same
+    step on ``row_update_ref`` bit for bit, four graphed steps against
+    four eager ones bit for bit, ``ACT_STEPS`` losses beside the
+    f32-activation model's from the same weights, ``ACT_CPU_STEPS`` steps
+    against the port's CPU path, and the main path, ``train_epoch`` over
+    the 64 batches (B2 a step, B5 at the cache's writebacks)."""
+    model, state = _train_model(False, "bfloat16",
+                                activation_dtype="bfloat16")
+    step0 = ({k: v[0] for k, v in inputs.items()}, labels[0])
+    declared = _check_storage(model, state, step0[0], 1, "bf16_act classic")
+    same, err = _same_step(model, state, *step0, emb_module,
+                           "row_update_cuda", row_update_ref)
+    log({"phase": "train_vs_plain", "config": "bf16_act classic",
+         "plain": "row_update_ref", "bit_identical": same,
+         "max_abs_err": err})
+    if not same:
+        raise AssertionError("bf16-activation step through B2 != the same "
+                             "step on row_update_ref")
+    check_graphed_vs_eager(model, state, inputs, labels, "bf16_act classic")
+    f32_model, f32_state = _train_model(False, "bfloat16")
+    _, f32_losses = _losses(f32_model, f32_state, inputs, labels, ACT_STEPS)
+    del f32_model, f32_state
+    _free()
+    _, act_losses = _losses(model, state.clone(), inputs, labels, ACT_STEPS)
+    gap = max(abs(a - b) for a, b in zip(act_losses, f32_losses))
+    nb = labels.shape[0]
+    graphs0 = _graph_counts(model)
+    reset_counts()  # the main path starts here
+    t0 = time.perf_counter()
+    trained, folded = model.train_epoch(state.clone(), inputs, labels)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()  # ... and ends here
+    graphs = {k: v - graphs0[k] for k, v in _graph_counts(model).items()}
+    del trained
+    # the card against the port's CPU path from the same weights, eager
+    # on the card, donated on the CPU (no 2 GB clone a step); last: it
+    # places the model's CPU state
+    card, cpu = state, model.load_params(state.params, device="cpu")
+    card_losses, cpu_losses = [], []
+    for i in range(ACT_CPU_STEPS):
+        x, y = {k: v[i] for k, v in inputs.items()}, labels[i]
+        card, mc = model.train_step(card, x, y, False)
+        cpu, mp = model.train_step(cpu, x, y)
+        card_losses.append(float(mc["loss"]))
+        cpu_losses.append(float(mp["loss"]))
+    cpu_err = max(abs(a - b) / abs(b) for a, b in zip(card_losses,
+                                                       cpu_losses))
+    row = {"phase": "bf16_act", "config": "classic cat, run_random.sh",
+           "compute_dtype": "bfloat16", "activation_dtype": "bfloat16",
+           "declared": declared, "steps": nb, "launches": counts,
+           "graphs": graphs, "loss": float(folded["loss"]),
+           "step_wall_ms": wall * 1e3 / nb,
+           "losses": act_losses, "f32_activation_losses": f32_losses,
+           "max_loss_gap": gap, "loss_tol": ACT_LOSS_TOL,
+           "card_losses": card_losses, "cpu_losses": cpu_losses,
+           "card_vs_cpu_loss_rel_err": cpu_err,
+           "card_vs_cpu_rtol": ACT_CARD_VS_CPU_RTOL,
+           "note": "walls are information, not a claim"}
+    log(row)
+    if not (_finite(folded) and gap < ACT_LOSS_TOL
+            and cpu_err <= ACT_CARD_VS_CPU_RTOL):
+        raise AssertionError(f"bf16 activations: loss gap {gap} to the "
+                             f"f32-activation run, card vs CPU {cpu_err}")
+    if (counts["row_update"] != nb or counts["row_set"] <= 0
+            or graphs != {"captures": 1, "replays": nb - 1}):
+        raise AssertionError(f"bf16-activation train_epoch: launches "
+                             f"{counts}, graphs {graphs}")
+    del model, state, card, cpu
+    _free()
+    return row, counts
+
+
+def bf16_act_serving():
+    """Phase 29(b): the fused run_random.sh model under bf16 activations
+    served by an InferenceEngine over buckets 1-256 (B3, the bottom cast
+    to f32 for it): 8 clients x 16 one-row requests and 3, 40 and 256
+    rows through the batcher, the padding contract and every bucket's
+    graph against the eager forward bit for bit, the answers beside the
+    f32-activation engine's."""
+    model, state = build_model(activation_dtype="bfloat16")
+    engine = InferenceEngine(model, state)
+    rng = np.random.default_rng(29)
+    reqs = [_request(rng, 1) for _ in range(8 * 16)]
+    big = {n: _request(rng, n) for n in (3, 40, 256)}
+    declared = _check_storage(model, state, big[256], 1, "bf16_act serving")
+    reset_counts()  # the main path starts here
+    replays0 = engine.graph_replays
+    with DynamicBatcher(engine) as batcher:
+        got = _clients(batcher.submit, reqs + list(big.values()), 8)
+    summary = batcher.close()
+    counts = read_counts()  # ... and ends here
+    replays = engine.graph_replays - replays0
+    padded = engine.predict(big[3])
+    unpadded = model.predict(state, big[3])
+    pad_same = bool(np.array_equal(padded, unpadded.cpu().numpy()))
+    check_buckets_vs_eager(model, state, engine, rng, "bf16_act serving")
+    ok = all(np.isfinite(a).all() and ((a > 0) & (a < 1)).all()
+             for a in got.values())
+    f32_model, f32_state = build_model()
+    f32_out = f32_model.predict(f32_state, big[256]).cpu().numpy()
+    gap = float(np.abs(engine.predict(big[256]) - f32_out).max())
+    row = {"phase": "bf16_act", "config": "fused serving, run_random.sh",
+           "declared": declared, "requests": summary["requests"],
+           "qps": summary["qps"], "p99_us": summary.get("p99_us"),
+           "launches": counts, "graph_replays": replays,
+           "output_dtype": str(unpadded.dtype),
+           "padding_bit_identical": pad_same,
+           "max_abs_gap_to_f32_activations": gap,
+           "note": "latencies are information, not a claim"}
+    log(row)
+    if not (ok and pad_same and unpadded.dtype == torch.float32):
+        raise AssertionError(f"bf16-activation serving: answers ok {ok}, "
+                             f"padding {pad_same}")
+    if counts["fused_interact_fwd"] <= 0 or replays <= 0:
+        raise AssertionError(f"bf16-activation serving launched {counts} "
+                             f"in {replays} replays")
+    del model, state, engine, f32_model, f32_state
+    _free()
+    return row, counts
+
+
+def _inception_timed(act, inputs, labels, check: bool):
+    """Inception-v3 at 299 x 299, batch 64, bf16 compute, activations
+    stored ``act``: (with ``check``) the storage and four graphed steps
+    against four eager ones bit for bit, then two warm and five timed
+    graphed steps.  Returns (row, launches)."""
+    _free()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    model, _ = _app("inception", APP_BATCH, compute_dtype="bfloat16",
+                    activation_dtype=act)
+    state = model.init(seed=0)
+    declared = (_check_storage(model, state, {k: v[0] for k, v in
+                                              inputs.items()}, 2,
+                               "bf16_act inception") if check
+                else _declared(model))
+    if check:
+        check_graphed_vs_eager(model, state, inputs, labels,
+                               "bf16_act inception")
+    reset_counts()
+    losses = []
+    for i in range(7):
+        if i == 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state, mets = model.train_step(state, {k: v[i % 4] for k, v in
+                                               inputs.items()}, labels[i % 4])
+        losses.append(mets["loss"])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / 5
+    counts = read_counts()
+    row = {"activation_dtype": act, "declared": declared,
+           "losses": [float(v) for v in losses],
+           "graphed_step_wall_ms": step_ms,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated() - held}
+    del model, state
+    _free()
+    return row, counts
+
+
+def _inception_card_vs_cpu():
+    """One eval forward and one SGD step (lr 0.01) of Inception-v3 at
+    batch 2, full width and depth, bf16 compute and activations, on the
+    card and on the port's CPU path from the same parameters: the loss
+    input (the logits) and the loss within ``ACT_INCEPTION_TOL``."""
+    model, loader = _app("inception", 2, optimizer=SGDOptimizer(lr=0.01),
+                         compute_dtype="bfloat16",
+                         activation_dtype="bfloat16")
+    card = model.init(seed=0)
+    cpu = model.load_params(card.params, device="cpu")
+    x, y = next(iter(loader(1)))
+    logits_card, logits_cpu = _logits(model, card, x), _logits(model, cpu, x)
+    logits_err = _rel(logits_card, logits_cpu)
+    card, mc = model.train_step(card, x, y)
+    cpu, mp = model.train_step(cpu, x, y)
+    loss_err = _rel(mc["loss"], mp["loss"])
+    row = {"batch": 2, "logits_dtype": str(logits_card.dtype),
+           "logits_rel_err": logits_err, "loss_rel_err": loss_err,
+           "losses_card_cpu": [float(mc["loss"]), float(mp["loss"])],
+           "tolerance": ACT_INCEPTION_TOL}
+    del model, card, cpu
+    _free()
+    return row
+
+
+def bf16_act_inception():
+    """Phase 29(c): Inception-v3 at 299 x 299, batch 64, bf16 compute
+    (the JAX convolution takes one dtype, so bf16 storage goes with bf16
+    compute): under bf16 activations the storage, graphed steps against
+    eager ones bit for bit, the step's wall and peak memory; the same
+    figures under f32 activations, so the two differ only in storage;
+    and the card against the port's CPU path at batch 2."""
+    model, loader = _app("inception", APP_BATCH)
+    inputs, labels = _stacked(loader(4))
+    del model
+    bf16, counts = _inception_timed("bfloat16", inputs, labels, True)
+    f32, f32_counts = _inception_timed("float32", inputs, labels, False)
+    vs_cpu = _inception_card_vs_cpu()
+    row = {"phase": "bf16_act", "config": "inception-v3 299, batch 64",
+           "compute_dtype": "bfloat16", **bf16,
+           "f32_activations": f32,
+           "step_ratio_bf16_to_f32_act": (bf16["graphed_step_wall_ms"]
+                                          / f32["graphed_step_wall_ms"]),
+           "peak_ratio_bf16_to_f32_act": (bf16["peak_memory_bytes"]
+                                          / f32["peak_memory_bytes"]),
+           "card_vs_cpu": vs_cpu, "launches": counts,
+           "note": "walls are information"}
+    log(row)
+    ok = (np.isfinite(bf16["losses"] + f32["losses"]).all()
+          and vs_cpu["logits_rel_err"] <= ACT_INCEPTION_TOL["logits"]
+          and vs_cpu["loss_rel_err"] <= ACT_INCEPTION_TOL["loss"])
+    if not ok or any(counts.values()) or any(f32_counts.values()):
+        raise AssertionError(f"bf16-activation inception: losses "
+                             f"{bf16['losses']}, card vs CPU {vs_cpu}, "
+                             f"launches {counts} {f32_counts}")
+    return row
+
+
+def bf16_activation_phase(inputs, labels):
+    """Phase 29.  Returns (rows, main-path launches)."""
+    t0 = time.perf_counter()
+    classic, classic_counts = bf16_act_classic(inputs, labels)
+    serving, serving_counts = bf16_act_serving()
+    inception = bf16_act_inception()
+    log({"phase": "wall", "name": "bf16_act", "wall_s":
+         time.perf_counter() - t0})
+    return ({"classic": classic, "serving": serving,
+             "inception": inception},
+            {k: classic_counts[k] + serving_counts[k]
+             for k in classic_counts})
+
+
+# -------------------------------------------------------------- phase 30
+def bf16_tiered_phase(f32_rows):
+    """Phase 30: the run_random.sh serving model (unfused, bf16 compute)
+    on bf16 tables (1.02 GB), tiered at 4096 hot rows a table: phase
+    20's 512 zipf-1.05 requests from 8 clients through the batcher, bit
+    for bit the resident bf16 engine's, beside phase 20's f32 figures;
+    then ``scatter_apply`` of a bf16 store on the card against the CPU
+    store (B2 on bf16 rows, B5 bf16 installs).  Returns (row,
+    main-path launches)."""
+    t_phase = time.perf_counter()
+    model = build_dlrm(DLRMConfig(embedding_size=[ROWS] * TABLES),
+                       FFConfig(batch_size=BUCKETS[-1],
+                                compute_dtype="bfloat16",
+                                serve_buckets=",".join(map(str, BUCKETS)),
+                                storage_hot_rows=HOT_ROWS,
+                                embedding_dtype="bfloat16")).compile()
+    state = model.init(seed=0)
+    resident = InferenceEngine(model, state)
+    pool = _zipf_pool(np.random.default_rng(20), 512)  # phase 20's pool
+    rowfreq.reset()
+    for r in pool:
+        for t in range(TABLES):
+            rowfreq.counter(f"sparse[{t}]").observe(r["sparse"][:, t])
+    want = {i: resident.predict(r) for i, r in enumerate(pool)}
+    with DynamicBatcher(resident) as batcher:
+        _same_as(_clients(batcher.submit, pool, 8), want,
+                 "bf16 resident through the batcher")
+    base = batcher.close()
+    engine, refused = _tiered_engine(model, state)
+    if engine._tiered["sparse"][1].hot_param().dtype != torch.bfloat16:
+        raise AssertionError("the tiered store's hot tier is not bf16")
+    reset_counts()  # the main path starts here
+    t_start = time.perf_counter()
+    with DynamicBatcher(engine) as batcher:
+        got = _clients(batcher.submit, pool, 8)
+    wall_s = time.perf_counter() - t_start
+    summary = batcher.close()
+    counts = read_counts()
+    dispatches = sum(engine.stats.dispatch_buckets.values())
+    _same_as(got, want, "bf16 tiered, graphed, through the batcher")
+    st = engine.storage_stats()
+    del engine, resident, model, state
+    _free()
+    scatter_err, scatter_counts = check_tiered_scatter(
+        dtype=torch.bfloat16)  # ... and ends here
+    counts = {k: counts[k] + scatter_counts[k] for k in counts}
+    f32 = f32_rows["hot4096"]
+    row = {"phase": "tiered_bf16", "config": "run_random.sh on bf16 "
+           "tables (1.02 GB), hot 4096", "gate_refused": refused,
+           "table_bytes": TABLES * ROWS * DIM * 2,
+           "requests": summary["requests"], "dispatches": dispatches,
+           "wall_s": wall_s, "qps": summary["qps"],
+           "p50_us": summary.get("p50_us"), "p99_us": summary.get("p99_us"),
+           "hit_pct": st["hit_pct"], "misses": st["misses"],
+           "evictions": st["evictions"],
+           "b5_bf16_installs": counts["row_set"] - scatter_counts["row_set"],
+           "b2_scatter_updates": scatter_counts["row_update"],
+           "scatter_launches": scatter_counts,
+           "scatter_note": "bf16 grads: B2 on the bf16 hot tier; f32 "
+                           "grads: B2 on an f32 copy of the touched rows, "
+                           "set back by B5 (bf16)",
+           "scatter_max_abs_err": scatter_err,
+           "resident": {"qps": base["qps"], "p99_us": base.get("p99_us")},
+           "f32_phase20": {k: f32.get(k) for k in ("qps", "p99_us",
+                                                    "hit_pct")},
+           "bit_for_bit_vs_resident": True,
+           "wall_phase_s": time.perf_counter() - t_phase,
+           "note": "QPS and latencies are information"}
+    log(row)
+    if not 0 < row["b5_bf16_installs"] <= dispatches:
+        raise AssertionError(f"{row['b5_bf16_installs']} bf16 installs in "
+                             f"{dispatches} dispatches")
+    return row, counts
+
+
+# -------------------------------------------------------------- phase 31
+#: the keras examples' sample count (examples/compat/keras, 2048) and
+#: the card-against-CPU steps of each frontend model
+FRONT_SAMPLES, FRONT_STEPS = 2048, 4
+
+
+def _seq_mnist_mlp():
+    """examples/compat/keras/seq_mnist_mlp.py: 784-512-512-10."""
+    K = keras_frontend
+    return K.Sequential([K.Dense(512, activation="relu", input_shape=(784,)),
+                         K.Dense(512, activation="relu"), K.Dense(10),
+                         K.Activation("softmax")])
+
+
+def _func_cifar10_cnn():
+    """examples/compat/keras/func_cifar10_cnn.py."""
+    K = keras_frontend
+    inp = K.InputTensor((3, 32, 32), "float32")
+    t = K.Conv2D(filters=32, kernel_size=(3, 3), strides=(1, 1),
+                 padding=(1, 1), activation="relu")(inp)
+    t = K.Conv2D(filters=32, kernel_size=(3, 3), strides=(1, 1),
+                 padding=(1, 1), activation="relu")(t)
+    t = K.MaxPooling2D(pool_size=(2, 2), strides=(2, 2), padding="valid")(t)
+    t = K.Dense(512, activation="relu")(K.Flatten()(t))
+    out = K.Activation("softmax")(K.Dense(10)(t))
+    return K.Model(inp, out)
+
+
+def _keras_data(name):
+    """The example's training data from keras_datasets (its synthetic
+    data where no keras cache is present)."""
+    ds = keras_frontend.datasets
+    if name == "seq_mnist_mlp":
+        (x, y), _ = ds.mnist.load_data()
+        x = x[:FRONT_SAMPLES].reshape(FRONT_SAMPLES, 784)
+    else:
+        (x, y), _ = ds.cifar10.load_data(FRONT_SAMPLES)
+        x = x[:FRONT_SAMPLES]
+    return (x.astype("float32") / 255,
+            y[:FRONT_SAMPLES].astype("int32").reshape(-1, 1))
+
+
+def _card_vs_cpu_steps(card_model, card_state, cpu_model, inputs, labels,
+                       batch):
+    """``FRONT_STEPS`` eager steps of two FFModels from the card state's
+    parameters (the second on the CPU): (max loss rel err, predictions'
+    rel err after)."""
+    cpu_state = cpu_model.load_params(card_state.params, device="cpu")
+    card_state = card_state.clone()
+    loss_err = 0.0
+    for i in range(FRONT_STEPS):
+        sl = slice(i * batch, (i + 1) * batch)
+        x = {k: v[sl] for k, v in inputs.items()}
+        card_state, mc = card_model.train_step(card_state, x, labels[sl],
+                                               False)
+        cpu_state, mp = cpu_model.train_step(cpu_state, x, labels[sl], False)
+        loss_err = max(loss_err, _rel(mc["loss"], mp["loss"]))
+    x = {k: v[:batch] for k, v in inputs.items()}
+    pred_err = _rel(card_model.predict(card_state, x),
+                    cpu_model.predict(cpu_state, x))
+    return loss_err, pred_err
+
+
+def _keras_run(name, build):
+    """One keras example trained on the card: FRONT_STEPS steps against
+    the same model on the CPU, then ``fit`` over the example's samples,
+    five timed graphed steps and ``evaluate``."""
+    x, y = _keras_data(name)
+    batch = 64
+    card, cpu = build(), build()
+    opt = lambda: SGDOptimizer(lr=0.01)  # noqa: E731
+    mets = ("accuracy", "sparse_categorical_crossentropy")
+    card.compile(opt(), "sparse_categorical_crossentropy", mets, batch)
+    cpu.compile(opt(), "sparse_categorical_crossentropy", mets, batch,
+                device="cpu")
+    inputs = card._as_input_dict(x)
+    loss_err, pred_err = _card_vs_cpu_steps(card.ffmodel, card.state,
+                                            cpu.ffmodel, inputs, y, batch)
+    thpt = card.fit(x, y, epochs=1, verbose=False)
+    state = card.state
+    for i in range(7):
+        if i == 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        sl = slice(i * batch, (i + 1) * batch)
+        state, m = card.ffmodel.train_step(
+            state, {k: v[sl] for k, v in inputs.items()}, y[sl])
+    float(m["loss"])
+    step_ms = (time.perf_counter() - t0) * 1e3 / 5
+    card.state = state
+    loss = card.evaluate(x[:512], y[:512])
+    return {"frontend": "keras", "model": name,
+            "ops": len(card.ffmodel.layers),
+            "loss_rel_err": loss_err, "pred_rel_err": pred_err,
+            "fit_samples_per_s": thpt, "graphed_step_wall_ms": step_ms,
+            "evaluate_loss": loss, "summary_lines":
+                len(card.summary().splitlines())}
+
+
+class _TorchCNN(torch.nn.Module):
+    """A CIFAR-width CNN for the torch.fx importer: conv, batch norm,
+    relu, max pool, conv, relu, average pool, flatten, two linear."""
+
+    def __init__(self):
+        super().__init__()
+        nn = torch.nn
+        self.conv1 = nn.Conv2d(3, 32, 3, padding=1)
+        self.bn = nn.BatchNorm2d(32)
+        self.pool = nn.MaxPool2d(2)
+        self.conv2 = nn.Conv2d(32, 64, 3, padding=1)
+        self.avg = nn.AvgPool2d(2)
+        self.flat = nn.Flatten()
+        self.fc1 = nn.Linear(64 * 8 * 8, 512)
+        self.fc2 = nn.Linear(512, 10)
+
+    def forward(self, x):
+        h = self.pool(torch.relu(self.bn(self.conv1(x))))
+        h = self.avg(torch.relu(self.conv2(h)))
+        return self.fc2(torch.relu(self.fc1(self.flat(h))))
+
+
+def _torch_fx_run():
+    """A torch CNN on the card converted by ``PyTorchModel``: its weights
+    imported from the module's CUDA tensors; the forward against the
+    module's (cuDNN without TF32, as the port's convolution); steps
+    against the same conversion on the CPU."""
+    torch.manual_seed(0)
+    module = _TorchCNN().cuda().eval()
+    batch = 64
+    conv = PyTorchModel(module)
+    models = {}
+    for dev in ("cuda", "cpu"):
+        m = conv.apply(FFConfig(batch_size=batch), {"x": (3, 32, 32)})
+        m.compile(optimizer=SGDOptimizer(lr=0.01),
+                  loss_type="mean_squared_error", metrics=())
+        models[dev] = (m, conv.import_weights(m, m.init(
+            seed=0, device=dev)))
+    card, state = models["cuda"]
+    x = np.random.default_rng(31).standard_normal(
+        (batch * FRONT_STEPS, 3, 32, 32)).astype(np.float32)
+    y = np.random.default_rng(32).standard_normal(
+        (batch * FRONT_STEPS, 10)).astype(np.float32)
+    with torch.no_grad(), torch.backends.cudnn.flags(
+            enabled=True, deterministic=True, allow_tf32=False):
+        ref = module(torch.from_numpy(x[:batch]).cuda())
+    module_err = _rel(card.predict(state, {"x": x[:batch]}), ref)
+    loss_err, pred_err = _card_vs_cpu_steps(card, state, models["cpu"][0],
+                                            {"x": x}, y, batch)
+    return {"frontend": "torch_fx", "model": "cifar cnn",
+            "ops": len(card.layers), "module_rel_err": module_err,
+            "loss_rel_err": loss_err, "pred_rel_err": pred_err}
+
+
+#: the card against the CPU for the frontends' models (the apps' logits
+#: and loss tolerances, CARD_VS_CPU_TOL), and a converted module's
+#: forward against the module's (the JAX package's CNN test's 1e-4)
+FRONT_TOL = {"loss": 1e-5, "pred": 1e-4, "module": 1e-4}
+
+
+def frontends_phase():
+    """Phase 31: the keras examples seq_mnist_mlp and func_cifar10_cnn at
+    their widths on keras_datasets' data, a torch.fx conversion of a
+    torch CNN, each trained on the card and held against the same model
+    on the CPU, and ``ONNXModel`` refusing without ``onnx``.  No kernel
+    runs in this phase."""
+    t0 = time.perf_counter()
+    reset_counts()
+    rows = [_keras_run("seq_mnist_mlp", _seq_mnist_mlp),
+            _keras_run("func_cifar10_cnn", _func_cifar10_cnn),
+            _torch_fx_run()]
+    counts = read_counts()
+    import importlib.util
+    onnx_present = importlib.util.find_spec("onnx") is not None
+    refused = None
+    if not onnx_present:
+        try:
+            onnx_model.ONNXModel("model.onnx")
+        except ImportError as e:
+            refused = str(e)
+    for r in rows:
+        log({"phase": "frontends", **r, "tolerance": FRONT_TOL})
+    log({"phase": "frontends", "onnx_installed": onnx_present,
+         "onnx_refusal": refused, "launches": counts,
+         "note": "no kernel runs in this phase: dense models only",
+         "wall_s": time.perf_counter() - t0})
+    bad = [r for r in rows if r["loss_rel_err"] > FRONT_TOL["loss"]
+           or r["pred_rel_err"] > FRONT_TOL["pred"]
+           or r.get("module_rel_err", 0.0) > FRONT_TOL["module"]]
+    if bad or any(counts.values()) or (not onnx_present and not refused):
+        raise AssertionError(f"frontends: {bad}, launches {counts}, onnx "
+                             f"refusal {refused!r}")
+    _free()
+    return rows
+
+
 
 def _entry(name, launches, err, timing):
     source, replaces, _ = KERNELS[name]
@@ -5039,10 +5649,17 @@ def main() -> int:
     # native/ffruntime.cpp; the mixed run's card tables through B2), last:
     # host-heavy
     hetero, hetero_counts = hetero_phase(card)
+    # phase 29: bf16 activation storage (the classic graph through B2 and
+    # B5, fused serving through B3, Inception-v3); phase 30: bf16 tiered
+    # serving (B5 installs, B2 on bf16 rows); phase 31: the frontends
+    act, act_counts = bf16_activation_phase(inputs, labels)
+    tiered16, tiered16_counts = bf16_tiered_phase(tiered)
+    fronts = frontends_phase()
     path_counts = (headline_counts, sparse_counts, dense_counts, dot_counts,
                    staged_counts, bag_counts, bf16_counts, bag16_counts,
                    durable_counts, tiered_counts, lazy_counts, soap_counts,
-                   tune_counts, apps_counts, hetero_counts)
+                   tune_counts, apps_counts, hetero_counts, act_counts,
+                   tiered16_counts)
     row_launches = sum(c["row_update"] for c in path_counts)
     prep_launches = sum(c["row_update_prep"] for c in path_counts)
     if prep_launches != row_launches:
@@ -5091,13 +5708,34 @@ def main() -> int:
              "ms", "plain_ms", "library_ms", "bound_ms")},
          "hetero_step_ms": {r: hetero[r]["step_ms"] for r in hetero},
          "hetero_split_ms": {r: hetero[r]["split_ms"] for r in hetero},
+         "bf16_act": {
+             "classic_step_wall_ms": act["classic"]["step_wall_ms"],
+             "classic_max_loss_gap": act["classic"]["max_loss_gap"],
+             "serving_qps": act["serving"]["qps"],
+             "inception_graphed_step_wall_ms":
+                 act["inception"]["graphed_step_wall_ms"],
+             "inception_peak_memory_bytes":
+                 act["inception"]["peak_memory_bytes"],
+             "inception_f32_act_graphed_step_wall_ms":
+                 act["inception"]["f32_activations"][
+                     "graphed_step_wall_ms"],
+             "inception_f32_act_peak_memory_bytes":
+                 act["inception"]["f32_activations"]["peak_memory_bytes"],
+             "inception_card_vs_cpu": {
+                 k: act["inception"]["card_vs_cpu"][k]
+                 for k in ("logits_rel_err", "loss_rel_err")}},
+         "tiered_bf16": {k: tiered16[k] for k in (
+             "qps", "p99_us", "hit_pct", "b5_bf16_installs",
+             "b2_scatter_updates")},
+         "frontends_step_wall_ms": {
+             r["model"]: r.get("graphed_step_wall_ms") for r in fronts},
          "note": "walls include each path's eager step and capture"})
     log({"kernels": [
         _entry("fused_interact_fwd",
                serve_launches + sum(c["fused_interact_fwd"]
                                     for c in (dense_counts, dot_counts,
                                               tiered_counts, soap_counts,
-                                              tune_counts)),
+                                              tune_counts, act_counts)),
                max(fwd_err, path_err), fwd_time),
         _entry("fused_interact_bwd",
                sum(c["fused_interact_bwd"] for c in (dense_counts,
@@ -5108,7 +5746,8 @@ def main() -> int:
         _entry("row_update_prep", prep_launches, prep_err, prep_time),
         _entry("row_set", staged_counts["row_set"] + bf16_counts["row_set"]
                + tiered_counts["row_set"] + lazy_counts["row_set"]
-               + apps_counts["row_set"], set_err, set_time),
+               + apps_counts["row_set"] + act_counts["row_set"]
+               + tiered16_counts["row_set"], set_err, set_time),
         _entry("embedding_bag", bag_counts["embedding_bag"]
                + bag16_counts["embedding_bag"], bag_err, bag_time)]})
     log({"ok": True, "device": {"platform": "gpu",

@@ -12,8 +12,8 @@ batch_matmul).
     python -m dlrm_flexflow_tpu_torch.apps.dlrm -b 256 -e 2 --wd 0 --data-size 16384
 
 trains the run_random.sh model on the CUDA card: ``fit`` stages the 64
-batches on the card and runs both epochs as one ``train_epochs`` with the
-epoch row cache.  ``--dataset FILE.h5`` trains on a Criteo HDF5 file
+batches on the card and runs both epochs as one ``train_epochs``, without
+the epoch row cache unless ``--epoch-row-cache on``.  ``--dataset FILE.h5`` trains on a Criteo HDF5 file
 (``data/loader.py::load_criteo_h5``, which needs h5py).
 """
 

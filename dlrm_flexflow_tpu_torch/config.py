@@ -79,12 +79,10 @@ class FFConfig:
     # by slot, and write the final rows back once (model.py,
     # epoch_cache.py).  The same adds hit the same values in the same
     # order, so the result is bit-identical to the uncached epoch.
-    # "auto" engages for tables on the CUDA card and stays off on the CPU;
-    # "on" forces it on any device; "off" disables it.  Here the port
-    # departs from the JAX package, whose "auto" engages on the TPU only
-    # (its CPU/GPU scatter is already per row): on the card the cache is
-    # the training CLI's path, so the row-set kernel runs on it (PERF.md
-    # section 7 names the workload that must show it paying).
+    # "auto" is off on the CUDA card and on the CPU, as the JAX package's
+    # "auto" is off the TPU: on an H100 the staged cached epoch ran slower
+    # than the uncached one (PERF.md, section 7).  "on" forces the cache
+    # on any device; "off" disables it.
     epoch_row_cache: str = "auto"
     # Scan steps per dispatched chunk when the cache is active and no
     # ladder level divides the epoch (0 disables chunking); with
@@ -110,7 +108,14 @@ class FFConfig:
     # most this many bytes on the device and trains it by whole epochs
     # (0 keeps every fit on the per-batch loop)
     fit_scan_max_bytes: int = 2 * 1024 * 1024 * 1024
-    # inter-op activation storage dtype (float32 only in the port)
+    # Inter-op activation storage dtype ("float32"|"bfloat16").
+    # "bfloat16" declares every intermediate f32 output tensor bf16 at
+    # compile (ops emit their declared dtype; each consumer casts to its
+    # compute dtype), halving the bytes between ops.  The final output and
+    # the loss input stay f32, so losses and metrics keep their dtype.
+    # Batch norm's statistics and average pooling's sums stay f32.
+    # Orthogonal to compute_dtype; the loss trajectory tracks the
+    # f32-activation run within a tolerance, not bit for bit.
     activation_dtype: str = "float32"
     # Asynchronous input prefetch for fit's per-batch loops
     # (data/prefetch.py): a worker thread slices and places the next

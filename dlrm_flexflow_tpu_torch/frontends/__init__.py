@@ -1,3 +1,5 @@
-"""Frontends (counterpart of ``dlrm_flexflow_tpu/frontends/``): so far the
-keras-style training callbacks ``fit`` drives.  The keras, torch.fx and
-ONNX model frontends come with the op set (ROADMAP.md Queue A item 9)."""
+"""Frontends (counterpart of ``dlrm_flexflow_tpu/frontends/``): the
+keras-style models (``keras``, with ``keras_utils``, ``keras_datasets``
+and the training callbacks ``fit`` drives, ``keras_callbacks``), the
+torch.fx importer (``torch_fx.PyTorchModel``) and the ONNX importer
+(``onnx_model.ONNXModel``, which needs the ``onnx`` package)."""

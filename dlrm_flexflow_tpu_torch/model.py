@@ -218,7 +218,7 @@ class FFModel:
         self._pending_lr: Optional[float] = None
         self._fit_state: Optional["TrainState"] = None
         # whether train_epoch(s) run the epoch row cache: resolved from
-        # the tables' device by each epoch entry point (_resolve_cache)
+        # the config by each epoch entry point (_resolve_cache)
         self._epoch_cache_active = False
         self._last_fit_used_scan = False
         self._last_metrics = MetricsAccumulator(())
@@ -235,6 +235,11 @@ class FFModel:
         # the epoch and block caches, one buffer per (op, level, shape)
         # (_cache_buffer), so one epoch's step graph serves the next
         self._cache_buffers: Dict[Tuple, torch.Tensor] = {}
+        # the activation_dtype rewrite's original output dtypes, by uid
+        self._orig_out_dtypes: Dict[int, torch.dtype] = {}
+        # bumped by every compile: a serving engine rebuilds its bucket
+        # graphs when the model it captured was compiled again
+        self.compile_generation = 0
 
     # ------------------------------------------------------------------ utils
     def _name(self, base: str, name: Optional[str] = None) -> str:
@@ -551,10 +556,11 @@ class FFModel:
                 "a device mesh is not ported yet: it comes with the "
                 "scale-out slice in ROADMAP.md")
         self._resolve_strategy(strategy)
-        act = getattr(self.config, "activation_dtype", "float32")
-        if act != "float32":
-            raise NotImplementedError(
-                f"activation_dtype={act!r} is not ported yet (float32 only)")
+        act_dtype = getattr(self.config, "activation_dtype", "float32")
+        if act_dtype not in ("float32", "bfloat16"):
+            raise ValueError(
+                f"activation_dtype must be 'float32'|'bfloat16', "
+                f"got {act_dtype!r}")
         for name in ("sparse_embedding_updates", "epoch_row_cache",
                      "packed_tables", "epoch_cache_view",
                      "epoch_cache_segmented"):
@@ -597,6 +603,7 @@ class FFModel:
         self.metrics = tuple(metrics)
         out = self.final_tensor
         final_uid, final_dtype = out.uid, out.dtype
+        self._rewrite_activation_dtype(act_dtype, final_uid)
 
         opt = self.optimizer
         plain_sgd = (isinstance(opt, SGDOptimizer) and opt.momentum == 0.0
@@ -627,11 +634,37 @@ class FFModel:
                 return values[final_uid].to(final_dtype)
 
         self._forward_fn = forward
-        # the step graphs baked in the old loss, metrics and optimizer
+        self.compile_generation += 1
+        # the step graphs baked in the old loss, metrics, optimizer and
+        # activation dtypes
         self._step_graphs.clear()
         self._step_seen.clear()
         self._drop_pool_if_empty()
         return self
+
+    def _rewrite_activation_dtype(self, act_dtype: str, final_uid: int
+                                  ) -> None:
+        """``FFConfig.activation_dtype`` (JAX ``model.py:630-700``):
+        "bfloat16" declares every intermediate f32 output tensor bf16;
+        the final output and the loss input (the pre-softmax logits on
+        the fused softmax and CCE path) stay f32.  The original dtypes
+        are remembered, so a recompile is idempotent: "float32" restores
+        them, and a tensor that only now became exempt is restored
+        first."""
+        exempt = (final_uid, self._loss_uid)
+        orig = self._orig_out_dtypes
+        for op in self.layers:
+            for t in op.outputs:
+                if t.uid in exempt:
+                    if t.uid in orig:
+                        t.dtype = orig.pop(t.uid)
+                    continue
+                if act_dtype == "bfloat16":
+                    if t.dtype == torch.float32:
+                        orig.setdefault(t.uid, t.dtype)
+                        t.dtype = torch.bfloat16
+                elif t.uid in orig:
+                    t.dtype = orig.pop(t.uid)
 
     def _resolve_strategy(self, strategy: Optional[Strategy]) -> None:
         """``compile``'s strategy: the argument, the imported file, or a
@@ -679,7 +712,7 @@ class FFModel:
                 return {k: place(v) for k, v in x.items()}
             if not isinstance(x, torch.Tensor):
                 x = torch.from_numpy(np.array(x))
-            return x.to(dev)
+            return x.to(dev, copy=True)  # as load_params' params
         return place(opt_state)
 
     def init(self, seed: Optional[int] = None, *, device=None
@@ -716,10 +749,12 @@ class FFModel:
 
     def load_params(self, params, device=None, opt_state=None, *,
                     host_tables=None) -> TrainState:
-        """Install ``{op: {param: array or tensor}}`` (for example
-        ``bridge.params_from_jax`` of a JAX model's params) on ``device``
-        (default: this model's device, else the CUDA card).  Names, shapes
-        and dtypes must match the graph's parameter specs exactly.
+        """Install copies of ``{op: {param: array or tensor}}`` (for
+        example ``bridge.params_from_jax`` of a JAX model's params) on
+        ``device`` (default: this model's device, else the CUDA card), so
+        a later in-place step leaves the caller's values as they were.
+        Names, shapes and dtypes must match the graph's parameter specs
+        exactly.
         ``opt_state`` (for example ``bridge.opt_state_from_jax``) is
         placed beside them; by default the optimizer starts afresh.  Each
         batch norm starts at its ``init_state`` (a whole state, running
@@ -767,21 +802,29 @@ class FFModel:
                     raise ValueError(
                         f"{op_name}/{pname}: got {tuple(v.shape)} {v.dtype}, "
                         f"expected {spec.shape} {spec.dtype}")
-                out[op_name][pname] = v.to(dev).contiguous()
+                out[op_name][pname] = v.to(dev, copy=True).contiguous()
         self.device = dev
         return self._state(out, opt_state, dev, self.config.seed)
 
     def get_weights(self, state: TrainState, op_name: str, param_name: str
                     ) -> np.ndarray:
-        return state.params[op_name][param_name].detach().cpu().numpy()
+        """A host copy of one parameter: a later in-place step (a
+        donated ``train_step``) leaves it as it was, as the JAX package's
+        array is."""
+        return state.params[op_name][param_name].detach().to(
+            "cpu", copy=True).numpy()
 
     def set_weights(self, state: TrainState, op_name: str, param_name: str,
                     value) -> TrainState:
         """A new state with one parameter replaced (same shape, dtype and
-        device); ``state`` is left as it was."""
+        device), from a numpy array or a tensor on any device; ``state``
+        is left as it was.  The parameter is a copy: a later in-place
+        step (a donated ``train_step``) leaves ``value`` as it was, as
+        the JAX package's immutable array does."""
         tgt = state.params[op_name][param_name]
-        arr = torch.as_tensor(np.asarray(value)).to(
-            device=tgt.device, dtype=tgt.dtype).reshape(tgt.shape)
+        src = (value.detach() if isinstance(value, torch.Tensor)
+               else torch.as_tensor(np.asarray(value)))
+        arr = torch.empty_like(tgt).copy_(src.reshape(tgt.shape))
         params = dict(state.params)
         params[op_name] = {**params[op_name], param_name: arr}
         return TrainState(params, state.opt_state, state.bn_state, state.rng,
@@ -1132,15 +1175,14 @@ class FFModel:
         return mets
 
     # ------------------------------------------------- the epoch row cache
-    def _resolve_cache(self, dev: torch.device) -> None:
-        """Set ``_epoch_cache_active`` for tables on ``dev``: "on" anywhere,
-        "auto" on the CUDA card (config.py says why the port departs from
-        the JAX package's TPU-only rule), "off" never; always with at
-        least one row-sparse op, and never for a model with host tables."""
-        mode = self.config.epoch_row_cache
+    def _resolve_cache(self) -> None:
+        """Set ``_epoch_cache_active``: only under "on", on any device,
+        with at least one row-sparse op and no host tables.  "auto" is
+        off, as the JAX package's "auto" is off the TPU (config.py says
+        why)."""
         self._epoch_cache_active = (
             bool(self._sparse_ops) and not self._hetero_ops
-            and (mode == "on" or (mode == "auto" and dev.type == "cuda")))
+            and self.config.epoch_row_cache == "on")
 
     def cache_prologue(self, state: TrainState, inputs):
         """Per row-sparse op, map the epoch's ids to unique cache slots and
@@ -1351,7 +1393,7 @@ class FFModel:
         inputs, labels = self.place_dataset(inputs, labels, device=dev)
         log = active_log()
         t0 = time.perf_counter()
-        self._resolve_cache(dev)
+        self._resolve_cache()
         bounds = self._epoch_chunk_bounds(labels.shape[0])
         if bounds is None:
             out = self._train_epoch(state, inputs, labels)
@@ -1378,7 +1420,7 @@ class FFModel:
         inputs, labels = self.place_dataset(inputs, labels, device=dev)
         log = active_log()
         t0 = time.perf_counter()
-        self._resolve_cache(dev)
+        self._resolve_cache()
         bounds = self._epoch_chunk_bounds(labels.shape[0])
         if bounds is None:
             out = self._train_epochs(state, inputs, labels, epochs)
@@ -1671,7 +1713,7 @@ class FFModel:
         epochs_run = int(epochs)  # an early stop shortens the epoch loop
         fused = False
         if scan_data is not None:
-            self._resolve_cache(dev)
+            self._resolve_cache()
             bounds = self._epoch_chunk_bounds(scan_data[1].shape[0])
             samples = epochs * dataloader.num_batches * dataloader.batch_size
             fused = bounds is None and epochs > 1

@@ -16,7 +16,10 @@ deterministic cuDNN algorithms (a graphed step must equal the eager one
 bit for bit), under ``torch.backends.cudnn.flags`` around those two calls
 only, so no setting changes for code outside the op.  Under bf16 compute
 both operands are rounded to bf16 and the bf16 result is widened to f32,
-as the JAX op does.
+as the JAX op does, unless the output is declared bf16 (activation
+storage, ``FFConfig.activation_dtype``): then the bias and activation run
+in bf16.  Under bf16 storage batch norm keeps f32 statistics and applies
+them in bf16, and average pooling sums in f32.
 
 The max-pool backward routes a tied window's gradient to one element
 (ATen's, the first maximum), which is ``select_and_scatter``'s rule, the
@@ -128,10 +131,15 @@ class Conv2D(Op):
             x, k = x.to(torch.bfloat16), k.to(torch.bfloat16)
         y = _Conv2dFn.apply(x.contiguous(), k.contiguous(), self.stride,
                             self.padding, self.groups)
-        y = y.float()
+        out_dtype = self.outputs[0].dtype
+        # under bf16 compute with a bf16 output (bf16 activation storage)
+        # the bias and the activation run in bf16, as the JAX op's
+        # epilogue does; otherwise the result is widened first
+        if not (mixed and out_dtype == torch.bfloat16):
+            y = y.float()
         if self.use_bias:
-            y = y + params["bias"][None, :, None, None]
-        return [self._act(y).to(self.outputs[0].dtype)]
+            y = y + params["bias"].to(y.dtype)[None, :, None, None]
+        return [self._act(y).to(out_dtype)]
 
     def flops(self, batch):
         _, co, oh, ow = self.outputs[0].shape
@@ -263,10 +271,22 @@ class BatchNorm(Op):
             mean, var = state["mean"], state["var"]
             new_state = state
         inv = torch.rsqrt(var + self.eps)
-        y = (xf - mean[None, :, None, None]) * inv[None, :, None, None]
-        y = y * params["scale"][None, :, None, None] \
-            + params["bias"][None, :, None, None]
+        out_dtype = self.outputs[0].dtype
+        if x.dtype == out_dtype and x.dtype != torch.float32:
+            # bf16 activation storage: the apply runs in the storage
+            # dtype subtract-first, (x - mean) * k + bias with k = inv *
+            # scale in f32 (JAX ops/conv.py:332-352); (x - mean) of two
+            # nearby bf16 values is exact or nearly, where a folded
+            # x * k + (bias - mean * k) would cancel two large terms
+            k = inv * params["scale"]
+            y = (x - mean.to(x.dtype)[None, :, None, None]) \
+                * k.to(x.dtype)[None, :, None, None] \
+                + params["bias"].to(x.dtype)[None, :, None, None]
+        else:
+            y = (xf - mean[None, :, None, None]) * inv[None, :, None, None]
+            y = y * params["scale"][None, :, None, None] \
+                + params["bias"][None, :, None, None]
         if self.relu:
             y = torch.relu(y)
         self._last_state = new_state
-        return [y.to(self.outputs[0].dtype)]
+        return [y.to(out_dtype)]

@@ -174,6 +174,8 @@ class InferenceEngine:
                           for t in model._inputs}
         self._dtypes = {t.name: t.dtype for t in model._inputs}
         self._graphs: Dict[int, GraphRunner] = {}
+        # the model's compile the bucket graphs were built under
+        self._generation = model.compile_generation
         self._pool = None
         self._lock = threading.Lock()
         # /metrics scrapes the per-bucket dispatch counts that
@@ -340,12 +342,20 @@ class InferenceEngine:
         """Bucket ``b``'s runner, built under the engine's lock at its
         first use: one eager forward on zero inputs, then the capture
         (none with ``aot=False``), timed together as the bucket's
-        ``compile`` event (emitted outside the lock)."""
+        ``compile`` event (emitted outside the lock).  A recompile of
+        the model (a new loss or activation dtype) drops every bucket's
+        graph first: a captured forward never replays a compile it was
+        not built under."""
         runner = self._graphs.get(b)
-        if runner is not None:
+        if (runner is not None
+                and self._generation == self.model.compile_generation):
             return runner
         built = None
         with self._lock:
+            if self._generation != self.model.compile_generation:
+                self._graphs.clear()
+                self._pool = None
+                self._generation = self.model.compile_generation
             if b not in self._graphs:
                 t0 = time.perf_counter()
                 dummy = {name: torch.zeros((b,) + shape,

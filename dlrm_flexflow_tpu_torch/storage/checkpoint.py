@@ -23,6 +23,7 @@ import os
 from typing import Optional
 
 import numpy as np
+import torch
 
 from .tiered import StorageError, TieredEmbeddingTable
 
@@ -49,7 +50,12 @@ def save_tiered(path: str, store: TieredEmbeddingTable) -> str:
         "hot_ids": [[[int(i), int(c)] for i, c in pairs]
                     for pairs in store.hot_manifest()],
     }
-    np.savez(os.path.join(path, COLD_NAME), cold=store.cold_full())
+    cold = store.cold_full()
+    if isinstance(cold, torch.Tensor):
+        # a bf16 table: its bits as the 2-byte voids the JAX package's
+        # np.savez of an ml_dtypes.bfloat16 array writes
+        cold = cold.view(torch.int16).numpy().view(np.dtype("V2"))
+    np.savez(os.path.join(path, COLD_NAME), cold=cold)
     mpath = os.path.join(path, MANIFEST_NAME)
     tmp = mpath + ".tmp"
     with open(tmp, "w") as f:

@@ -15,7 +15,11 @@ card and streams the misses in.
   bits.
 * **Cold tier**: the full table in host memory (numpy), the ground truth
   for every row.  Misses are admitted by copying cold rows up; dirty rows
-  (sparse training updates) are written back on eviction.
+  (sparse training updates) are written back on eviction.  numpy has no
+  bf16 without ``ml_dtypes``, which the card's machine lacks, so a bf16
+  table's cold tier holds its 16-bit patterns as ``uint16``: staging and
+  writeback move the same bytes, and the rows cross to torch as bf16
+  views of them.
 
 A miss block is installed in three steps, all on the caller's current
 stream: the missed cold rows (and their hot slots) are gathered on the
@@ -48,8 +52,12 @@ by ``ops/kernel_costs.py::tiered_storage_wins`` through
 :func:`tiered_decision`, with the JAX package's ``FF_TIERED_STORAGE``
 override (``auto`` | ``on`` | ``off``).
 
-Tables are f32 (f16 and f64 on the CPU); bf16 tiered tables are not
-ported yet.
+Tables are f32 or bf16 on the card (f16 and f64 too on the CPU).  A
+bf16 table's update follows the JAX store's ``.at[].add`` of
+``bfloat16(scale) * grads``: bf16 grads round the product and every add
+to bf16 (the row-update kernel on the hot tier); f32 grads are added in
+f32 and each touched row rounds once (the row-update kernel on an f32
+copy of the touched rows, then the row-set kernel puts them back).
 """
 
 from __future__ import annotations
@@ -169,21 +177,46 @@ class _Stage:
         self.event: Optional[torch.cuda.Event] = None
 
 
-def _host_table(cold) -> np.ndarray:
+def _host_table(cold) -> Tuple[np.ndarray, torch.dtype]:
     """An owned numpy copy of ``cold`` (a numpy array or a tensor on any
-    device): the cold tier."""
+    device), the cold tier, and the table's torch dtype.  A bf16 table
+    (a bf16 tensor, or the 2-byte voids ``np.savez`` writes for one) is
+    kept as its ``uint16`` bits."""
     if isinstance(cold, torch.Tensor):
-        if cold.dtype == torch.bfloat16:
-            raise StorageError("bf16 tiered tables are not ported; "
-                               "tier an f32 table")
-        arr = cold.detach().cpu().numpy()
+        t = cold.detach()
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        arr = t.cpu().numpy()
         # a tensor off the CPU came over as a fresh copy already
-        return arr.copy() if cold.device.type == "cpu" else arr
+        arr = arr.copy() if cold.device.type == "cpu" else arr
+        if cold.dtype == torch.bfloat16:
+            return arr.view(np.uint16), torch.bfloat16
+        return arr, cold.dtype
     arr = np.array(cold)
-    if arr.dtype.kind != "f" or arr.dtype.name == "bfloat16":
-        raise StorageError(f"tiered tables are float32 (float16 and "
-                           f"float64 on the CPU), got {arr.dtype}")
-    return arr
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        return arr.view(np.uint16), torch.bfloat16
+    if arr.dtype.kind != "f":
+        raise StorageError(f"tiered tables are float32 or bfloat16 "
+                           f"(float16 and float64 on the CPU), got "
+                           f"{arr.dtype}")
+    return arr, torch.from_numpy(arr[:0]).dtype
+
+
+def _as_rows(bits: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+    """Cold rows as a CPU tensor of the table's dtype (bf16 from its
+    ``uint16`` bits, sharing their memory)."""
+    if dtype == torch.bfloat16:
+        return torch.from_numpy(bits.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(bits)
+
+
+def _as_bits(rows: torch.Tensor) -> np.ndarray:
+    """Rows of the hot tier as the cold tier's numpy values (a bf16
+    row's bits as ``uint16``)."""
+    rows = rows.cpu()
+    if rows.dtype == torch.bfloat16:
+        return rows.view(torch.int16).numpy().view(np.uint16)
+    return rows.numpy()
 
 
 def _align16(n: int) -> int:
@@ -217,7 +250,7 @@ class TieredEmbeddingTable:
                  device=None):
         self.name = str(name)
         self.policy_name = (policy or "lfu").strip().lower() or "lfu"
-        arr = _host_table(cold)  # own host copy = the cold tier
+        arr, dtype = _host_table(cold)  # own host copy = the cold tier
         if arr.ndim == 3:
             self.kind = "stacked"
             tables, rows, dim = arr.shape
@@ -262,8 +295,7 @@ class TieredEmbeddingTable:
         self.hot_slots = hot_off
         self.device = resolve_device(device)
         # the hot tier: allocated once, written in place, never replaced
-        self._hot = torch.zeros((self.hot_slots, self.dim),
-                                dtype=torch.from_numpy(arr[:0]).dtype,
+        self._hot = torch.zeros((self.hot_slots, self.dim), dtype=dtype,
                                 device=self.device)
         self._stages = [_Stage(), _Stage()]  # pinned, used in turn
         self._next_stage = 0
@@ -296,7 +328,7 @@ class TieredEmbeddingTable:
         # one device-to-host copy of the dirty slots (ordered after every
         # update enqueued so far on this stream)
         idx = torch.from_numpy(gs).to(self.device)
-        self.cold[src] = self._hot[idx].cpu().numpy()
+        self.cold[src] = _as_bits(self._hot[idx])
         for g in gs.tolist():
             self._dirty.discard(g)
         self._writebacks += gs.size
@@ -338,7 +370,8 @@ class TieredEmbeddingTable:
         if self.device.type != "cuda":
             t0 = time.perf_counter()
             row_set_cuda(self._hot, torch.as_tensor(miss_g, dtype=torch.int64),
-                         torch.from_numpy(self.cold[np.asarray(miss_src)]))
+                         _as_rows(self.cold[np.asarray(miss_src)],
+                                  self._hot.dtype))
             return (time.perf_counter() - t0) * 1e6
         row_off = _align16(4 * n)
         nbytes = row_off + n * self.dim * self._hot.element_size()
@@ -553,12 +586,32 @@ class TieredEmbeddingTable:
         them down to cold."""
         a = np.asarray(ids)
         g = torch.as_tensor(row_grads).to(self.device).reshape(-1, self.dim)
+        bf16 = self._hot.dtype == torch.bfloat16
+        if bf16:
+            # the JAX store adds bfloat16(scale) * grads
+            scale = float(torch.tensor(float(scale), dtype=torch.bfloat16))
+        if not (bf16 and g.dtype == torch.bfloat16):
+            g = g.float() if bf16 else g.to(self._hot.dtype)
         with self._lock:
             _, gout, info = self._remap_locked(a)
             flat = gout.reshape(-1)
-            row_update_cuda(self._hot, torch.from_numpy(flat).to(
-                self.device), g.to(self._hot.dtype), scale)
-            self._dirty.update(int(x) for x in np.unique(flat))
+            uniq, local = np.unique(flat, return_inverse=True)
+            if bf16 and g.dtype == torch.float32:
+                # f32 grads into a bf16 table: the JAX store's add runs
+                # in f32 (its scatter promotes the table) and rounds each
+                # touched row once, so the rows are updated in an f32
+                # scratch and set back
+                dst = torch.from_numpy(uniq).to(self.device)
+                rows = take_rows(self._hot, dst).float()
+                row_update_cuda(rows, torch.from_numpy(local.reshape(
+                    -1)).to(self.device), g, scale)
+                row_set_cuda(self._hot, dst, rows.to(torch.bfloat16))
+            else:
+                # bf16 grads: each product and each add rounded to the
+                # table's dtype, as the JAX store's bf16 scatter-add
+                row_update_cuda(self._hot, torch.from_numpy(flat).to(
+                    self.device), g, scale)
+            self._dirty.update(int(x) for x in uniq)
         self._note(info)
 
     def writeback(self) -> int:
@@ -569,15 +622,17 @@ class TieredEmbeddingTable:
         return n
 
     def cold_full(self):
-        """The full table (writeback first) as a numpy array, shaped like
-        the original parameter: the bit-exactness and checkpoint ground
-        truth."""
+        """The full table (writeback first), shaped like the original
+        parameter: the bit-exactness and checkpoint ground truth.  A
+        numpy array, or for a bf16 table a CPU bf16 tensor (numpy has no
+        bf16 of its own)."""
         self.writeback()
         with self._lock:
             arr = self.cold.copy()
         if self.kind == "stacked":
-            return arr.reshape(self.tables, self.tiers[0].rows,
-                               self.dim)
+            arr = arr.reshape(self.tables, self.tiers[0].rows, self.dim)
+        if self._hot.dtype == torch.bfloat16:
+            return _as_rows(arr, torch.bfloat16)
         return arr
 
     # ----------------------------------------------- admission warmup

@@ -8,8 +8,9 @@ Runs ``dlrm_flexflow_tpu_torch.apps.dlrm.run`` at ``-b 256 --wd 0
 data) three ways:
 
 - ``staged_cached``: ``--epoch-row-cache on``, the staged epochs with the
-  epoch row cache (the CLI's default path on the card);
-- ``staged_uncached``: ``--epoch-row-cache off``;
+  epoch row cache;
+- ``staged_uncached``: ``--epoch-row-cache off``, the staged epochs
+  without it (the CLI's default path on the card, "auto");
 - ``per_batch``: ``--fit-scan-max-bytes 0``, ``train_step`` batch by batch.
 
 Within one process, for each epoch count, the paths run in the order

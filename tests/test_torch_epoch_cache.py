@@ -204,6 +204,32 @@ def test_auto_cache_stays_off_on_the_cpu(writebacks):
     assert not m._epoch_cache_active and not writebacks
 
 
+@pytest.mark.parametrize("mode", ["auto", "on", "off"])
+def test_cache_mode_resolves_as_jax_off_the_tpu(mode, writebacks):
+    """Each mode engages the cache exactly where the JAX package's does
+    off the TPU ("auto" and "off" never, "on" always), whatever the
+    tables' device, and every mode's epoch equals the uncached one bit
+    for bit."""
+    kw, stacked = _graph("stacked", True)
+    inputs, labels = _data(kw["embedding_size"], stacked, 8, seed=3)
+    jm = jax_build_dlrm(JaxDLRMConfig(**kw), ffj.FFConfig(
+        batch_size=BATCH, epoch_row_cache=mode))
+    jm.compile(optimizer=ffj.SGDOptimizer(lr=0.05), mesh=False,
+               loss_type="mean_squared_error")
+    jm.train_epoch(jm.init(seed=0), {k: v.astype(np.int32)
+                                     if v.dtype == np.int64 else v
+                                     for k, v in inputs.items()}, labels)
+    runs = {}
+    for m_mode in (mode, "off"):
+        m = _port_model(kw, stacked, epoch_row_cache=m_mode)
+        st = m.init(seed=0, device="cpu")
+        runs[m_mode] = m.train_epoch(st, inputs, labels)[0], m
+    (st, m), (st_off, _) = runs[mode], runs["off"]
+    assert m._epoch_cache_active == jm._epoch_cache_active == (mode == "on")
+    assert bool(writebacks) == (mode == "on")
+    _assert_same(st, st_off)
+
+
 @pytest.mark.parametrize("kind", ["stacked", "fused"])
 def test_train_epochs_equals_repeated_train_epoch(kind, writebacks):
     """One prologue and epilogue across three epochs (4 blocks per epoch
@@ -238,7 +264,7 @@ def test_chunked_epoch_equals_unchunked(levels, chunk, writebacks):
         m = _port_model(kw, stacked, epoch_row_cache="on",
                         epoch_cache_levels=levels, epoch_cache_chunk=c)
         st = m.init(seed=0, device="cpu")
-        m._resolve_cache(st.params["emb"]["embedding"].device)
+        m._resolve_cache()
         runs[c] = (m._epoch_chunk_bounds(9),) + m.train_epoch(st, inputs,
                                                               labels)
     bounds, st_c, mets_c = runs[chunk]

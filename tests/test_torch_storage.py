@@ -252,10 +252,71 @@ def test_store_constructor_errors_match_jax():
         assert str(pe.value) == str(je.value)
 
 
-def test_bf16_tables_are_refused():
-    with pytest.raises(pstorage.StorageError, match="bf16"):
-        pstorage.TieredEmbeddingTable(
-            "t", torch.zeros((10, D), dtype=torch.bfloat16), 2, device="cpu")
+def _bits16(x):
+    """A bf16 table (the port's tensor, JAX's array) as its uint16 bits."""
+    if isinstance(x, torch.Tensor):
+        return x.view(torch.int16).numpy().view(np.uint16)
+    return np.asarray(x).view(np.uint16)
+
+
+@pytest.mark.parametrize("kind", sorted(KINDS))
+def test_bf16_store_matches_jax(kind, tmp_path):
+    """A bf16 table tiered in both packages over the same zipf stream:
+    the same remapped ids, victims and counters; ``gather_rows``, the
+    hot tier, ``scatter_apply`` (bf16(scale) times the grads, duplicates
+    added in order) with its writebacks, and ``cold_full`` bit for bit
+    JAX's; a tiered checkpoint of either package loads in the port to
+    the same bf16 table."""
+    cold, counts = _cold(kind, seed=3)
+    j = jstorage.TieredEmbeddingTable(
+        "sparse", jnp.asarray(cold, dtype=jnp.bfloat16), HOT,
+        row_counts=counts)
+    p = pstorage.TieredEmbeddingTable(
+        "sparse", torch.from_numpy(cold).to(torch.bfloat16), HOT,
+        row_counts=counts, device="cpu")
+    assert p.hot_param().dtype == torch.bfloat16
+    rng = np.random.default_rng(16)
+    for step in range(24):
+        ids = _ids(kind, rng, int(rng.integers(1, 9)))
+        if step % 3 == 2:
+            np.testing.assert_array_equal(p.remap(ids), j.remap(ids))
+            continue
+        g = rng.standard_normal(ids.shape + (D,)).astype(np.float32)
+        if step % 2:  # bf16 grads as well as f32 ones
+            p.scatter_apply(ids, torch.from_numpy(g).to(torch.bfloat16),
+                            -0.05)
+            j.scatter_apply(ids, jnp.asarray(g, dtype=jnp.bfloat16), -0.05)
+        else:
+            p.scatter_apply(ids, g, -0.05)
+            j.scatter_apply(ids, jnp.asarray(g), -0.05)
+    for t in range(p.tables):
+        assert p.resident_ids(t) == j.resident_ids(t)
+    assert _counters(p) == _counters(j)
+    assert _counters(p)["writebacks"] > 0 and _counters(p)["evictions"] > 0
+    ids = _ids(kind, rng, 8)
+    got = p.gather_rows(ids)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(_bits16(got), _bits16(j.gather_rows(ids)))
+    np.testing.assert_array_equal(_bits16(p.hot_param()),
+                                  _bits16(j.hot_param()))
+    full = p.cold_full()
+    assert full.dtype == torch.bfloat16
+    np.testing.assert_array_equal(_bits16(full), _bits16(j.cold_full()))
+    assert _counters(p) == _counters(j)
+    # checkpoints: the port's save, and JAX's (its np.savez of an
+    # ml_dtypes array), each load in the port to the same table
+    pstorage.save_tiered(str(tmp_path / "port"), p)
+    jstorage.save_tiered(str(tmp_path / "jax"), j)
+    with np.load(tmp_path / "port" / "cold.npz") as a, \
+            np.load(tmp_path / "jax" / "cold.npz") as b:
+        assert a["cold"].dtype == b["cold"].dtype == np.dtype("V2")
+        np.testing.assert_array_equal(a["cold"].view(np.uint16),
+                                      b["cold"].view(np.uint16))
+    for d in ("port", "jax"):
+        back = pstorage.load_tiered(str(tmp_path / d), device="cpu")
+        assert back.hot_manifest() == p.hot_manifest()
+        np.testing.assert_array_equal(_bits16(back.cold_full()),
+                                      _bits16(full))
 
 
 # ------------------------------------------------------------ checkpoints
@@ -493,6 +554,43 @@ def test_tiered_engine_matches_jax_and_resident(engines):
     assert after_p["evictions"] > before_p["evictions"]
     assert set(after_p) == set(after_j)
     assert len(after_p["per_store"]) == len(after_j["per_store"]) == 1
+
+
+def test_bf16_tiered_engine_matches_resident_and_jax(monkeypatch):
+    """The model on bf16 tables (``embedding_dtype="bfloat16"``), tiered
+    in both packages: the port's tiered answers equal its resident
+    engine's bit for bit and JAX's within the serving tolerance, with
+    the same storage counters, and the hot tier stays bf16."""
+    tables = ENGINE_TABLES["stacked"]
+    jm, pm = (build(_dlrm(cfg, tables), cls(
+        batch_size=16, serve_buckets=BUCKETS, storage_hot_rows=16,
+        embedding_dtype="bfloat16"), stacked_embeddings=True)
+        for build, cfg, cls in ((jax_build_dlrm, JaxDLRMConfig, JaxFFConfig),
+                                (build_dlrm, DLRMConfig, fft.FFConfig)))
+    jm.compile(optimizer=ffj.SGDOptimizer(lr=0.01),
+               loss_type="mean_squared_error", metrics=(), mesh=False)
+    pm.compile()
+    jstate = jm.init(seed=0)
+    pstate = pm.load_params(params_from_jax(jax.tree.map(
+        np.asarray, jstate.params)), device="cpu")
+    assert pstate.params["emb"]["embedding"].dtype == torch.bfloat16
+    monkeypatch.setenv("FF_TIERED_STORAGE", "on")
+    jt = JaxEngine(jm, jstate, storage="tiered")
+    pt = InferenceEngine(pm, pstate, storage="tiered", device="cpu")
+    pr = InferenceEngine(pm, pstate, device="cpu")
+    assert pt.storage == jt.storage and pt.storage["mode"] == "tiered"
+    assert pt._tiered["sparse"][1].hot_param().dtype == torch.bfloat16
+    rng = np.random.default_rng(23)
+    for n in [1, 3, 8, 16, 5, 40, 2, 16, 11]:
+        req = _request(rng, tables, n)
+        got = pt.predict(req)
+        np.testing.assert_array_equal(got, pr.predict(req))
+        np.testing.assert_allclose(got, np.asarray(jt.predict(req)),
+                                   rtol=1e-5, atol=1e-6)
+    keys = ("lookups", "hits", "misses", "hit_pct", "evictions")
+    sp, sj = pt.storage_stats(), jt.storage_stats()
+    assert {k: sp[k] for k in keys} == {k: sj[k] for k in keys}
+    assert sp["evictions"] > 0
 
 
 def test_tiered_timings_report_the_stall(engines):
