@@ -259,7 +259,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
      a torch.fx conversion of a torch CNN (weights imported from the
      module's CUDA tensors), each four steps on the card against the
      same model on the CPU, then fit, timed steps and evaluate;
-     ONNXModel refusing without onnx.  No kernel runs in this phase.
+     ONNXModel refusing without onnx.  No kernel runs in this phase;
+ 32. the mesh: (a) one rank through distributed.initialize (NCCL over a
+     file store, one all_reduce): the run_random.sh classic graph under
+     make_mesh({"data": 1}), and its table-parallel form under {"data":
+     1, "model": 1} with table_exchange="allgather" (which warns and
+     stays off), each four steps bit for bit the no-mesh model, the
+     row-update kernel and the captured steps included; (b) two ranks on
+     the one card over gloo (NCCL refuses two ranks on one device): the
+     table-parallel DLRM at full width on {"data": 1, "model": 2}, four
+     tables a rank, in both exchange modes and the overlapped graph, four
+     steps each against the port's one-process run on the card (losses,
+     touched rows, MLPs at rtol 1e-5, table sums), and ring attention at
+     (2, 8, 4096, 64) on {"seq": 2} against sdpa (2e-5); each collective
+     gloo refuses on CUDA tensors is logged and the rest runs.  Step
+     walls and the exchange's share of the step are printed beside the
+     card; two gloo ranks on one card say nothing of NCCL over NVLink.
+     No kernel runs under the two-rank mesh.
 The phases that train epochs of the run_random.sh model ask for the
 epoch row cache ("on"): "auto" is off on the card.
 Profile lines carry the graph replays in their window, the graph pool's
@@ -5548,6 +5564,320 @@ def frontends_phase():
 
 
 
+# -------------------------------------------------------------- phase 32
+MESH_STEPS = 4
+#: ring attention on the card: two ranks of (B, H, S/2, D) blocks
+RING_SHAPE = (2, 8, 4096, 64)
+
+
+def _mesh_dlrm(mesh, compute_dtype, table_parallel=False,
+               table_exchange="off", overlap="off"):
+    """The run_random.sh classic graph (or with ``overlap`` "on" its
+    overlapped graph) at full width, compiled under ``mesh`` (False: no
+    mesh), SGD at lr 0.01, seed 0, on this process's card."""
+    cfg = DLRMConfig(embedding_size=[ROWS] * TABLES,
+                     exchange_overlap=overlap)
+    ffc = FFConfig(batch_size=BATCH, compute_dtype=compute_dtype,
+                   table_exchange=table_exchange)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        model = build_dlrm(cfg, ffc, table_parallel=table_parallel).compile(
+            optimizer=SGDOptimizer(lr=0.01), loss_type="mean_squared_error",
+            metrics=("accuracy", "mean_squared_error"), mesh=mesh)
+    return model, model.init(seed=0), [str(w.message) for w in caught]
+
+
+def _mesh_steps(model, state, inputs, labels):
+    """MESH_STEPS donated steps; the losses and the median step wall."""
+    losses, walls = [], []
+    for i in range(MESH_STEPS):
+        t0 = time.perf_counter()
+        state, mets = model.train_step(
+            state, {k: v[i] for k, v in inputs.items()}, labels[i])
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(mets["loss"]))
+    return state, losses, float(np.median(walls))
+
+
+def mesh_one_rank(inputs, labels):
+    """32(a): one rank through distributed.initialize (NCCL, a file
+    store): the headline classic graph under make_mesh({"data": 1}), and
+    the table-parallel graph under {"data": 1, "model": 1} with
+    table_exchange="allgather" (which warns and stays off), each bit for
+    bit the no-mesh model over MESH_STEPS steps, kernels and captured
+    steps included."""
+    import torch.distributed as dist
+
+    from dlrm_flexflow_tpu_torch import distributed as fdist
+    from dlrm_flexflow_tpu_torch.parallel import make_mesh
+    store_dir = tempfile.mkdtemp(prefix="mesh1-")
+    topo = fdist.initialize(f"file://{store_dir}/store", 1, 0)
+    probe = torch.ones(4, device="cuda")
+    dist.all_reduce(probe)  # the NCCL communicator itself
+    torch.cuda.synchronize()
+    if dist.get_backend() != "nccl" or float(probe.sum()) != 4.0:
+        raise AssertionError("32(a): no working NCCL group of one rank")
+    runs, counts = {}, {k: 0 for k in KERNELS}
+    for name, mesh, kw in (
+            ("data1", make_mesh({"data": 1}), {}),
+            ("data1_model1_allgather", make_mesh({"data": 1, "model": 1}),
+             {"table_parallel": True, "table_exchange": "allgather"})):
+        base, bstate, _ = _mesh_dlrm(False, "bfloat16", **kw)
+        bstate, blosses, bwall = _mesh_steps(base, bstate, inputs, labels)
+        want = {f"{o}/{k}": v.detach().clone()
+                for o, d in bstate.params.items() for k, v in d.items()}
+        bcaps = base.graph_captures
+        del base, bstate
+        _free()
+        model, state, warned = _mesh_dlrm(mesh, "bfloat16", **kw)
+        if model._spmd is not None or model.mesh is not mesh:
+            raise AssertionError(f"32(a) {name}: a trivial mesh must run "
+                                 "the no-mesh program")
+        reset_counts()
+        state, losses, wall = _mesh_steps(model, state, inputs, labels)
+        got = read_counts()
+        same = losses == blosses and model.graph_captures == bcaps and all(
+            torch.equal(v, want[f"{o}/{k}"])
+            for o, d in state.params.items() for k, v in d.items())
+        if not same or got["row_update"] == 0:
+            raise AssertionError(f"32(a) {name}: not bit for bit the "
+                                 f"no-mesh model (losses {losses} vs "
+                                 f"{blosses}, launches {got})")
+        for k, v in got.items():
+            counts[k] += v
+        runs[name] = {"bit_identical": True, "losses": losses,
+                      "step_wall_ms": wall, "no_mesh_step_wall_ms": bwall,
+                      "row_update_launches": got["row_update"],
+                      "captures": model.graph_captures,
+                      "exchange_warning": [w for w in warned
+                                           if "table_exchange" in w]}
+        del model, state, want
+        _free()
+    dist.destroy_process_group()
+    shutil.rmtree(store_dir, ignore_errors=True)
+    log({"phase": "mesh_one_rank", "backend": "nccl", "topology": topo,
+         **runs})
+    return runs, counts
+
+
+def _touched(inputs):
+    """The flat rows of the MESH_STEPS batches' ids, per table."""
+    ids = inputs["sparse"][:MESH_STEPS]          # (steps, B, T, bag)
+    return {t: np.unique(ids[:, :, t].reshape(-1)) for t in range(TABLES)}
+
+
+def _gloo_refusal(err):
+    """What gloo refused, from a collective's error on CUDA tensors:
+    "alltoall" (the backend has no all-to-all), "cuda_pointer" (its TCP
+    transport cannot read or write device memory, as a send/recv asks),
+    "peer_closed" (the other rank's transport closed after its own
+    refusal; 32(b) accepts it only beside that refusal), or None for any
+    other error, which is a fault."""
+    msg = str(err)
+    if "does not support alltoall" in msg:
+        return "alltoall"
+    if "gloo/transport/tcp" in msg and "Bad address" in msg:
+        return "cuda_pointer"
+    if "gloo/transport/tcp" in msg and "Connection closed by peer" in msg:
+        return "peer_closed"
+    return None
+
+
+def mesh_rank(out_dir):
+    """32(b)'s rank body (two processes on the one card over gloo): the
+    table-parallel DLRM on {"data": 1, "model": 2}, 4 tables a rank, in
+    both exchange modes and the overlapped graph, MESH_STEPS steps, with
+    no kernel launch (kernels are off under a mesh of more than one
+    rank); ring attention at RING_SHAPE on {"seq": 2}.  A collective
+    that gloo refuses on CUDA tensors (``_gloo_refusal``) is recorded
+    and the rest runs; any other error raises."""
+    import torch.distributed as dist
+
+    from dlrm_flexflow_tpu_torch.parallel import make_mesh
+    from dlrm_flexflow_tpu_torch.parallel.ring_attention import (
+        ring_attention_sharded)
+    from dlrm_flexflow_tpu_torch.parallel.table_exchange import (
+        table_parallel_lookup)
+    rank = dist.get_rank()
+    inputs, labels = _epoch_data(MESH_STEPS)
+    touched = _touched(inputs)
+    mesh = make_mesh({"data": 1, "model": 2})
+    out = {"rank": rank, "runs": {}, "refused": []}
+
+    def refused(run, err):
+        kind = _gloo_refusal(err)
+        if kind is None:
+            raise err
+        out["refused"].append({"run": run, "rank": rank, "kind": kind,
+                               "error": str(err)[:400]})
+
+    for name, xmode, overlap in (("allgather", "allgather", "off"),
+                                 ("all_to_all", "all_to_all", "off"),
+                                 ("overlap_allgather", "allgather", "on")):
+        model, state, _ = _mesh_dlrm(mesh, "float32", True, xmode, overlap)
+        reset_counts()
+        try:
+            state, losses, wall = _mesh_steps(model, state, inputs, labels)
+        except RuntimeError as e:
+            refused(name, e)
+            del model, state
+            _free()
+            continue
+        launches = read_counts()
+        if any(launches.values()):
+            raise AssertionError(f"32(b) {name}: kernels launched under a "
+                                 f"mesh of two ranks: {launches}")
+        op = model.get_op("emb_bot" if overlap == "on" else "emb")
+        table = state.params[op.name]["embedding"]      # (4, R, d) local
+        ids = torch.from_numpy(inputs["sparse"][0]).cuda()
+        ex = []
+        for _ in range(8):  # the exchange alone, on the first batch
+            t0 = time.perf_counter()
+            table_parallel_lookup(table, ids, mesh, "sum", xmode)
+            torch.cuda.synchronize()
+            ex.append((time.perf_counter() - t0) * 1e3)
+        rows = {}
+        for j in range(table.shape[0]):
+            t = rank * table.shape[0] + j
+            rows[t] = table[j][torch.from_numpy(touched[t]).cuda()].cpu()
+        mlp = {f"{o}/{k}": v.detach().cpu() for o, d in state.params.items()
+               for k, v in d.items() if k != "embedding"}
+        out["runs"][name] = {
+            "losses": losses, "step_wall_ms": wall,
+            "exchange_ms": float(np.median(ex)),
+            "local_tables": list(table.shape), "launches": launches,
+            "checksums": {int(rank * table.shape[0] + j):
+                          float(table[j].double().sum())
+                          for j in range(table.shape[0])}}
+        torch.save({"rows": rows, "mlp": mlp},
+                   os.path.join(out_dir, f"{name}.rank{rank}.pt"))
+        del model, state, table
+        _free()
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v = (torch.randn(RING_SHAPE, generator=gen, device="cuda")
+               for _ in range(3))
+    smesh = make_mesh({"seq": 2})
+    try:
+        ring_attention_sharded(q, k, v, smesh, causal=True)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = ring_attention_sharded(q, k, v, smesh, causal=True)
+        torch.cuda.synchronize()
+        out["ring_ms"] = (time.perf_counter() - t0) * 1e3
+        if rank == 0:
+            torch.save(o.cpu(), os.path.join(out_dir, "ring.pt"))
+    except RuntimeError as e:
+        refused("ring_attention", e)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def mesh_two_ranks(card):
+    """32(b): mesh_rank in two processes on the one card over gloo (NCCL
+    refuses two ranks on one device), each run held against the port's
+    one-process run on the card at rtol 1e-5, on the ranks' batches;
+    ring attention against sdpa at 2e-5.  The allgather and overlapped
+    runs must complete on both ranks; a run is left out only for a
+    refusal of gloo's own, which is logged with its rank."""
+    from dlrm_flexflow_tpu_torch import distributed as fdist
+    from dlrm_flexflow_tpu_torch.ops.attention import sdpa
+    inputs, labels = _epoch_data(MESH_STEPS)  # as mesh_rank makes them
+    out_dir = tempfile.mkdtemp(prefix="mesh2-")
+    t0 = time.perf_counter()
+    fdist.launch("chip_smoke:mesh_rank", 2, kwargs={"out_dir": out_dir},
+                 backend="gloo", timeout_s=420, threads=4)
+    group_s = time.perf_counter() - t0
+    ranks = [json.load(open(os.path.join(out_dir, f"rank{r}.json")))
+             for r in range(2)]
+    refused = ranks[0]["refused"] + ranks[1]["refused"]
+    for x in refused:
+        log({"phase": "mesh_two_ranks", "gloo_refused": x})
+        # a closed connection is a refusal only as the echo of the other
+        # rank's own refusal of the same run
+        other = ranks[1 - x["rank"]]["refused"]
+        if x["kind"] == "peer_closed" and not any(
+                y["run"] == x["run"] and y["kind"] != "peer_closed"
+                for y in other):
+            raise AssertionError(f"32(b) {x['run']}: rank {x['rank']}'s "
+                                 f"peer closed with no refusal of its own")
+    for name in ("allgather", "overlap_allgather"):  # gloo takes both
+        if any(name not in x["runs"] for x in ranks):
+            raise AssertionError(f"32(b): the {name} run did not complete "
+                                 "on both ranks")
+    touched = _touched(inputs)
+    results = {}
+    for name, overlap in (("allgather", "off"), ("all_to_all", "off"),
+                          ("overlap_allgather", "on")):
+        if name not in ranks[0]["runs"]:
+            continue
+        model, state, _ = _mesh_dlrm(False, "float32", overlap=overlap)
+        state, losses, wall = _mesh_steps(model, state, inputs, labels)
+        op = "emb_bot" if overlap == "on" else "emb"
+        table = state.params[op]["embedding"]
+        got = ranks[0]["runs"][name]
+        np.testing.assert_allclose(got["losses"], losses, rtol=1e-5)
+        err = 0.0
+        for r in range(2):
+            saved = torch.load(os.path.join(out_dir, f"{name}.rank{r}.pt"))
+            for t, rows in saved["rows"].items():
+                want = table[t][torch.from_numpy(touched[t]).cuda()].cpu()
+                np.testing.assert_allclose(rows.numpy(), want.numpy(),
+                                           rtol=1e-5, atol=1e-6)
+                err = max(err, float((rows - want).abs().max()))
+            for key, v in saved["mlp"].items():
+                o, k = key.split("/")
+                want = state.params[o][k].detach().cpu()
+                np.testing.assert_allclose(v.numpy(), want.numpy(),
+                                           rtol=1e-5, atol=1e-6)
+                err = max(err, float((v - want).abs().max()))
+            for t, cs in ranks[r]["runs"][name]["checksums"].items():
+                want = float(table[int(t)].double().sum())
+                if abs(cs - want) > 1e-5 * max(abs(want), 1.0):
+                    raise AssertionError(f"32(b) {name}: table {t} sum "
+                                         f"{cs} vs {want}")
+        results[name] = {
+            "losses": got["losses"], "max_abs_err": err,
+            "local_tables": got["local_tables"],
+            "launches": [sum(x["runs"][name]["launches"].values())
+                         for x in ranks],
+            "step_wall_ms": max(x["runs"][name]["step_wall_ms"]
+                                for x in ranks),
+            "one_process_step_wall_ms": wall,
+            "exchange_ms": got["exchange_ms"],
+            "exchange_share_of_step": got["exchange_ms"]
+            / max(x["runs"][name]["step_wall_ms"] for x in ranks)}
+        del model, state, table
+        _free()
+    ring_path = os.path.join(out_dir, "ring.pt")
+    if os.path.exists(ring_path):
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        q, k, v = (torch.randn(RING_SHAPE, generator=gen, device="cuda")
+                   for _ in range(3))
+        t0 = time.perf_counter()
+        want = sdpa(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        dense_ms = (time.perf_counter() - t0) * 1e3
+        got = torch.load(ring_path).cuda()
+        err = float((got - want).abs().max())
+        if not torch.allclose(got, want, rtol=2e-5, atol=2e-5):
+            raise AssertionError(f"32(b) ring attention: max err {err}")
+        results["ring_attention"] = {
+            "shape": list(RING_SHAPE), "max_abs_err": err,
+            "ring_ms": max(x.get("ring_ms", 0.0) for x in ranks),
+            "one_process_sdpa_ms": dense_ms}
+        del q, k, v, want, got
+        _free()
+    shutil.rmtree(out_dir, ignore_errors=True)
+    refused = sorted({x["run"] for x in refused})
+    log({"phase": "mesh_two_ranks", "card": card, "backend": "gloo",
+         "group_wall_s": round(group_s, 3), **results,
+         "gloo_refused": refused,
+         "note": "two gloo ranks on one card: these walls say nothing of "
+                 "NCCL over NVLink between cards"})
+    return results, refused
+
+
 def _entry(name, launches, err, timing):
     source, replaces, _ = KERNELS[name]
     return {"name": name, "route": "cuda", "source": source,
@@ -5655,11 +5985,16 @@ def main() -> int:
     act, act_counts = bf16_activation_phase(inputs, labels)
     tiered16, tiered16_counts = bf16_tiered_phase(tiered)
     fronts = frontends_phase()
+    # phase 32: the mesh, one rank over NCCL (bit for bit the no-mesh
+    # model, kernels included) and two ranks on the one card over gloo
+    _free()
+    mesh1, mesh1_counts = mesh_one_rank(inputs, labels)
+    mesh2, mesh2_refused = mesh_two_ranks(card)
     path_counts = (headline_counts, sparse_counts, dense_counts, dot_counts,
                    staged_counts, bag_counts, bf16_counts, bag16_counts,
                    durable_counts, tiered_counts, lazy_counts, soap_counts,
                    tune_counts, apps_counts, hetero_counts, act_counts,
-                   tiered16_counts)
+                   tiered16_counts, mesh1_counts)
     row_launches = sum(c["row_update"] for c in path_counts)
     prep_launches = sum(c["row_update_prep"] for c in path_counts)
     if prep_launches != row_launches:
@@ -5729,6 +6064,13 @@ def main() -> int:
              "b2_scatter_updates")},
          "frontends_step_wall_ms": {
              r["model"]: r.get("graphed_step_wall_ms") for r in fronts},
+         "mesh_one_rank_step_wall_ms": {
+             k: r["step_wall_ms"] for k, r in mesh1.items()},
+         "mesh_two_ranks": {k: {f: r.get(f) for f in (
+             "step_wall_ms", "one_process_step_wall_ms", "exchange_ms",
+             "exchange_share_of_step", "ring_ms", "one_process_sdpa_ms",
+             "max_abs_err")} for k, r in mesh2.items()},
+         "mesh_gloo_refused": mesh2_refused,
          "note": "walls include each path's eager step and capture"})
     log({"kernels": [
         _entry("fused_interact_fwd",

@@ -17,6 +17,7 @@ from .losses import get_loss
 from .metrics import MetricsAccumulator, compute_metrics
 from .model import FFModel, TrainState
 from .optim import AdamOptimizer, SGDOptimizer
+from .parallel.mesh import make_mesh
 from .parallel.parallel_config import ParallelConfig, Strategy
 from .serving import (DeadlineExceeded, DynamicBatcher, InferenceEngine,
                       LatencyStats, Rejected, parse_buckets)
@@ -25,7 +26,8 @@ from .tensor import ParameterSpec, Tensor
 __version__ = "0.1.0"
 
 __all__ = ["FFConfig", "FFModel", "TrainState", "Tensor", "SGDOptimizer",
-           "AdamOptimizer", "ParallelConfig", "Strategy", "GlorotUniform",
+           "AdamOptimizer", "ParallelConfig", "Strategy", "make_mesh",
+           "GlorotUniform",
            "ZeroInitializer", "UniformInitializer", "NormInitializer",
            "ConstantInitializer", "get_loss", "compute_metrics",
            "MetricsAccumulator", "InferenceEngine", "DynamicBatcher",

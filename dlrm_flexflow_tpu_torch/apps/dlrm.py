@@ -26,6 +26,7 @@ from ..config import FFConfig
 from ..data.loader import ArrayDataLoader, SyntheticDLRMLoader, load_criteo_h5
 from ..model import FFModel
 from ..optim import SGDOptimizer
+from ..parallel.parallel_config import ParallelConfig
 
 
 @dataclass
@@ -141,8 +142,16 @@ def build_dlrm(cfg: DLRMConfig, ffconfig: Optional[FFConfig] = None,
     StackedEmbedding for same-size tables or a RaggedStackedEmbedding
     otherwise, reshaped to (B, T*d); without it one Embedding
     ``emb_<i>`` per table over its own ``sparse_<i>`` ids; then the
-    ``cat`` or ``dot`` interaction.  The table-parallel and
-    overlapped-exchange graphs come with the scale-out slice."""
+    ``cat`` or ``dot`` interaction.
+
+    ``table_parallel`` marks the embedding op with the model-axis
+    strategy ``ParallelConfig(dims=(1, T, 1))`` (the hybrid strategy of
+    dlrm_strategy.cc:242-296: tables over "model", MLPs data-parallel);
+    the fused graph is never table-parallel.  ``exchange_overlap`` "on",
+    or "auto" with ``FFConfig.table_exchange`` set, builds the
+    overlapped graph for uniform stacked tables: ``emb_bot`` (one
+    OverlappedEmbedBottom owning the tables and the bottom MLP), then the
+    interaction and ``top_*``."""
     ffconfig = ffconfig or FFConfig()
     fmode = getattr(cfg, "fused_interaction", "off")
     if fmode not in ("off", "auto", "on"):
@@ -155,17 +164,55 @@ def build_dlrm(cfg: DLRMConfig, ffconfig: Optional[FFConfig] = None,
             "fused_interaction='on' needs the stacked input convention "
             "(one (B, T, bag) ids tensor); per-table inputs "
             "(stacked_embeddings=False) cannot feed the fused op")
-    if table_parallel or getattr(cfg, "exchange_overlap", "off") == "on":
-        raise NotImplementedError(
-            "table-parallel and overlapped-exchange graphs come with the "
-            "scale-out slice in ROADMAP.md")
+    uniform = len(set(cfg.embedding_size)) == 1
+    omode = getattr(cfg, "exchange_overlap", "off")
+    if omode not in ("off", "auto", "on"):
+        raise ValueError(
+            f"exchange_overlap must be 'off'|'auto'|'on', got {omode!r}")
+    if omode == "on" and (not stacked_embeddings or not uniform):
+        raise ValueError(
+            "exchange_overlap='on' needs uniform stacked tables (the "
+            "manual table exchange pins whole same-shape tables per "
+            "model rank, parallel/table_exchange.py)")
+    if omode == "on" and fmode == "on":
+        raise ValueError(
+            "fused_interaction='on' and exchange_overlap='on' both "
+            "replace the embedding chain — pick one graph shape")
     model = FFModel(ffconfig)
     b = ffconfig.batch_size
     t = len(cfg.embedding_size)
     d = cfg.sparse_feature_size
     dense_in = model.create_tensor((b, cfg.mlp_bot[0]), "float32", name="dense")
+    # the overlapped graph replaces the bottom MLP and the stacked
+    # embedding with ONE op; "auto" builds it only when a manual exchange
+    # is configured
+    xmode = getattr(ffconfig, "table_exchange", "off")
+    if stacked_embeddings and uniform and (
+            omode == "on" or (omode == "auto" and xmode != "off")):
+        ids = model.create_tensor((b, t, cfg.embedding_bag_size), "int64",
+                                  name="sparse")
+        emb, bottom = model.overlapped_embed_bottom(
+            ids, dense_in, t, cfg.embedding_size[0], d, cfg.mlp_bot,
+            sigmoid_bot=cfg.sigmoid_bot, aggr="sum", overlap=omode,
+            microbatches=getattr(cfg, "exchange_microbatches", 2),
+            name="emb_bot")
+        if table_parallel:
+            # the (T, R, d) table's table axis over "model"; the bottom
+            # weights stay replicated
+            model.get_op("emb_bot").parallel_config = ParallelConfig(
+                dims=(1, t, 1))
+        flat = model.reshape(emb, (b, t * d), name="emb_flat")
+        z = _interact_features(model, bottom, [flat], cfg)
+        if z.shape[1] != cfg.mlp_top[0]:
+            raise ValueError(f"interaction width {z.shape[1]} != "
+                             f"mlp_top[0] {cfg.mlp_top[0]}")
+        sig = (cfg.sigmoid_top if cfg.sigmoid_top >= 0
+               else len(cfg.mlp_top) - 2)
+        _create_mlp(model, z, cfg.mlp_top, sig, "top")
+        model._dlrm_stacked = True
+        return model
     bottom = _create_mlp(model, dense_in, cfg.mlp_bot, cfg.sigmoid_bot, "bot")
-    if fmode == "on":
+    if fmode == "on" and not table_parallel:
         ids = model.create_tensor((b, t, cfg.embedding_bag_size), "int64",
                                   name="sparse")
         z = model.fused_embed_interact(
@@ -174,12 +221,16 @@ def build_dlrm(cfg: DLRMConfig, ffconfig: Optional[FFConfig] = None,
     elif stacked_embeddings:
         ids = model.create_tensor((b, t, cfg.embedding_bag_size), "int64",
                                   name="sparse")
-        if len(set(cfg.embedding_size)) == 1:
+        if uniform:
             stacked = model.stacked_embedding(ids, t, cfg.embedding_size[0],
                                               d, aggr="sum", name="emb")
         else:
             stacked = model.ragged_stacked_embedding(
                 ids, cfg.embedding_size, d, aggr="sum", name="emb")
+        if table_parallel:
+            # the table axis (dim 1 of (B, T, d)) over "model"
+            model.get_op("emb").parallel_config = ParallelConfig(
+                dims=(1, t, 1))
         flat = model.reshape(stacked, (b, t * d), name="emb_flat")
         z = _interact_features(model, bottom, [flat], cfg)
     else:
@@ -225,7 +276,30 @@ def run(argv: Sequence[str] = ()) -> float:
     ``compile`` through the config, as in the JAX CLI: ``--import FILE``
     loads a strategy, ``--budget N`` (``--alpha``, ``--overlap``,
     ``-d``/``--devices``) searches one at compile and ``--export FILE``
-    writes it; on one card a strategy changes no value."""
+    writes it; on one card a strategy changes no value.  Started as a
+    rank group (``python -m torch.distributed.run --nproc_per_node=N -m
+    dlrm_flexflow_tpu_torch.apps.dlrm ...``, or the JAX package's
+    ``COORDINATOR_ADDRESS`` / ``NUM_PROCESSES`` / ``PROCESS_ID``), each
+    rank joins the group and the model trains data-parallel over all of
+    them."""
+    import os
+    group = int(os.environ.get("NUM_PROCESSES",
+                               os.environ.get("WORLD_SIZE", "1"))) > 1
+    if group:
+        # one rank of a group (distributed.initialize's variables, or
+        # torchrun's): compile then builds the mesh over every rank
+        from ..distributed import initialize
+        initialize()
+    try:
+        return _train(argv)
+    finally:
+        if group:
+            import torch.distributed as dist
+            dist.destroy_process_group()
+
+
+def _train(argv: Sequence[str]) -> float:
+    """``run``'s body: build, compile, init, fit, optionally profile."""
     ffconfig = FFConfig.parse_args(argv)
     cfg = DLRMConfig.parse_args(argv)
     model = build_dlrm(cfg, ffconfig)

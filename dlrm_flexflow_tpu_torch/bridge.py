@@ -52,7 +52,10 @@ def _tensor(name, value) -> torch.Tensor:
 
 
 def _array(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().cpu()
+    """A host copy; a tensor sharded over a mesh is gathered first (the
+    global value, on every rank: a collective)."""
+    from .parallel.spmd import global_param
+    t = global_param(t).detach().cpu()
     if t.dtype == torch.bfloat16:
         import ml_dtypes  # the JAX package's bf16 numpy dtype
         return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
@@ -63,7 +66,9 @@ def params_to_numpy(params: Mapping[str, Mapping[str, torch.Tensor]]
                     ) -> Dict[str, Dict[str, np.ndarray]]:
     """``{op: {param: tensor}}`` -> ``{op: {param: numpy array}}`` on the
     host, bf16 as ``ml_dtypes.bfloat16`` bit for bit: the reverse of
-    ``params_from_jax``."""
+    ``params_from_jax``.  A parameter sharded over a mesh is returned
+    whole (gathered); ``FFModel.load_params`` takes the global arrays of
+    ``params_from_jax`` and keeps each rank's blocks."""
     return {op_name: {pname: _array(v) for pname, v in p.items()}
             for op_name, p in params.items()}
 

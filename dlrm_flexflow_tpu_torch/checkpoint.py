@@ -24,7 +24,7 @@ that payload, ``checkpoint.py:501``; ROADMAP.md Queue C.)
 What the port does not have raises :class:`CheckpointError` naming the way
 out: an orbax checkpoint (re-save it with ``use_orbax=False``), the
 multi-host ``podshard`` format and a restore across mesh topologies
-(ROADMAP.md Queue A item 8).  The port has no mesh and no packed table
+(ROADMAP.md item 8, part 2).  The port has no mesh and no packed table
 storage, so its topology is ``{}`` and leaves pass through unreshaped.
 
 Transfers move whole tensors: ``.cpu()`` on save (which returns once the
@@ -45,9 +45,12 @@ import torch
 
 from .device import resolve_device
 from .model import TrainState
+# topologies are {axis: size} dicts; size-1 axes replicate, so they
+# compare equal to no mesh
+from .parallel.mesh import format_topology, mesh_topology, same_topology
 
 #: where the unported checkpoint paths are queued
-_ITEM8 = ("ROADMAP.md Queue A item 8 (scale-out: the multi-host save, the "
+_ITEM8 = ("ROADMAP.md item 8, part 2 (scale-out: the multi-host save, the "
           "pod shards and the reshard restore)")
 
 
@@ -87,38 +90,6 @@ def _unflatten(flat):
             d = d.setdefault(p, {})
         d[parts[-1]] = v
     return tree
-
-
-# ------------------------------------------------------------- topology ids
-#
-# Own copies of the JAX package's parallel/mesh.py:161-187.  Topologies
-# are {axis: size} dicts; size-1 axes replicate, so they compare equal to
-# no mesh.  The port trains on one device: its topology is {}.
-
-def mesh_topology(mesh=None) -> Dict[str, int]:
-    """``{axis_name: size}`` of a mesh; ``{}`` for none (one device)."""
-    if mesh is None:
-        return {}
-    return {str(n): int(s)
-            for n, s in zip(mesh.axis_names, mesh.devices.shape)}
-
-
-def _effective_topology(topo: Optional[Dict[str, int]]) -> Dict[str, int]:
-    return {k: int(v) for k, v in (topo or {}).items() if int(v) > 1}
-
-
-def same_topology(a: Optional[Dict[str, int]],
-                  b: Optional[Dict[str, int]]) -> bool:
-    """Whether two topology dicts execute the same partitioning."""
-    return _effective_topology(a) == _effective_topology(b)
-
-
-def format_topology(topo: Optional[Dict[str, int]]) -> str:
-    """``"data=2,model=4"``, or ``"single"`` when nothing is split."""
-    eff = _effective_topology(topo)
-    if not eff:
-        return "single"
-    return ",".join(f"{k}={v}" for k, v in sorted(eff.items()))
 
 
 # ----------------------------------------------------------- leaf transfer
@@ -189,6 +160,12 @@ def save_checkpoint(path: str, state: TrainState, step: Optional[int] = None,
     if multihost:
         raise NotImplementedError(
             f"the multi-host (podshard) checkpoint is not ported: {_ITEM8}")
+    if getattr(model, "_spmd", None) is not None or any(
+            hasattr(v, "_ff_layout") for d in state.params.values()
+            for v in d.values()):
+        raise NotImplementedError(
+            f"a checkpoint of a model across the ranks of a mesh is not "
+            f"ported: {_ITEM8}")
     if use_orbax:
         raise NotImplementedError(
             "the port writes npz checkpoints only (use_orbax=None or False)")
@@ -196,7 +173,7 @@ def save_checkpoint(path: str, state: TrainState, step: Optional[int] = None,
     meta = {"step": int(state.step) if step is None else step,
             "format": "npz"}
     if model is not None:
-        meta["mesh"] = mesh_topology(None)
+        meta["mesh"] = mesh_topology(getattr(model, "mesh", None))
     flat = _flat_state(state, _host_tables_of(model))
     np.savez(os.path.join(path, "state.npz"),
              **{k: _host(v) for k, v in flat.items() if v is not None})
@@ -271,7 +248,7 @@ def restore_checkpoint(path: str, model=None, inference_only: bool = False,
     # the topology guard runs on meta.json alone, before the payload
     if model is not None:
         saved_topo = meta.get("mesh")
-        want_topo = mesh_topology(None)
+        want_topo = mesh_topology(getattr(model, "mesh", None))
         if saved_topo is not None and not same_topology(saved_topo,
                                                         want_topo):
             raise CheckpointError(

@@ -19,10 +19,9 @@ logical ``(R, d)`` and has no packed view, segmented slots or region
 plans (the JAX ``(R/pack, 128)`` storage answers the TPU's lane tiling).
 
 Only ``epochs`` and ``batch_size`` are positional, in the JAX order.
-Every later field is keyword-only: the port lacks some of the JAX
-fields in between (``mesh_shape``, ``table_exchange``, which come with
-the scale-out slice), so a positional call written for the JAX class
-would bind its values to other fields here; it raises instead.
+Every later field is keyword-only: the port orders some of its fields
+differently from the JAX class, so a positional call written for the JAX
+class would bind its values to other fields here; it raises instead.
 """
 
 from __future__ import annotations
@@ -52,6 +51,10 @@ class FFConfig:
     # weight sync overlapped with backward, and the strategy files
     # imported at compile or exported after a search (.json or .pb)
     num_devices: Optional[int] = None
+    # the mesh compile builds on its own when the process group holds
+    # more than one rank and no mesh is given (parallel/mesh.py
+    # make_mesh; None: every rank on "data"), e.g. {"data": 4, "model": 2}
+    mesh_shape: Optional[dict] = None
     search_budget: int = 0
     search_alpha: float = 0.05
     search_overlap_backward_update: bool = False
@@ -117,6 +120,13 @@ class FFConfig:
     # Orthogonal to compute_dtype; the loss trajectory tracks the
     # f32-activation run within a tolerance, not bit for bit.
     activation_dtype: str = "float32"
+    # Manual table-parallel exchange for StackedEmbedding under a mesh
+    # ("off"|"allgather"|"all_to_all"): each model rank looks up its own
+    # tables and one explicit collective exchanges the pooled rows
+    # (parallel/table_exchange.py).  Dense-path only (the row-sparse path
+    # is off for an exchanged op).  "off": the table-sharded lookup
+    # gathers its output over "model" as the op's layout asks.
+    table_exchange: str = "off"
     # Asynchronous input prefetch for fit's per-batch loops
     # (data/prefetch.py): a worker thread slices and places the next
     # prefetch_depth batches on the device while the current step runs.

@@ -36,7 +36,19 @@ slot tables of a cached op are cached beside it, at the same slots.
 The caches are buffers the model keeps, so the one captured step serves
 every block, chunk and epoch of a shape: ``fit(epochs=2)`` of the run_random.sh CLI (64 staged
 batches) captures once.  The prologue, the block fetches and writebacks
-and the epilogue stay eager.  A mesh comes with the scale-out slice.
+and the epilogue stay eager.
+
+``compile(mesh=make_mesh(...))`` runs the model across the ranks of a
+mesh, one process per rank (``parallel/mesh.py`` states the execution
+model, ``parallel/spmd.py`` executes it): each op's ``parallel_config``
+sets its output's layout and its parameters' shards, every rank passes
+the global batch (or a ``distributed.GlobalArray`` of its rows) and keeps
+its rows, and a step's gradients are the global loss's.  Under a mesh of
+more than one rank no hand-written kernel runs and no step is captured
+(both later speed work, ROADMAP item 1), the epoch row cache is off, and
+``train_epoch(s)`` and ``fit``'s staged branch step batch by batch.  A
+mesh whose axes are all of size 1 runs exactly the program of no mesh,
+kernels and capture included.
 
 A model with host-placed tables (the hetero strategy: ``compile``'s
 ``"cpu"`` placements, ``ops/hetero.py``) runs every step eagerly, since
@@ -103,20 +115,24 @@ from .metrics import MetricsAccumulator, compute_metrics
 from .ops import (LSTM, BatchMatmul, BatchNorm, Concat, Conv2D, Dropout,
                   ElementBinary, ElementUnary, Embedding, Flat,
                   FusedEmbedInteract, Linear, MixtureOfExperts,
-                  MultiHeadAttention, Op, Pool2D, RaggedStackedEmbedding,
+                  MultiHeadAttention, Op, OverlappedEmbedBottom, Pool2D,
+                  RaggedStackedEmbedding,
                   Reshape, Reverse, Softmax, Split, StackedEmbedding,
                   Transpose)
 from .ops.embedding import lane_pack, take_rows
 from .ops.hetero import apply_host_sgd
 from .ops.quantized import QUANT_MODES
-from .ops.row_update_kernel import row_update_cuda
+from .ops.row_update_kernel import row_update_cuda, row_update_ref
 from .ops.slotting import slot_rows
 from .ops.softmax import fold_in
 from .data.prefetch import BatchPlacer, PrefetchLoader
 from .optim import Optimizer, SGDOptimizer
+from .parallel.mesh import (MODEL_AXIS, Mesh, effective_config, entry_axes,
+                            make_mesh, param_pspec, sharding)
 from .parallel.parallel_config import Strategy
 from .telemetry import active_log, sample_memory
 from .telemetry import metrics as _tmetrics
+from .telemetry import fleet as _fleet
 from .telemetry import rowfreq as _rowfreq
 from .telemetry.torch_hooks import record_compile
 from .telemetry.trace import NULL_SPAN, start_span
@@ -162,7 +178,12 @@ class TrainState:
         def copy(x):
             if isinstance(x, dict):
                 return {k: copy(v) for k, v in x.items()}
-            return x.clone() if isinstance(x, torch.Tensor) else x
+            if not isinstance(x, torch.Tensor):
+                return x
+            y = x.clone()
+            if hasattr(x, "_ff_layout"):  # a mesh block (parallel/spmd.py)
+                y._ff_layout = x._ff_layout
+            return y
         return TrainState(copy(self.params), copy(self.opt_state),
                           copy(self.bn_state), copy(self.rng),
                           copy(self.step))
@@ -198,6 +219,14 @@ class FFModel:
         self._forward_fn = None
         # the device of the last init/load_params
         self.device: Optional[torch.device] = None
+        # the mesh (compile), and the executor of a mesh of more than one
+        # rank (parallel/spmd.py), None on one device
+        self.mesh: Optional[Mesh] = None
+        self._spmd = None
+        # kernels allowed (compile clears it under a mesh of more than one
+        # rank) and the row update that follows from it
+        self._allow_kernel = True
+        self._row_update = row_update_cuda
         # set by compile()
         self.optimizer: Optional[Optimizer] = None
         self.loss_type: Optional[str] = None
@@ -319,6 +348,26 @@ class FFModel:
             kernel_initializer, table_dtype=self._table_dtype(table_dtype),
             compute_dtype=self._op_compute_dtype())
         return self._add(op)
+
+    def overlapped_embed_bottom(self, ids_tensor, dense_tensor, num_tables,
+                                num_entries, out_dim, mlp_bot,
+                                sigmoid_bot=-1, aggr="sum", overlap="auto",
+                                microbatches=2, kernel_initializer=None,
+                                name=None, table_dtype=None):
+        """Stacked embedding and bottom-MLP dense stack as ONE node
+        (``ops/overlap_embed.py``): under a manual table exchange
+        (``FFConfig.table_exchange`` and a "model" mesh axis) the forward
+        runs the microbatched pipeline of ``parallel/overlap.py``, each
+        microbatch's exchange beside its dense slice.  Returns ``(emb,
+        bottom)`` tensors."""
+        op = OverlappedEmbedBottom(
+            self._name("overlapped_embed_bottom", name), ids_tensor,
+            dense_tensor, num_tables, num_entries, out_dim, mlp_bot,
+            sigmoid_bot, aggr, overlap, microbatches, kernel_initializer,
+            table_dtype=self._table_dtype(table_dtype),
+            compute_dtype=self._op_compute_dtype())
+        self.layers.append(op)
+        return op.outputs
 
     def concat(self, tensors, axis, name=None):
         return self._add(Concat(self._name("concat", name), tensors, axis))
@@ -502,7 +551,12 @@ class FFModel:
         step's key (``fold_in(state.rng, step)``): the dropout op at
         position ``i`` draws from ``fold_in(rng, i)``.  A stateful op
         (batch norm) reads its entry of ``bn_state``.  Returns the values
-        by tensor uid and the stateful ops' new state."""
+        by tensor uid and the stateful ops' new state.  Under a mesh of
+        more than one rank the values are the rank's blocks, each in the
+        plan's layout (``parallel/spmd.py``)."""
+        if self._spmd is not None:
+            return self._spmd.apply(params, input_values, training=training,
+                                    rng=rng, bn_state=bn_state)
         values: Dict[int, torch.Tensor] = {}
         for t in self._inputs:
             if t.name in input_values:
@@ -530,9 +584,19 @@ class FFModel:
                 donate_state: bool = True):
         """Fix the optimizer (default: SGD at the config's learning rate
         and weight decay), the loss and the metrics; choose the row-sparse
-        embedding ops; build the forward.  ``mesh`` may be None or False
-        (one device); a mesh comes with the scale-out slice in
-        ROADMAP.md.
+        embedding ops; build the forward.
+
+        ``mesh`` (JAX ``model.py:504-578``): False means no mesh; a
+        :class:`~.parallel.mesh.Mesh` is used as given; None keeps the
+        model's mesh, or, with none and a process group of more than one
+        rank, builds ``make_mesh(config.mesh_shape)``.  Every op gets
+        ``_mesh``.  ``FFConfig.table_exchange`` ("off" | "allgather" |
+        "all_to_all") sets each ``StackedEmbedding``'s ``exchange_mode``
+        where the mesh's "model" axis has more than one rank and divides
+        its tables, else warns (``RuntimeWarning``) and leaves it off.  A
+        strategy whose configs a named-axis mesh cannot execute exactly
+        (a device list other than ``range(n)``, a degree other than the
+        axis size) warns once with the ops it narrows.
 
         ``strategy`` (a :class:`Strategy`) becomes ``self.strategy``; as
         in the JAX package, ``FFConfig.import_strategy_file`` replaces it,
@@ -551,11 +615,11 @@ class FFModel:
         state: ``train_step`` then steps a clone whatever its ``donate``,
         and ``train_epoch(s)`` and ``fit`` train a clone of their input
         state, taken once at entry."""
-        if mesh not in (None, False):
-            raise NotImplementedError(
-                "a device mesh is not ported yet: it comes with the "
-                "scale-out slice in ROADMAP.md")
+        if mesh not in (None, False) and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh must be a parallel.mesh.Mesh (make_mesh),"
+                            f" None or False, got {type(mesh).__name__}")
         self._resolve_strategy(strategy)
+        self._resolve_mesh(mesh)
         act_dtype = getattr(self.config, "activation_dtype", "float32")
         if act_dtype not in ("float32", "bfloat16"):
             raise ValueError(
@@ -621,14 +685,45 @@ class FFModel:
         # the bag-kernel ops (use_pallas) keep the dense gradient and
         # host-placed ops their host update, as the JAX package's
         # _device_table_op leaves both out
+        # and, as there, the manual exchange and an op whose params carry
+        # more than its table; under a mesh a table sharded over "model"
+        # keeps the row-sparse path only as stacked tables (whole tables
+        # per rank)
+        shards = self._param_shardings() if self._spmd_mesh() else {}
+
+        def sparse_eligible(op):
+            spec = shards.get(op.name, {}).get("embedding")
+            return (spec is None or isinstance(op, StackedEmbedding)
+                    or not any(self.mesh.axes_key(entry_axes(e))
+                               for e in spec.spec))
+
         self._sparse_ops = [op for op in self.layers
                             if sparse_ok and isinstance(op, EMBEDDING_OPS)
                             and not getattr(op, "use_pallas", False)
                             and getattr(op, "placement", "tpu") != "cpu"
+                            and not getattr(op, "exchange_mode", None)
+                            and getattr(op, "sparse_path_ok", True)
+                            and sparse_eligible(op)
                             and op.inputs[0].uid in input_uids]
+        self._spmd = None
+        if self._spmd_mesh():
+            from .parallel.spmd import SpmdPlan
+            if self._hetero_ops:
+                raise NotImplementedError(
+                    "host-placed tables (the hetero strategy) under a mesh "
+                    "of more than one rank are not ported (ROADMAP.md "
+                    "item 8, part 2)")
+            self._spmd = SpmdPlan(self, self.mesh)
 
         def forward(params, inputs, bn_state=None):
             with torch.inference_mode():
+                if self._spmd is not None:
+                    from .parallel.spmd import forward_values
+                    values, _ = forward_values(self, params, inputs,
+                                               bn_state or {})
+                    out = self._spmd.global_output(values[final_uid],
+                                                   self.final_tensor)
+                    return out.to(final_dtype)
                 values, _ = self._apply(params, inputs,
                                         bn_state=bn_state or {})
                 return values[final_uid].to(final_dtype)
@@ -641,6 +736,129 @@ class FFModel:
         self._step_seen.clear()
         self._drop_pool_if_empty()
         return self
+
+    def _spmd_mesh(self) -> bool:
+        """Whether the model runs across more than one rank."""
+        return self.mesh is not None and not self.mesh.trivial
+
+    def _resolve_mesh(self, mesh) -> None:
+        """``compile``'s mesh, each op's ``_mesh`` and ``exchange_mode``,
+        and the narrowing warning (JAX ``model.py:504-578``)."""
+        import warnings
+
+        import torch.distributed as dist
+        if mesh is False:  # explicit single-device request
+            self.mesh = None
+        elif mesh is not None:
+            self.mesh = mesh
+        elif (self.mesh is None and dist.is_available()
+              and dist.is_initialized() and dist.get_world_size() > 1):
+            self.mesh = make_mesh(self.config.mesh_shape)
+        # the one decision on kernels: none under a mesh of more than one
+        # rank (JAX allow_kernel=mesh is None; a mesh of size-1 axes is
+        # the no-mesh program), read by each op and by the row updates
+        self._allow_kernel = not self._spmd_mesh()
+        self._row_update = (row_update_cuda if self._allow_kernel
+                            else row_update_ref)
+        for op in self.layers:
+            op._mesh = self.mesh
+            op._allow_kernel = self._allow_kernel
+        xmode = getattr(self.config, "table_exchange", "off")
+        if xmode not in ("off", "allgather", "all_to_all"):
+            raise ValueError(
+                f"table_exchange must be 'off'|'allgather'|'all_to_all', "
+                f"got {xmode!r}")
+        for op in self.layers:
+            if not isinstance(op, StackedEmbedding):
+                continue
+            engage = xmode != "off"
+            if engage:
+                # only where the exchange can run: else the op would lose
+                # the row-sparse path and take the plain lookup
+                mp = (self.mesh.shape.get("model", 1)
+                      if self.mesh is not None else 1)
+                if mp <= 1 or op.num_tables % mp != 0:
+                    warnings.warn(
+                        f"table_exchange={xmode!r} requested but "
+                        f"{op.name} cannot engage it (model axis {mp}, "
+                        f"{op.num_tables} tables); using the automatic "
+                        "SPMD path instead", RuntimeWarning)
+                    engage = False
+            op.exchange_mode = xmode if engage else None
+        if self.mesh is None:
+            return
+        narrowed = []
+        for op in self.layers:
+            pc = op.parallel_config
+            if (pc is None or getattr(op, "exchange_mode", None)
+                    or hasattr(op, "output_pspec")
+                    or pc.device_type == "cpu" or pc.device_ids is None):
+                continue
+            eff, exact = effective_config(pc, op.outputs[0].ndim, self.mesh)
+            if not exact:
+                narrowed.append((op.name, tuple(pc.dims), pc.device_ids,
+                                 eff))
+        if narrowed:
+            head = ", ".join(
+                f"{n}: dims {d} devices {i} -> executes as "
+                f"axis-sharded {e}" for n, d, i, e in narrowed[:5])
+            warnings.warn(
+                f"{len(narrowed)} op(s) have ParallelConfigs not "
+                f"expressible as mesh-axis sharding; executing the "
+                f"nearest axis-sharded approximation ({head}"
+                f"{', ...' if len(narrowed) > 5 else ''}). Explicit "
+                f"per-device placement (reference mapper.cc:62-95) "
+                f"is narrowed to named-axis sharding on TPU.",
+                stacklevel=3)
+
+    def _param_shardings(self):
+        """Per-parameter ``NamedSharding`` from each op's strategy:
+        replicated for data parallelism, sharded over "model" on the
+        spec's ``sharded_dim`` where the op is tensor-parallel (JAX
+        ``model.py:1971-2012``)."""
+        assert self.mesh is not None
+        shardings = {}
+        for op in self.layers:
+            specs = op.param_specs()
+            if not specs:
+                continue
+            pc = op.parallel_config
+            tp = pc is not None and any(d > 1 for d in pc.dims[1:])
+            if tp:
+                msize = self.mesh.shape.get(MODEL_AXIS, 1)
+                for s in specs:
+                    if s.sharded_dim is not None and msize > 1 \
+                            and s.shape[s.sharded_dim] % msize != 0:
+                        raise ValueError(
+                            f"{op.name}: parameter dim {s.sharded_dim} "
+                            f"({s.shape[s.sharded_dim]}) does not divide "
+                            f"the {msize}-way '{MODEL_AXIS}' mesh axis")
+            shardings[op.name] = {
+                s.param_name: sharding(self.mesh, param_pspec(
+                    s.sharded_dim, len(s.shape), self.mesh, tp))
+                for s in specs}
+        return shardings
+
+    def _shard_params(self, params):
+        """The rank's blocks of global ``{op: {param: tensor}}`` under the
+        plan's parameter layouts; a sharded block remembers its layout
+        (``_ff_layout``), which ``get_weights`` and
+        ``bridge.params_to_numpy`` gather by."""
+        from .parallel.collectives import local_block
+        plan = self._spmd
+        out = {}
+        for op_name, d in params.items():
+            out[op_name] = {}
+            for k, v in d.items():
+                spec = plan.params.get(op_name, {}).get(k)
+                if spec is None or not any(plan.mesh.axes_key(
+                        entry_axes(e)) for e in spec):
+                    out[op_name][k] = v
+                    continue
+                blk = local_block(v, spec, plan.mesh)
+                blk._ff_layout = (plan.mesh, spec)
+                out[op_name][k] = blk
+        return out
 
     def _rewrite_activation_dtype(self, act_dtype: str, final_uid: int
                                   ) -> None:
@@ -719,7 +937,8 @@ class FFModel:
              ) -> TrainState:
         """Draw every op's parameters on ``device`` (default: the CUDA
         card; raises without one) from generators seeded by ``seed`` and
-        the op's position, and the optimizer's initial state."""
+        the op's position, and the optimizer's initial state.  Under a
+        mesh every rank draws the global values and keeps its blocks."""
         dev = resolve_device(device)
         seed = self.config.seed if seed is None else seed
         params: Dict[str, Dict[str, torch.Tensor]] = {}
@@ -729,6 +948,8 @@ class FFModel:
             gen = torch.Generator(device=dev).manual_seed(
                 derive_seed(seed, i, op.name))
             params[op.name] = op.init_params(gen)
+        if self._spmd is not None:
+            params = self._shard_params(params)
         self.device = dev
         return self._state(params, None, dev, seed)
 
@@ -739,8 +960,22 @@ class FFModel:
         if opt_state is None:
             opt_state = (self.optimizer.init(params)
                          if self.optimizer is not None else {})
+            # a slot table of a sharded parameter is that block's: it
+            # carries the layout the gathers read (bridge.state_to_numpy)
+            for slots in opt_state.values():
+                if not isinstance(slots, dict):
+                    continue
+                for op_name, d in slots.items():
+                    for k, t in d.items():
+                        src = params.get(op_name, {}).get(k)
+                        if hasattr(src, "_ff_layout"):
+                            t._ff_layout = src._ff_layout
         else:
             opt_state = self._place_opt_state(opt_state, dev)
+            if self._spmd is not None:
+                # the slot tables mirror their parameters' blocks
+                opt_state = {k: (self._shard_params(v) if isinstance(v, dict)
+                                 else v) for k, v in opt_state.items()}
         bn_state = {op.name: op.init_state(device=dev) for op in self.layers
                     if getattr(op, "has_state", False)}
         return TrainState(params, opt_state, bn_state,
@@ -803,6 +1038,8 @@ class FFModel:
                         f"{op_name}/{pname}: got {tuple(v.shape)} {v.dtype}, "
                         f"expected {spec.shape} {spec.dtype}")
                 out[op_name][pname] = v.to(dev, copy=True).contiguous()
+        if self._spmd is not None:
+            out = self._shard_params(out)
         self.device = dev
         return self._state(out, opt_state, dev, self.config.seed)
 
@@ -810,8 +1047,10 @@ class FFModel:
                     ) -> np.ndarray:
         """A host copy of one parameter: a later in-place step (a
         donated ``train_step``) leaves it as it was, as the JAX package's
-        array is."""
-        return state.params[op_name][param_name].detach().to(
+        array is.  A parameter sharded over a mesh is gathered: the
+        global value, on every rank."""
+        from .parallel.spmd import global_param
+        return global_param(state.params[op_name][param_name]).detach().to(
             "cpu", copy=True).numpy()
 
     def set_weights(self, state: TrainState, op_name: str, param_name: str,
@@ -824,44 +1063,83 @@ class FFModel:
         tgt = state.params[op_name][param_name]
         src = (value.detach() if isinstance(value, torch.Tensor)
                else torch.as_tensor(np.asarray(value)))
+        layout = getattr(tgt, "_ff_layout", None)
+        if layout is not None:  # a global value onto a mesh block
+            from .parallel.collectives import local_block
+            src = local_block(src.to(tgt.device), layout[1], layout[0])
         arr = torch.empty_like(tgt).copy_(src.reshape(tgt.shape))
+        if layout is not None:
+            arr._ff_layout = layout
         params = dict(state.params)
         params[op_name] = {**params[op_name], param_name: arr}
         return TrainState(params, state.opt_state, state.bn_state, state.rng,
                           state.step)
 
     # ------------------------------------------------------------- inference
-    def _place_inputs(self, inputs, device) -> Dict[str, torch.Tensor]:
+    def _place_inputs(self, inputs, device, shard: bool = True
+                      ) -> Dict[str, torch.Tensor]:
         """Every model input as a tensor of its dtype on ``device``, but
         the ids that feed host-placed ops only (``_host_inputs``), which
-        stay in host memory: the host lookup reads them there."""
+        stay in host memory: the host lookup reads them there.  Under a
+        mesh of more than one rank (and ``shard``) each input is the
+        rank's block of the global batch (``SpmdPlan.place``)."""
+        from .distributed import GlobalArray
         placed = {}
         for t in self._inputs:
             if t.name not in inputs:
                 raise ValueError(f"inputs missing {t.name!r} (model inputs: "
                                  f"{[i.name for i in self._inputs]})")
             v = inputs[t.name]
+            if isinstance(v, GlobalArray):
+                loc = v.local.to(device=device, dtype=t.dtype)
+                placed[t.name] = (loc if self._spmd is None else
+                                  self._spmd.place(t, GlobalArray(
+                                      loc, v.shape, v.spec, v.mesh)))
+                continue
             if not isinstance(v, torch.Tensor):
                 v = torch.from_numpy(np.asarray(v, dtype=numpy_dtype(t.dtype)))
             dev = "cpu" if t.name in self._host_inputs else device
+            if self._spmd is not None and shard:
+                v = self._spmd.place(t, v)
             placed[t.name] = v.to(device=dev, dtype=t.dtype)
         return placed
 
-    def _place_labels(self, labels, device) -> torch.Tensor:
+    def _place_labels(self, labels, device, shard: bool = True
+                      ) -> torch.Tensor:
+        from .distributed import GlobalArray
+        dtype = (torch.int64 if "sparse" in (self.loss_type or "")
+                 else self.final_tensor.dtype)
+        if isinstance(labels, GlobalArray):
+            loc = labels.local.to(device=device, dtype=dtype)
+            if self._spmd is None:
+                return loc
+            return self._spmd.labels_for(GlobalArray(
+                loc, labels.shape, labels.spec, labels.mesh),
+                self.final_tensor)
         if not isinstance(labels, torch.Tensor):
             labels = torch.from_numpy(np.asarray(labels))
-        if "sparse" in (self.loss_type or ""):
-            return labels.to(device=device, dtype=torch.int64)
-        return labels.to(device=device, dtype=self.final_tensor.dtype)
+        if self._spmd is not None and shard:
+            labels = self._spmd.labels_for(labels, self.final_tensor)
+        return labels.to(device=device, dtype=dtype)
 
-    def shard_batch(self, arr) -> torch.Tensor:
-        """One array of a batch as a tensor on the model's device (the JAX
-        package's ``shard_batch``; the port has no mesh to shard over):
-        the ``place_fn`` a caller may hand a ``PrefetchLoader``."""
+    def shard_batch(self, arr):
+        """One array of a batch on the model's device (the JAX package's
+        ``shard_batch``): the ``place_fn`` a caller may hand a
+        ``PrefetchLoader``.  Under a mesh of more than one rank it is the
+        rank's data-axis block, as a ``distributed.GlobalArray``."""
         dev = self.device if self.device is not None else resolve_device()
         if not isinstance(arr, torch.Tensor):
             arr = torch.from_numpy(np.asarray(arr))
-        return arr.to(dev)
+        if self._spmd is None or arr.dim() == 0:
+            return arr.to(dev)
+        from .distributed import GlobalArray
+        from .parallel.collectives import local_block
+        from .parallel.spmd import _spec
+        plan = self._spmd
+        plan.check_batch(arr.shape[0])
+        spec = _spec(plan.data_axes, arr.dim())
+        return GlobalArray(local_block(arr, spec, plan.mesh).to(dev),
+                           tuple(arr.shape), spec, plan.mesh)
 
     def batch_placer(self) -> BatchPlacer:
         """The placement ``fit`` gives its own ``PrefetchLoader``: a whole
@@ -964,10 +1242,14 @@ class FFModel:
                    state.rng if self.has_stochastic else None)
         # a host round trip cannot be captured: a model with host tables
         # steps eagerly, and its tables take the host SGD step after it
-        # (JAX model.py:2075-2085)
-        packed = (self._step(batch, carried)
-                  if donate and not self._hetero_ops
-                  else self._step_body(batch, carried))
+        # (JAX model.py:2075-2085); a step across ranks runs eagerly too
+        if self._spmd is not None:
+            from .parallel.spmd import step_body
+            packed = step_body(self, batch, carried)
+        elif donate and not self._hetero_ops:
+            packed = self._step(batch, carried)
+        else:
+            packed = self._step_body(batch, carried)
         if self._hetero_ops:
             lr = getattr(self.optimizer, "lr", 0.01)
             for op in self._hetero_ops:
@@ -1103,7 +1385,7 @@ class FFModel:
                     op.scatter_apply(table, inputs[op.inputs[0].name], g,
                                      neg_lr)
                 else:
-                    row_update_cuda(table, slots, g, neg_lr)
+                    self._row_update(table, slots, g, neg_lr)
             mets = compute_metrics(preds.detach(), labels, self.metrics,
                                    self.loss_type)
             mets["loss"] = loss.detach()
@@ -1127,14 +1409,15 @@ class FFModel:
         occurrence, so one add reaches each row.  The ORDER is a
         correctness contract: the slot tables are updated first and the
         weight delta is computed from slot rows gathered again from them
-        (``optim.SGDOptimizer.lazy_weight_delta``)."""
+        (``optim.SGDOptimizer.lazy_weight_delta``).  The row update is
+        ``compile``'s (the plain ``row_update_ref`` under a mesh)."""
         d = op.out_dim
         space = table.view(-1, d)
         sl = ids.reshape(-1)
         n = sl.numel()
         dev = space.device
         occ = slot_rows(sl, space.shape[0])[1].reshape(-1).long()
-        g_row = row_update_cuda(
+        g_row = self._row_update(
             torch.zeros((n, d), dtype=torch.float32, device=dev), occ,
             g_rows.reshape(-1, d).float(), 1.0)[occ]
         # each run's first occurrence: the least position of its rank
@@ -1147,11 +1430,11 @@ class FFModel:
         w = w_rows.reshape(-1, d).float()
         new = self.optimizer.lazy_slot_rows(w, g_row, cur, pre)
         for sn, t in tabs.items():
-            row_update_cuda(t, sl, torch.where(first, new[sn] - cur[sn], 0.0),
-                            1.0)
+            self._row_update(t, sl, torch.where(first, new[sn] - cur[sn],
+                                                0.0), 1.0)
         fresh = {sn: take_rows(t, sl) for sn, t in tabs.items()}
         delta = self.optimizer.lazy_weight_delta(w, g_row, fresh, pre)
-        row_update_cuda(space, sl, torch.where(first, delta, 0.0), 1.0)
+        self._row_update(space, sl, torch.where(first, delta, 0.0), 1.0)
 
     def _unpack_metrics(self, packed) -> Dict[str, torch.Tensor]:
         """The metrics dict of a packed step result: views of ``packed``
@@ -1166,11 +1449,19 @@ class FFModel:
         inputs = self._place_inputs(inputs, dev)
         labels = self._place_labels(labels, dev)
         with torch.no_grad():
-            values, _ = self._apply(state.params, inputs,
-                                    bn_state=state.bn_state)
+            if self._spmd is not None:
+                from .parallel.spmd import forward_values, reduce_metrics
+                values, _ = forward_values(self, state.params, inputs,
+                                           state.bn_state)
+            else:
+                values, _ = self._apply(state.params, inputs,
+                                        bn_state=state.bn_state)
             loss, preds = self._loss_and_preds(values, labels)
             mets = compute_metrics(preds, labels, self.metrics,
                                    self.loss_type)
+            if self._spmd is not None:
+                return reduce_metrics(self._spmd, self.final_tensor, mets,
+                                      loss, self.loss_type)
             mets["loss"] = loss
         return mets
 
@@ -1182,6 +1473,7 @@ class FFModel:
         why)."""
         self._epoch_cache_active = (
             bool(self._sparse_ops) and not self._hetero_ops
+            and self._spmd is None
             and self.config.epoch_row_cache == "on")
 
     def cache_prologue(self, state: TrainState, inputs):
@@ -1370,12 +1662,15 @@ class FFModel:
     def place_dataset(self, inputs, labels, *, device=None):
         """Place a stacked ``(num_batches, batch, ...)`` dataset on
         ``device`` once (default: the model's device, ``model.device``,
-        or the card when the model was never placed)."""
+        or the card when the model was never placed).  Under a mesh of
+        more than one rank the global batches are kept whole, and each
+        step keeps the rank's rows of its batch."""
         if device is None:
             device = self.device
         device = resolve_device(device)
-        return (self._place_inputs(inputs, device),
-                self._place_labels(labels, device))
+        shard = self._spmd is None
+        return (self._place_inputs(inputs, device, shard=shard),
+                self._place_labels(labels, device, shard=shard))
 
     def train_epoch(self, state: TrainState, inputs, labels):
         """``train_step`` over the leading ``(num_batches, batch, ...)``
@@ -1847,10 +2142,16 @@ class FFModel:
             # the per-batch loop runs ahead of the card, so the final
             # synchronise's wall is the device work the host did not hide
             exposed = 100.0 * fence_s / max(elapsed, 1e-9)
+            # beside the cost model's price of the grad all-reduce (None
+            # on one rank, and then no field)
+            pred = _fleet.predicted_sync_ms(
+                getattr(self._fit_state, "params", None))
             log.emit("phase_time", step=pstep, phase="fit", steps=pstep,
                      step_wall_ms=elapsed * 1e3, data_wait_ms=stall_s * 1e3,
                      dispatch_ms=dispatch_s * 1e3,
                      sync_wait_ms=fence_s * 1e3, exposed_comm_pct=exposed,
+                     predicted_sync_ms=(None if pred is None
+                                        else pred * max(pstep, 1)),
                      samples=int(samples))
             _tmetrics.EXPOSED_COMM_PCT.set(exposed)
         _rowfreq.emit_all(log)

@@ -12,10 +12,11 @@ from .softmax import Dropout, Softmax
 from .attention import MultiHeadAttention, sdpa
 from .rnn import LSTM
 from .moe import MixtureOfExperts
+from .overlap_embed import OverlappedEmbedBottom
 
 __all__ = ["Op", "activation_fn", "matmul", "Linear", "Embedding",
            "StackedEmbedding", "RaggedStackedEmbedding", "FusedEmbedInteract",
            "ElementBinary", "ElementUnary", "BatchMatmul", "Concat", "Flat",
            "Reshape", "Reverse", "Split", "Transpose", "BatchNorm", "Conv2D",
            "Pool2D", "Dropout", "Softmax", "MultiHeadAttention", "sdpa",
-           "LSTM", "MixtureOfExperts"]
+           "LSTM", "MixtureOfExperts", "OverlappedEmbedBottom"]

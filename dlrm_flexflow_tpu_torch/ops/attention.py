@@ -6,8 +6,14 @@ logits product, an f32 softmax and the value product, each product
 ``ops/base.py::matmul``'s (f64 accumulation, one rounding to f32).  No
 Pallas kernel stands behind it in the JAX package, and
 ``F.scaled_dot_product_attention``'s fused paths would sum in another
-order.  The sequence-parallel (ring) form needs a device mesh, which
-comes with the scale-out slice.
+order.
+
+``seq_parallel=True`` runs the core as ring attention
+(``parallel/ring_attention.py``) when the model is compiled under a mesh
+with a ``"seq"`` axis of more than one rank: the executor
+(``parallel/spmd.py``) hands the forward each rank's sequence block of
+q, k and v, and the K/V blocks travel around the ranks of ``"seq"``.
+Without such a mesh the op computes plain ``sdpa``, as the JAX op does.
 """
 
 from __future__ import annotations
@@ -49,11 +55,6 @@ class MultiHeadAttention(Op):
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} is not a multiple of "
                              f"num_heads {num_heads}")
-        if seq_parallel:
-            raise NotImplementedError(
-                f"{name}: seq_parallel=True (ring attention over a device "
-                "mesh's sequence axis) comes with the scale-out slice, "
-                "ROADMAP.md item 8")
         self.embed_dim = int(embed_dim)
         self.num_heads = int(num_heads)
         self.head_dim = embed_dim // num_heads
@@ -71,10 +72,14 @@ class MultiHeadAttention(Op):
         vdim = self.inputs[2].shape[-1]
         init = self.kernel_initializer
         return [
-            ParameterSpec(self.name, "wq", (qdim, e), initializer=init),
-            ParameterSpec(self.name, "wk", (kdim, e), initializer=init),
-            ParameterSpec(self.name, "wv", (vdim, e), initializer=init),
-            ParameterSpec(self.name, "wo", (e, e), initializer=init),
+            ParameterSpec(self.name, "wq", (qdim, e), initializer=init,
+                          sharded_dim=1),
+            ParameterSpec(self.name, "wk", (kdim, e), initializer=init,
+                          sharded_dim=1),
+            ParameterSpec(self.name, "wv", (vdim, e), initializer=init,
+                          sharded_dim=1),
+            ParameterSpec(self.name, "wo", (e, e), initializer=init,
+                          sharded_dim=0),
         ]
 
     def forward(self, params, xs, *, training=False, rng=None):
@@ -91,7 +96,14 @@ class MultiHeadAttention(Op):
         q = heads(q_in, params["wq"])
         k = heads(k_in, params["wk"])
         v = heads(v_in, params["wv"])
-        o = sdpa(q, k, v, causal=self.causal)  # (b, h, s, d)
+        mesh = self._mesh
+        if (self.seq_parallel and mesh is not None
+                and mesh.shape.get("seq", 1) > 1):
+            from ..parallel.ring_attention import ring_attention
+            o = ring_attention(q, k, v, "seq", causal=self.causal,
+                               mesh=mesh)
+        else:
+            o = sdpa(q, k, v, causal=self.causal)  # (b, h, s, d)
         o = o.permute(0, 2, 1, 3).reshape(b, s, self.embed_dim)
         return [matmul(o, params["wo"], cd).to(self.outputs[0].dtype)]
 

@@ -60,6 +60,13 @@ class Op:
     tensor stored under ``self.name`` in the model's params."""
 
     op_type: str = "op"
+    # the mesh the model was compiled with (compile sets it; None: one
+    # device), read by the ops with manual collectives
+    _mesh = None
+    # whether the op may launch its hand-written kernels: compile clears
+    # it under a mesh of more than one rank, as the JAX package compiles
+    # with allow_kernel=mesh is None
+    _allow_kernel = True
 
     def __init__(self, name: str, inputs: Sequence[Tensor]):
         self.name = name

@@ -26,6 +26,14 @@ The max-pool backward routes a tied window's gradient to one element
 JAX op's default.  ``F.max_pool2d`` and ``F.avg_pool2d`` refuse a pad
 above half the kernel, which ``reduce_window`` takes; such a pool pads
 explicitly (-inf for max, 0 for avg) and pools unpadded.
+
+Under a mesh, an attribute (H/W) partition of a convolution or a pool
+runs as the mesh executor's generic op (``parallel/spmd.py``): the
+kernel gathered over "model", whole images of the rank's batch shard,
+then the rank's tile of the output kept; JAX's values.  A halo exchange,
+which would compute only the tile, is later speed work (ROADMAP item
+1).  Batch norm under a mesh computes its statistics over the whole
+batch, as the one-device op does.
 """
 
 from __future__ import annotations
@@ -116,11 +124,13 @@ class Conv2D(Op):
         specs = [ParameterSpec(self.name, "kernel",
                                (kh, kw, self.in_channels // self.groups,
                                 self.out_channels),
-                               initializer=self.kernel_initializer)]
+                               initializer=self.kernel_initializer,
+                               sharded_dim=3)]
         if self.use_bias:
             specs.append(ParameterSpec(self.name, "bias",
                                        (self.out_channels,),
-                                       initializer=self.bias_initializer))
+                                       initializer=self.bias_initializer,
+                                       sharded_dim=0))
         return specs
 
     def forward(self, params, xs, *, training=False, rng=None):

@@ -190,7 +190,8 @@ class Embedding(Op):
         return [ParameterSpec(self.name, "embedding",
                               (self.num_entries, self.out_dim),
                               dtype=self.table_dtype,
-                              initializer=self.kernel_initializer)]
+                              initializer=self.kernel_initializer,
+                              sharded_dim=1)]
 
     def init_params(self, generator):
         """The params (``Op.init_params``); a host-placed op also draws
@@ -235,7 +236,8 @@ class Embedding(Op):
             # quantization scale; 2-D ids; sum or avg; B % 8 == 0, the
             # TPU's sublane tile)
             if (self.use_pallas and qscale is None and idx.dim() == 2
-                    and self.aggr in ("sum", "avg") and idx.shape[0] % 8 == 0):
+                    and self.aggr in ("sum", "avg") and idx.shape[0] % 8 == 0
+                    and self._allow_kernel):
                 out = EmbeddingBagFn.apply(params["embedding"], idx,
                                            self.aggr)
                 return [out.to(self.outputs[0].dtype)]
@@ -263,7 +265,13 @@ class Embedding(Op):
 
 class StackedEmbedding(Op):
     """T same-shape tables as one ``(T, rows, dim)`` weight.  Input
-    ``(batch, T, bag)`` ids, output ``(batch, T, dim)``."""
+    ``(batch, T, bag)`` ids, output ``(batch, T, dim)``.
+
+    ``exchange_mode`` (set by ``compile`` from ``FFConfig.table_exchange``
+    under a mesh with a ``"model"`` axis the tables divide) routes the
+    lookup through the manual exchange (``parallel/table_exchange.py``):
+    the params then hold the rank's T/mp tables and the ids its data
+    shard, and the forward returns the rank's block of the output."""
 
     op_type = "StackedEmbedding"
 
@@ -280,6 +288,8 @@ class StackedEmbedding(Op):
         self.table_dtype = check_table_dtype(name, table_dtype)
         self.kernel_initializer = (kernel_initializer
                                    or UniformInitializer(-0.05, 0.05))
+        # the manual exchange's mode (compile sets it), None: none
+        self.exchange_mode = None
         if input_tensor.shape[1] != num_tables:
             raise ValueError(f"expected (batch, {num_tables}, bag) ids, "
                              f"got {input_tensor.shape}")
@@ -291,10 +301,12 @@ class StackedEmbedding(Op):
                               (self.num_tables, self.num_entries,
                                self.out_dim),
                               dtype=self.table_dtype,
-                              initializer=self.kernel_initializer)]
+                              initializer=self.kernel_initializer,
+                              sharded_dim=0)]
 
     def _offsets(self, idx):
-        return (torch.arange(self.num_tables, dtype=idx.dtype,
+        # one offset per table of ``idx`` (all T, or a rank's T/mp)
+        return (torch.arange(idx.shape[-2], dtype=idx.dtype,
                              device=idx.device)[:, None]
                 * self.num_entries)
 
@@ -302,6 +314,17 @@ class StackedEmbedding(Op):
         (idx,) = xs  # (batch, T, bag)
         rows = params.get("rows__")  # sparse-update path: (B, T, bag, d)
         qscale = params.get(QSCALE_KEY)
+        if rows is None and self.exchange_mode:
+            # the manual exchange (per-table pinning and a collective at
+            # the interaction point, dlrm_strategy.cc:242-296); quantized
+            # ids follow the in-table clamp contract
+            from ..parallel.table_exchange import table_parallel_lookup
+            if qscale is not None:
+                idx = idx.clamp(0, self.num_entries - 1)
+            out = table_parallel_lookup(params["embedding"], idx, self._mesh,
+                                        self.aggr, self.exchange_mode,
+                                        qscale=qscale)
+            return [out.to(self.outputs[0].dtype)]
         if rows is None and qscale is not None:
             # an int8 serving table: local ids clamped into their own
             # table (int8 codes cannot read NaN, so a stray id must never
@@ -393,7 +416,8 @@ class RaggedStackedEmbedding(Op):
         return [ParameterSpec(self.name, "embedding",
                               (self.total_rows, self.out_dim),
                               dtype=self.table_dtype,
-                              initializer=self.kernel_initializer)]
+                              initializer=self.kernel_initializer,
+                              sharded_dim=0)]
 
     def table_consts(self, device):
         """The per-table offsets and row counts as int64 tensors on

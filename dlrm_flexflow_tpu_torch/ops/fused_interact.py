@@ -142,8 +142,8 @@ class FusedEmbedInteract(RaggedStackedEmbedding):
                                          self.compute_dtype)]
         table = params["embedding"]
         qscale = params.get(QSCALE_KEY)
-        if qscale is None and kernel_eligible(table.dtype, self.out_dim,
-                                              idx.shape[-1]):
+        if qscale is None and self._allow_kernel and kernel_eligible(
+                table.dtype, self.out_dim, idx.shape[-1]):
             out = FusedEmbedInteractFn.apply(
                 table, bottom.float().contiguous(), idx.contiguous(),
                 offsets, row_counts, self.interact, self.aggr,

@@ -15,9 +15,11 @@ The port launches the row-set kernel (B5) and the fused forward (B3) on
 the card unconditionally; ``row_set_wins`` and ``fused_interact_wins``
 say where the JAX package's gates would put the flip on this card
 (PERF.md lists the shapes).  ``tiered_storage_wins`` is live: the tiered
-store's ``tiered_decision`` calls it.  The JAX package's
-``exchange_overlap_wins`` prices ICI collectives and has no user until
-scale-out (ROADMAP.md Queue A item 8), so it is not here.
+store's ``tiered_decision`` calls it.  ``exchange_overlap_wins`` is live
+too (``ops/overlap_embed.py``), but its two constants, the NVLink rate
+and the dense rate, are the H100 SXM data sheet's: a rank-to-rank link
+cannot be measured on a machine with one card.  Both are marked
+unmeasured.
 """
 
 from __future__ import annotations
@@ -58,6 +60,18 @@ OP_BOUNDARY_NS = 977.5
 #: a kernel must beat the other path by this factor before dispatch
 #: flips (a policy, the JAX package's, not a measurement).
 DISPATCH_MARGIN = 2.0
+
+#: NVLink bandwidth a GPU sends at in one direction (GB/s): 900 GB/s
+#: over both directions of its 18 NVLink 4 links, from NVIDIA's H100
+#: Tensor Core GPU data sheet (SXM5); the machine model's
+#: ``nvlink_bandwidth`` (sim/cost_model.py), mirrored here because this
+#: module sits below sim.  UNMEASURED: the card machine has one card.
+NVLINK_GBPS = 450.0
+
+#: effective dense rate of the bottom stack's f64-accumulated GEMMs
+#: (FLOP/ns): the data sheet's 67 TFLOP/s FP64 tensor-core rate at the
+#: machine model's 60% utilisation.  UNMEASURED (a data-sheet figure).
+DENSE_FLOPS_PER_NS = 67e3 * 0.6
 
 #: pinned host-to-device rate of a miss block (GB/s): the slope of a
 #: least-squares line through one non_blocking H2D of 1 to 2048 rows of
@@ -104,6 +118,34 @@ def fused_interact_wins(batch: int, num_tables: int, bag: int, dim: int,
                   + inter_bytes / HBM_GBPS
                   + boundaries * OP_BOUNDARY_NS)
     return kernel_ns < emitter_ns
+
+
+def exchange_overlap_wins(local_batch: int, num_tables: int, dim: int,
+                          itemsize: int, model_parallel: int,
+                          dense_flops: int, microbatches: int,
+                          mode: str = "allgather") -> bool:
+    """The JAX package's gate for the microbatched exchange/compute
+    pipeline (``parallel/overlap.py``) against the serial exchange.
+
+    The pipeline hides ``min(exchange, dense)`` of the step behind the
+    other rail, but K microbatches cost K-1 more collective launches and
+    K-1 more dense launches, each ``OP_BOUNDARY_NS``.  Overlap wins when
+    the hidden time beats that added cost by ``DISPATCH_MARGIN``.
+    ``local_batch`` is the per-data-shard batch (the rows one exchange
+    moves); ``dense_flops`` the bottom stack's forward FLOPs at that
+    batch.  K = 1 and a single model rank never overlap."""
+    mp = max(int(model_parallel), 1)
+    k = max(int(microbatches), 1)
+    if mp <= 1 or k <= 1:
+        return False
+    ex_bytes = float(local_batch) * num_tables * dim * itemsize
+    if mode == "all_to_all":
+        ex_bytes /= mp  # each rank exchanges ~1/mp of allgather's bytes
+    ex_ns = ex_bytes * (mp - 1) / mp / NVLINK_GBPS
+    dense_ns = float(dense_flops) / DENSE_FLOPS_PER_NS
+    hidden_ns = min(ex_ns, dense_ns)
+    boundary_ns = 2.0 * (k - 1) * OP_BOUNDARY_NS
+    return hidden_ns > DISPATCH_MARGIN * boundary_ns
 
 
 def tiered_storage_wins(num_rows: int, dim: int, itemsize: int,

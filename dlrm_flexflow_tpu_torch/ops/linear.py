@@ -38,10 +38,12 @@ class Linear(Op):
 
     def param_specs(self):
         specs = [ParameterSpec(self.name, "kernel", (self.in_dim, self.out_dim),
-                               initializer=self.kernel_initializer)]
+                               initializer=self.kernel_initializer,
+                               sharded_dim=1)]
         if self.use_bias:
             specs.append(ParameterSpec(self.name, "bias", (self.out_dim,),
-                                       initializer=self.bias_initializer))
+                                       initializer=self.bias_initializer,
+                                       sharded_dim=0))
         return specs
 
     def forward(self, params, xs, *, training=False, rng=None):

@@ -90,11 +90,11 @@ class LSTM(Op):
         # gate order (i, f, g, o), concatenated for one product
         return [
             ParameterSpec(self.name, "wx", (i, 4 * h),
-                          initializer=self.kernel_initializer),
+                          initializer=self.kernel_initializer, sharded_dim=1),
             ParameterSpec(self.name, "wh", (h, 4 * h),
-                          initializer=self.kernel_initializer),
+                          initializer=self.kernel_initializer, sharded_dim=1),
             ParameterSpec(self.name, "bias", (4 * h,),
-                          initializer=ZeroInitializer()),
+                          initializer=ZeroInitializer(), sharded_dim=0),
         ]
 
     def forward(self, params, xs, *, training=False, rng=None):

@@ -25,7 +25,7 @@ bit for bit, and a NaN batch cannot silently destroy the run.
   the shared-filesystem heartbeat files and flag dead peers by name;
   :class:`StallWatchdog` turns a silent training stall into a flight
   dump + loud abort; :class:`FleetBarrierTimeout` is the multi-host
-  barrier's death (that barrier comes with ROADMAP.md Queue A item 8).
+  barrier's death (that barrier comes with ROADMAP.md item 8, part 2).
 
 Wired through ``FFModel.fit(checkpoint_manager=..., resume=True,
 checkpoint_every_n_steps=..., sentinel=NaNSentinel(...))``; recovery

@@ -155,7 +155,7 @@ def resilient_fit(model, state, dataloader, epochs: int, verbose: bool,
             # restore, which the port does not have yet
             saved = saved_topology(manager.latest())
             if saved is not None and not same_topology(
-                    saved, mesh_topology(None)):
+                    saved, mesh_topology(getattr(model, "mesh", None))):
                 raise CheckpointError(
                     f"{manager.latest()!r} was saved on another mesh "
                     f"topology ({saved}); resuming across topologies is "

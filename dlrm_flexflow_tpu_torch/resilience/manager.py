@@ -29,7 +29,7 @@ accepts the other's directories, and either package resumes from them.
 Single-writer per directory: concurrent managers on one directory are
 not coordinated.  The multi-host pod commit (every process writing its
 shard files under cross-host barriers) is not ported: ``multihost=True``
-raises ``NotImplementedError`` naming ROADMAP.md Queue A item 8.
+raises ``NotImplementedError`` naming ROADMAP.md item 8, part 2.
 """
 
 from __future__ import annotations
@@ -189,7 +189,7 @@ class CheckpointManager:
         # the podshard barrier's deadline (kept for the JAX signature;
         # the multi-host commit is not ported)
         self.barrier_timeout_s = float(barrier_timeout_s)
-        # multi-host pod mode: not ported (ROADMAP.md Queue A item 8).
+        # multi-host pod mode: not ported (ROADMAP.md item 8, part 2).
         # None means one process, which the port always is
         self.multihost = multihost
 

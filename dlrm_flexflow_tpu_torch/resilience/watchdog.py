@@ -5,7 +5,7 @@ A crashed or hung peer leaves every survivor parked forever in a
 collective or a file barrier.  This module is the detection half of
 failure-domain hardening; recovery (the JAX package's
 ``elastic/recovery.py``) and the multi-host barrier come with the
-scale-out slice (ROADMAP.md Queue A item 8).  In the port the heartbeat
+scale-out slice (ROADMAP.md item 8, part 2).  In the port the heartbeat
 protocol and the stall watchdog run as they do in JAX:
 
 * **heartbeat protocol** — every process touches ``heartbeat-pNNN`` in

@@ -43,8 +43,9 @@ the caller's span, the ``serve.pad`` and ``serve.engine_forward`` spans
 engine's per-bucket dispatch counts are scraped by ``/metrics``
 (``telemetry.metrics.track_engine``).
 
-Not ported yet: mesh-native serving (the scale-out slice; a model
-compiled here has no mesh).
+Not ported yet: mesh-native serving (ROADMAP.md item 8, part 2): an
+engine over a model compiled under a mesh of more than one rank
+raises.
 """
 
 from __future__ import annotations
@@ -117,6 +118,11 @@ class InferenceEngine:
             raise ValueError(
                 "model must be compile()d before building an "
                 "InferenceEngine (no forward exists yet)")
+        if getattr(model, "_spmd", None) is not None:
+            raise NotImplementedError(
+                "mesh-native serving (an engine over a model compiled under "
+                "a mesh of more than one rank) is not ported: ROADMAP.md "
+                "item 8, part 2")
         if params_or_state is None:
             raise ValueError(
                 "InferenceEngine needs parameters: pass a TrainState or "

@@ -94,6 +94,17 @@ class PodTopology:
         return PodTopology(int(d["num_slices"]),
                            int(d["chips_per_slice"]))
 
+    @staticmethod
+    def parse(spec: str) -> "PodTopology":
+        """``"<slices>x<chips>"`` (e.g. ``"2x4"``) -> PodTopology."""
+        try:
+            s, c = spec.lower().split("x")
+            return PodTopology(int(s), int(c))
+        except (ValueError, AttributeError):
+            raise ValueError(
+                f"pod topology spec must look like '2x4' "
+                f"(slices x chips-per-slice), got {spec!r}") from None
+
 
 @dataclass
 class H100MachineModel:
@@ -226,6 +237,23 @@ class H100MachineModel:
         return bytes_moved / self.ib_bandwidth
 
 
+def overlapped_exchange_time(machine: "H100MachineModel", exchange_s: float,
+                             dense_s: float, microbatches: int,
+                             overlapped: bool = True) -> float:
+    """Time for an embedding exchange running next to a dense stack.
+
+    Serial (``overlapped=False`` or K <= 1): the two rails pay their sum.
+    Pipelined (``parallel/overlap.py``): each of K microbatches pays
+    ``max(exchange/K, dense/K)``, plus one fill term, ``min(exchange,
+    dense)/K``, that has nothing to hide under.  The pricing hook
+    ``OverlappedEmbedBottom.exchange_overlap_cost`` feeds the simulator."""
+    if not overlapped or microbatches <= 1:
+        return exchange_s + dense_s
+    k = max(int(microbatches), 1)
+    return k * max(exchange_s / k, dense_s / k) + min(exchange_s,
+                                                      dense_s) / k
+
+
 class CostModel:
     """Memoized per-op timing (reference simulator.cc:235-273).
 
@@ -315,6 +343,14 @@ class CostModel:
 
     def _analytic_op(self, op, num_parts: int) -> Tuple[float, float]:
         m = self.machine
+        # an op that prices its own exchange and dense rails (the
+        # overlapped embedding, ops/overlap_embed.py) overrides the
+        # roofline; calibration still applies on top in op_times
+        hook = getattr(op, "exchange_overlap_cost", None)
+        if hook is not None:
+            est = hook(m, num_parts)
+            if est is not None:
+                return est
         batch = op.outputs[0].shape[0] if op.outputs[0].ndim else 1
         flops = op.flops(batch) / max(num_parts, 1)
         compute_dtype = getattr(op, "compute_dtype", None) or "float32"

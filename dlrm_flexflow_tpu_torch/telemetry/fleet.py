@@ -320,12 +320,32 @@ def fleet_section(events: List[dict]) -> List[str]:
 def predicted_sync_ms(params=None,
                       bytes_per_chip: Optional[float] = None
                       ) -> Optional[float]:
-    """The cost model's price for one step's data-parallel grad
-    all-reduce, in ms (JAX ``telemetry/fleet.py:325-347``).  None on one
-    device, as in the JAX package (``:333-337``): the port trains on one
-    device until the mesh comes (ROADMAP.md Queue A item 8), so there is
-    no all-reduce to price."""
-    return None
+    """The two-level cost model's price for one step's data-parallel grad
+    all-reduce over the process group's ranks, in ms (JAX
+    ``telemetry/fleet.py:325-347``): the PREDICTED column beside the
+    measured ``sync_wait_ms``.  ``params`` (a ``{op: {param: tensor}}``
+    tree) sizes the gradients; ``bytes_per_chip`` overrides.  None when
+    unpriceable: one rank, or no parameters."""
+    try:
+        rank, n = process_identity()
+        if n <= 1:
+            return None
+        if bytes_per_chip is None:
+            def leaves(tree):
+                if isinstance(tree, dict):
+                    return [x for v in tree.values() for x in leaves(v)]
+                return [tree]
+            bytes_per_chip = float(sum(
+                t.numel() * t.element_size() for t in leaves(params or {})
+                if hasattr(t, "element_size")))
+        if not bytes_per_chip:
+            return None
+        from ..distributed import pod_topology
+        from ..sim.cost_model import H100MachineModel
+        machine = H100MachineModel(topology=pod_topology())
+        return machine.all_reduce_time(bytes_per_chip, n) * 1e3
+    except Exception:
+        return None
 
 
 # ------------------------------------------------------- flight recorder

@@ -226,6 +226,7 @@ def observe_batch(inputs: Dict[str, Any]) -> None:
     if every > 1 and _batch_no % every:
         return
     for name, arr in inputs.items():
+        arr = getattr(arr, "local", arr)  # a GlobalArray: this rank's rows
         if not _is_ids(arr):
             continue  # dense features are not ids
         for tname, ids in _tables(name, _host(arr)):

@@ -88,13 +88,16 @@ class Tensor:
 @dataclass
 class ParameterSpec:
     """Weight metadata, keyed by ``(op_name, param_name)`` in the params
-    dictionary."""
+    dictionary; ``sharded_dim`` is the dim a tensor-parallel strategy
+    splits over the mesh's "model" axis (the out-channel of a Linear
+    weight, the table axis of stacked tables), as in the JAX package."""
 
     op_name: str
     param_name: str
     shape: Tuple[int, ...]
     dtype: object = torch.float32
     initializer: Optional[object] = None
+    sharded_dim: Optional[int] = None
 
     def __post_init__(self):
         self.shape = tuple(int(d) for d in self.shape)

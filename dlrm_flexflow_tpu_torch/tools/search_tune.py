@@ -24,7 +24,7 @@ prices each strategy artifact on the card: a fresh model compiled under
 the strategy (``compile(strategy=)``), two warm steps (the eager one and
 the capture), then three fenced windows of ``--bench-batches`` graphed
 ``train_step`` replays, the best window's step time.  Strategies execute alike on one card until the mesh comes
-(ROADMAP.md item 8), so the two differ there only by noise.  The tool
+(ROADMAP.md item 8, part 2), so the two differ there only by noise.  The tool
 runs on the CUDA card unless ``--device cpu`` is given; without a card
 it exits with code 2.  ``--fused-interaction on`` selects the fused
 graph, whose ``op_time`` telemetry names the fused op.

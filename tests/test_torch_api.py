@@ -435,17 +435,17 @@ def test_place_dataset_defaults_to_the_models_device():
 _LACKS = {
     "config:FFConfig": (
         "every field after batch_size is keyword-only in the port by "
-        "design (mesh_shape and table_exchange, which come with the "
-        "scale-out slice, would shift the positions)",
+        "design (the port orders some fields differently, so JAX "
+        "positions would bind other fields)",
         None),
     "native_lib:load_native_lib": (
         "the port builds with g++ into its own build directory, never "
         "with make in native/, so it has no make target",
         ["make_target"]),
     "tensor:ParameterSpec": (
-        "sharded_dim comes with the mesh (ROADMAP item 8), storage_shape "
-        "is the TPU's lane-packed table layout, which Hopper does not use",
-        ["sharded_dim", "storage_shape"]),
+        "storage_shape is the TPU's lane-packed table layout, which Hopper "
+        "does not use",
+        ["storage_shape"]),
 }
 
 

@@ -539,11 +539,10 @@ def test_c1_initializers_take_seed_and_norm():
 
 
 def test_c2_the_jax_root_names_are_on_the_port_root():
-    """Every name of the JAX package's ``__all__`` but ``make_mesh`` (the
-    scale-out slice's) is on the port's root and in its ``__all__``, and
-    ``__version__`` is the JAX one."""
-    missing = [n for n in ffj.__all__ if n != "make_mesh"
-               and not (hasattr(fft, n) and n in fft.__all__)]
+    """Every name of the JAX package's ``__all__`` is on the port's root
+    and in its ``__all__``, and ``__version__`` is the JAX one."""
+    missing = [n for n in ffj.__all__
+               if not (hasattr(fft, n) and n in fft.__all__)]
     assert missing == []
     assert fft.__version__ == ffj.__version__ == "0.1.0"
     from dlrm_flexflow_tpu_torch import (DeadlineExceeded, ParallelConfig,

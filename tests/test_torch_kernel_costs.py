@@ -83,7 +83,10 @@ def test_structural_refusals_hold_under_the_h100_constants(kw):
 def test_constants_are_h100_readings_with_their_source():
     """Every measured constant is positive and its comment names the
     chip_smoke.py phase and the card with its power limit; the margin is
-    the JAX package's policy; no v5e number or ICI model is left."""
+    the JAX package's policy; no v5e number or ICI model is left.  The
+    exchange gate (ported with the mesh) prices NVLink and the dense
+    stack from the H100 data sheet, each constant marked unmeasured: one
+    card cannot measure a rank-to-rank link."""
     src = inspect.getsource(pkc)
     assert "v5e" not in src and "TPU" not in src.split('"""')[2]
     assert pkc.DISPATCH_MARGIN == jkc.DISPATCH_MARGIN
@@ -96,8 +99,12 @@ def test_constants_are_h100_readings_with_their_source():
         assert "chip_smoke.py phase 20(a)" in comment, k
         assert "NVIDIA H100 80GB HBM3, 700.00 W" in comment, k
         assert v != getattr(jkc, k), k  # re-measured, not carried over
-    for gone in ("exchange_overlap_wins", "ICI_GBPS", "MXU_F32_FLOPS_PER_NS"):
+    for gone in ("ICI_GBPS", "MXU_F32_FLOPS_PER_NS"):
         assert not hasattr(pkc, gone), gone
+    for k in ("NVLINK_GBPS", "DENSE_FLOPS_PER_NS"):
+        m = re.search(r"((?:#:.*\n)+)" + k + " = ", src)
+        assert m and "UNMEASURED" in m.group(1), k
+        assert getattr(pkc, k) > 0, k
 
 
 # the run_random.sh shapes the port serves and trains (PERF.md)

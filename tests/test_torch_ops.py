@@ -341,9 +341,12 @@ def test_sdpa_matches_jax():
 
 
 def test_sequence_parallel_attention_raises_until_the_mesh():
+    """The mesh has come: ``seq_parallel=True`` constructs (ring attention
+    over a "seq" axis, ``tests/test_torch_seq_parallel.py``), and without
+    a mesh the op runs on one device."""
     (pq,) = _tensors((2, 4, 8))[1]
-    with pytest.raises(NotImplementedError, match="item 8"):
-        patt.MultiHeadAttention("a", pq, pq, pq, 8, 2, seq_parallel=True)
+    op = patt.MultiHeadAttention("a", pq, pq, pq, 8, 2, seq_parallel=True)
+    assert op.seq_parallel and op._mesh is None and op._allow_kernel
 
 
 # ------------------------------------------------------ mixture of experts
