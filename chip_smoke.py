@@ -275,7 +275,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
      gloo refuses on CUDA tensors is logged and the rest runs.  Step
      walls and the exchange's share of the step are printed beside the
      card; two gloo ranks on one card say nothing of NCCL over NVLink.
-     No kernel runs under the two-rank mesh.
+     No kernel runs under the two-rank mesh;
+ 33. last (host I/O), elastic recovery, in a directory beside this
+     script, removed at its end: (1) two gloo ranks on the one card
+     train the table-parallel run_random.sh DLRM at full width (f32
+     compute, SGD lr 0.01) on {"data": 1, "model": 2} with
+     table_exchange="allgather", four steps; (2) they commit a podshard
+     checkpoint through CheckpointManager(multihost=None), each rank
+     its ~1.03 GB of tables, rank 0 the replicated leaves, the meta and
+     the manifest; (7) rank 0 serves 32 requests of 1-256 rows through
+     the mesh engine, broadcasting each bucket to rank 1, which
+     follows; (3) one more step, then a second save at which rank 1
+     hangs at the barrier (host_hang@barrier): rank 0 raises
+     FleetBarrierTimeout naming p1 within its 20 s deadline (a recovery
+     event, one flight record), and ckpt-4 stays the newest valid
+     checkpoint; (4) in this process recover_and_resume reshards ckpt-4
+     onto one card with no mesh, bit for bit the ranks' step-4 state
+     (SHA-256 of every leaf); (6) InferenceEngine.from_checkpoint(...,
+     on_mesh_change="reshard") bit for bit the engine built from the
+     restored state over the 32 requests (buckets 1-256), and the
+     mesh's answers within 1e-6 of it; (5) four graphed steps through B2
+     (one call a step), the losses of all eight steps within rtol 1e-5
+     of a never-killed one-process run.  No kernel launches in the
+     ranks.  The save's walls by stage (D2H, npz write, SHA-256, fsync,
+     the barriers), bytes per rank, the barrier timeout's wall, the
+     restore's (read, reassemble, H2D), the resumed step walls, B2's
+     launches and the dispatch walls, mesh and one process, are printed.
 The phases that train epochs of the run_random.sh model ask for the
 epoch row cache ("on"): "auto" is off on the card.
 Profile lines carry the graph replays in their window, the graph pool's
@@ -5689,14 +5714,12 @@ def mesh_rank(out_dir):
     table-parallel DLRM on {"data": 1, "model": 2}, 4 tables a rank, in
     both exchange modes and the overlapped graph, MESH_STEPS steps, with
     no kernel launch (kernels are off under a mesh of more than one
-    rank); ring attention at RING_SHAPE on {"seq": 2}.  A collective
-    that gloo refuses on CUDA tensors (``_gloo_refusal``) is recorded
-    and the rest runs; any other error raises."""
+    rank); ring attention runs in a group of its own (``ring_rank``).
+    A collective that gloo refuses on CUDA tensors (``_gloo_refusal``)
+    is recorded and the rest runs; any other error raises."""
     import torch.distributed as dist
 
     from dlrm_flexflow_tpu_torch.parallel import make_mesh
-    from dlrm_flexflow_tpu_torch.parallel.ring_attention import (
-        ring_attention_sharded)
     from dlrm_flexflow_tpu_torch.parallel.table_exchange import (
         table_parallel_lookup)
     rank = dist.get_rank()
@@ -5754,6 +5777,22 @@ def mesh_rank(out_dir):
                    os.path.join(out_dir, f"{name}.rank{rank}.pt"))
         del model, state, table
         _free()
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def ring_rank(out_dir):
+    """32(b)'s second rank body: ring attention at RING_SHAPE on {"seq":
+    2}, in a group of its own, since gloo's TCP transport may refuse a
+    send from device memory on its own thread, which aborts the process
+    (``std::terminate``) where the caller cannot catch it."""
+    import torch.distributed as dist
+
+    from dlrm_flexflow_tpu_torch.parallel import make_mesh
+    from dlrm_flexflow_tpu_torch.parallel.ring_attention import (
+        ring_attention_sharded)
+    rank = dist.get_rank()
+    out = {"rank": rank, "refused": []}
     gen = torch.Generator(device="cuda").manual_seed(11)
     q, k, v = (torch.randn(RING_SHAPE, generator=gen, device="cuda")
                for _ in range(3))
@@ -5768,9 +5807,45 @@ def mesh_rank(out_dir):
         if rank == 0:
             torch.save(o.cpu(), os.path.join(out_dir, "ring.pt"))
     except RuntimeError as e:
-        refused("ring_attention", e)
-    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        kind = _gloo_refusal(e)
+        if kind is None:
+            raise
+        out["refused"].append({"run": "ring_attention", "rank": rank,
+                               "kind": kind, "error": str(e)[:400]})
+    with open(os.path.join(out_dir, f"ring{rank}.json"), "w") as f:
         json.dump(out, f)
+
+
+def _ring_group(out_dir):
+    """Run ring_rank's group; returns its ranks' records, or, when a rank
+    died of gloo's own refusal (the abort ``ring_rank`` names), a record
+    of that refusal for each such rank.  The abort is accepted only when
+    the other rank shows no fault of its own: its log holds gloo's closed
+    connection, or no traceback and no abort (it was stopped while
+    waiting).  Any other failure raises."""
+    from dlrm_flexflow_tpu_torch import distributed as fdist
+    try:
+        fdist.launch("chip_smoke:ring_rank", 2, kwargs={"out_dir": out_dir},
+                     backend="gloo", timeout_s=300, threads=4)
+    except RuntimeError as e:
+        kind = _gloo_refusal(e)
+        if kind != "cuda_pointer":
+            raise
+        tails = {int(t.split(" ", 1)[0]): t.split("---\n", 1)[-1]
+                 for t in str(e).split("--- rank ")[1:]}
+        aborted = [r for r, t in tails.items() if "Bad address" in t]
+        if not aborted or len(tails) != 2 or any(
+                "Connection closed by peer" not in t
+                and ("Traceback" in t or "terminate called" in t
+                     or "Fatal Python error" in t)
+                for r, t in tails.items() if r not in aborted):
+            raise
+        return [{"rank": r, "aborted": True, "refused": [{
+            "run": "ring_attention", "rank": r, "kind": kind,
+            "error": "the rank aborted: " + tails[r][-400:]}]}
+            for r in aborted]
+    return [json.load(open(os.path.join(out_dir, f"ring{r}.json")))
+            for r in range(2)]
 
 
 def mesh_two_ranks(card):
@@ -5790,12 +5865,14 @@ def mesh_two_ranks(card):
     group_s = time.perf_counter() - t0
     ranks = [json.load(open(os.path.join(out_dir, f"rank{r}.json")))
              for r in range(2)]
-    refused = ranks[0]["refused"] + ranks[1]["refused"]
+    rings = _ring_group(out_dir)
+    refused = [x for r in ranks + rings for x in r["refused"]]
     for x in refused:
         log({"phase": "mesh_two_ranks", "gloo_refused": x})
         # a closed connection is a refusal only as the echo of the other
         # rank's own refusal of the same run
-        other = ranks[1 - x["rank"]]["refused"]
+        other = [y for r in ranks + rings if r["rank"] != x["rank"]
+                 for y in r["refused"]]
         if x["kind"] == "peer_closed" and not any(
                 y["run"] == x["run"] and y["kind"] != "peer_closed"
                 for y in other):
@@ -5864,7 +5941,7 @@ def mesh_two_ranks(card):
             raise AssertionError(f"32(b) ring attention: max err {err}")
         results["ring_attention"] = {
             "shape": list(RING_SHAPE), "max_abs_err": err,
-            "ring_ms": max(x.get("ring_ms", 0.0) for x in ranks),
+            "ring_ms": max(x.get("ring_ms", 0.0) for x in rings),
             "one_process_sdpa_ms": dense_ms}
         del q, k, v, want, got
         _free()
@@ -5876,6 +5953,327 @@ def mesh_two_ranks(card):
          "note": "two gloo ranks on one card: these walls say nothing of "
                  "NCCL over NVLink between cards"})
     return results, refused
+
+
+# --------------------------------------------------------------- phase 33
+#: phase 33: the rank that never reaches the second save's barrier sleeps
+#: HANG_S there; the survivor's barrier deadline is DEADLINE_S
+ELASTIC_DEADLINE_S, ELASTIC_HANG_S = 20.0, 21.0
+ELASTIC_REQUESTS = 32
+
+
+def _elastic_requests():
+    """Phase 33's 32 requests of 1-256 rows (seed 33), uniform ids."""
+    rng = np.random.default_rng(33)
+    out = []
+    for n in rng.integers(1, BATCH + 1, size=ELASTIC_REQUESTS):
+        out.append({"dense": rng.standard_normal((int(n), BOT)).astype(
+                        np.float32),
+                    "sparse": rng.integers(0, ROWS, size=(int(n), TABLES, 1))})
+    return out
+
+
+def _digests(state, blocks=None):
+    """SHA-256 of every leaf's bytes (``checkpoint._host``), hashed in
+    parallel threads: the table ``emb/embedding`` as ``blocks`` of whole
+    tables (``(lo, hi)``; default one block, ``[]`` none), every other
+    leaf whole."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from dlrm_flexflow_tpu_torch import checkpoint as ckpt
+    flat = ckpt._flat_state(state)
+    table = flat.pop("params/emb/embedding")
+    jobs = {k: ckpt._host(v) for k, v in flat.items()}
+    for lo, hi in [(0, table.shape[0])] if blocks is None else blocks:
+        jobs[f"params/emb/embedding[{lo}:{hi}]"] = ckpt._host(table[lo:hi])
+    with ThreadPoolExecutor(4) as pool:
+        hashed = pool.map(lambda a: hashlib.sha256(
+            np.ascontiguousarray(a).data).hexdigest(), jobs.values())
+        return dict(zip(jobs, hashed))
+
+
+def _ckpt_stages(events):
+    """The seconds of each checkpoint stage span in ``events``: the
+    children of ``ckpt.save`` / ``ckpt.restore`` (``d2h``, ``write``,
+    ``fsync``, ``sha256``, a barrier as ``barrier_<phase>``; ``read``,
+    ``reassemble``, ``h2d``)."""
+    spans = [e for e in events if e["type"] == "span"]
+    top = {e["span_id"] for e in spans
+           if e["name"] in ("ckpt.save", "ckpt.restore")}
+    stages = {}
+    for e in spans:
+        if e.get("parent_id") in top and e["name"].startswith("ckpt."):
+            name = e["name"][len("ckpt."):]
+            if name == "barrier":
+                name += "_" + e["attrs"]["phase"]
+            stages[name] = stages.get(name, 0.0) + e["dur_us"] / 1e6
+    return stages
+
+
+def elastic_rank(root):
+    """33's rank body (two gloo ranks on the one card): (1) the
+    table-parallel DLRM at full width on {"data": 1, "model": 2} with
+    table_exchange="allgather", MESH_STEPS steps; (2) a podshard commit
+    through CheckpointManager(multihost=None), each rank's walls by stage;
+    (7) the mesh engine over that state serving ELASTIC_REQUESTS requests
+    (rank 0 the leader, rank 1 following); one more step, then (3) a
+    second save at which rank 1 hangs at the barrier (host_hang@barrier):
+    rank 0 must raise FleetBarrierTimeout naming p1.  No kernel may
+    launch."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    from dlrm_flexflow_tpu_torch.parallel import make_mesh
+    from dlrm_flexflow_tpu_torch.resilience import (FleetBarrierTimeout,
+                                                    HostLost)
+    rank = dist.get_rank()
+    inputs, labels = _epoch_data(2 * MESH_STEPS)
+    mesh = make_mesh({"data": 1, "model": 2})
+    model, state, _ = _mesh_dlrm(mesh, "float32", True, "allgather")
+    out = {"rank": rank}
+    reset_counts()
+    walls = []
+    for i in range(MESH_STEPS):
+        t0 = time.perf_counter()
+        state, mets = model.train_step(
+            state, {k: v[i] for k, v in inputs.items()}, labels[i])
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        out.setdefault("losses", []).append(float(mets["loss"]))
+    out["step_wall_ms"] = walls
+    mgr = CheckpointManager(os.path.join(root, "ckpt"),
+                            barrier_timeout_s=ELASTIC_DEADLINE_S)
+    t0 = time.perf_counter()
+    with tele.event_log() as elog:
+        path = mgr.save(state, model=model,
+                        extra={"batches_done": MESH_STEPS})
+        out["save_wall_s"] = time.perf_counter() - t0
+        out["save_stages_s"] = _ckpt_stages(elog.events())
+    out["path"] = path
+    out["bytes"] = os.path.getsize(os.path.join(path,
+                                                f"shard-p{rank:03d}.npz"))
+    # what the restore must give back: this rank's block of the tables
+    # and the replicated leaves, by hash
+    table = state.params["emb"]["embedding"]
+    t_loc = table.shape[0]
+    h = hashlib.sha256(np.ascontiguousarray(
+        table.detach().cpu().numpy()).data).hexdigest()
+    out["digests"] = {f"params/emb/embedding[{rank * t_loc}:"
+                      f"{(rank + 1) * t_loc}]": h}
+    if rank == 0:  # the leaves no mesh shards
+        out["digests"].update(_digests(state, blocks=[]))
+    # (7) serving on the mesh, through the leader's broadcast
+    engine = InferenceEngine(model, state)
+    out["engine"] = {"buckets": engine.buckets,
+                     "sharded": engine._mesh_sharded}
+    if engine.is_leader:
+        outs, dwalls = [], []
+        for r in _elastic_requests():
+            t0 = time.perf_counter()
+            outs.append(engine.predict(r))
+            dwalls.append((time.perf_counter() - t0) * 1e3)
+        engine.close()
+        np.save(os.path.join(root, "mesh_outputs.npy"),
+                np.concatenate(outs))
+        out["dispatch_wall_ms"] = dwalls
+    else:
+        out["followed"] = engine.follow()
+    out["launches"] = read_counts()  # the mesh launches none
+    del engine
+    state, _ = model.train_step(
+        state, {k: v[MESH_STEPS] for k, v in inputs.items()},
+        labels[MESH_STEPS])
+    torch.cuda.synchronize()
+    if rank == 1:  # lost at the next save's barrier
+        os.environ["FF_HANG_S"] = str(ELASTIC_HANG_S)
+        faultinject.install("host_hang@barrier")
+        try:
+            mgr.save(state, model=model)
+            out["hang"] = "returned"
+        except HostLost as e:
+            out["hang"] = str(e)
+        finally:
+            faultinject.clear()
+    else:
+        os.environ["FF_FLIGHT_DIR"] = os.path.join(root, "flight")
+        t0 = time.perf_counter()
+        with tele.event_log() as elog:
+            try:
+                mgr.save(state, model=model)
+                out["timeout"] = None
+            except FleetBarrierTimeout as e:
+                out["timeout"] = {"missing": list(e.missing),
+                                  "message": str(e)}
+            out["timeout_wall_s"] = time.perf_counter() - t0
+            out["recovery_events"] = [
+                e for e in elog.events() if e["type"] == "recovery"]
+        out["flight"] = os.listdir(os.environ["FF_FLIGHT_DIR"])
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _elastic_model():
+    """33's one-card model: the classic run_random.sh graph at f32 compute
+    with no mesh (B2 on the row-sparse path), compiled, not placed."""
+    cfg = DLRMConfig(embedding_size=[ROWS] * TABLES)
+    return build_dlrm(cfg, FFConfig(batch_size=BATCH,
+                                    compute_dtype="float32")).compile(
+        optimizer=SGDOptimizer(lr=0.01), loss_type="mean_squared_error",
+        metrics=("accuracy", "mean_squared_error"))
+
+
+def elastic(card, root):
+    """Phase 33 in ``root``: train on two ranks, commit a podshard, lose
+    rank 1 at the next save's barrier, recover on one card
+    (recover_and_resume), serve from the checkpoint, train on; each
+    result checked (module docstring).  Returns (row, launch counts of the
+    resumed steps)."""
+    from dlrm_flexflow_tpu_torch import distributed as fdist
+    from dlrm_flexflow_tpu_torch.elastic import recover_and_resume
+    from dlrm_flexflow_tpu_torch.resilience import latest_checkpoint
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    fdist.launch("chip_smoke:elastic_rank", 2, kwargs={"root": root},
+                 backend="gloo", timeout_s=300, threads=4)
+    group_s = time.perf_counter() - t0
+    ranks = [json.load(open(os.path.join(root, f"rank{r}.json")))
+             for r in range(2)]
+    r0, r1 = ranks
+    ckpt_dir = os.path.join(root, "ckpt")
+    newest = latest_checkpoint(ckpt_dir)
+    checks = {
+        "commit": r0["path"] == r1["path"] == newest
+        and os.path.basename(newest) == f"ckpt-{MESH_STEPS}"
+        and not verify_checkpoint(newest),
+        "shards": sorted(n for n in os.listdir(newest)
+                         if n.startswith("shard-")) == [
+            "shard-p000.json", "shard-p000.npz", "shard-p001.json",
+            "shard-p001.npz"],
+        "timeout_names_p1": (r0["timeout"] or {}).get("missing") == ["p1"],
+        "timeout_within_deadline": ELASTIC_DEADLINE_S
+        <= r0["timeout_wall_s"] < ELASTIC_DEADLINE_S + 10,
+        "recovery_event": [e["phase"] for e in r0["recovery_events"]]
+        == ["barrier_timeout"],
+        "flight_record": len(r0["flight"]) == 1,
+        "rank1_lost": r1["hang"].startswith("injected host hang"),
+        "no_launch_in_ranks": not any(any(x["launches"].values())
+                                      for x in ranks),
+        "followed": r1["followed"] == len(r0["engine"]["buckets"]) + sum(
+            -(-int(r["dense"].shape[0]) // r0["engine"]["buckets"][-1])
+            for r in _elastic_requests()),
+        "sharded_engine": r0["engine"]["sharded"],
+    }
+    # (4) recover on one card: no mesh, one survivor (no bootstrap)
+    t0 = time.perf_counter()
+    with tele.event_log() as elog:
+        model, state, extra, path = recover_and_resume(ckpt_dir,
+                                                       _elastic_model)
+        events = [e for e in elog.events()
+                  if e["type"] in ("elastic", "recovery")]
+        restore_stages = _ckpt_stages(elog.events())
+    torch.cuda.synchronize()
+    recover_s = time.perf_counter() - t0
+    t_loc = TABLES // 2
+    digests = _digests(state, [(0, t_loc), (t_loc, TABLES)])
+    want = {**r0["digests"], **r1["digests"]}
+    checks["restore_bit_for_bit"] = digests == want
+    checks["resumed_at_step"] = (int(state.step) == MESH_STEPS
+                                 and path == newest
+                                 and extra == {"batches_done": MESH_STEPS})
+    checks["events"] = [(e["type"], e["phase"]) for e in events] == [
+        ("elastic", "reshard"), ("recovery", "resume")]
+    # (6) serve from the checkpoint, bit for bit the engine built from the
+    # restored state; the mesh's answers within 1e-6 of it
+    requests = _elastic_requests()
+    direct = InferenceEngine(model, state)
+    outs, dwalls = [], []
+    for r in requests:
+        t0 = time.perf_counter()
+        outs.append(direct.predict(r))
+        dwalls.append((time.perf_counter() - t0) * 1e3)
+    from_ckpt = InferenceEngine.from_checkpoint(model, ckpt_dir,
+                                                on_mesh_change="reshard")
+    same = all(np.array_equal(from_ckpt.predict(r), o)
+               for r, o in zip(requests, outs))
+    checks["from_checkpoint_bit_for_bit"] = same and (
+        from_ckpt.buckets == direct.buckets == list(BUCKETS))
+    mesh_out = np.load(os.path.join(root, "mesh_outputs.npy"))
+    mesh_err = float(np.abs(mesh_out - np.concatenate(outs)).max())
+    checks["mesh_serving_within_1e-6"] = mesh_err <= 1e-6
+    del direct, from_ckpt
+    _free()
+    # (5) train on: MESH_STEPS graphed steps through B2, one call a step,
+    # against a never-killed one-process run of 2 * MESH_STEPS steps
+    inputs, labels = _epoch_data(2 * MESH_STEPS)
+    reset_counts()  # the main path: the resumed steps
+    walls, losses = [], []
+    for i in range(MESH_STEPS, 2 * MESH_STEPS):
+        t0 = time.perf_counter()
+        state, mets = model.train_step(
+            state, {k: v[i] for k, v in inputs.items()}, labels[i])
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(mets["loss"]))
+    counts = read_counts()
+    captures = model.graph_captures
+    del model, state
+    _free()
+    base = _elastic_model()
+    bstate = base.init(seed=0)
+    blosses = []
+    for i in range(2 * MESH_STEPS):
+        bstate, mets = base.train_step(
+            bstate, {k: v[i] for k, v in inputs.items()}, labels[i])
+        blosses.append(float(mets["loss"]))
+    del base, bstate
+    _free()
+    rel = [abs(a - b) / abs(b) for a, b in
+           zip(r0["losses"] + losses, blosses)]
+    checks["resumed_losses_rtol_1e-5"] = max(rel[MESH_STEPS:]) <= 1e-5
+    checks["mesh_losses_rtol_1e-5"] = max(rel[:MESH_STEPS]) <= 1e-5
+    checks["b2_one_call_a_step"] = (counts["row_update"] == MESH_STEPS
+                                    == counts["row_update_prep"])
+    checks["captured"] = captures >= 1
+    row = {"phase": "elastic", "card": card, "backend": "gloo",
+           "group_wall_s": group_s,
+           "save_wall_s": [x["save_wall_s"] for x in ranks],
+           "save_stages_s": [x["save_stages_s"] for x in ranks],
+           "bytes_per_rank": [x["bytes"] for x in ranks],
+           "barrier_timeout_wall_s": r0["timeout_wall_s"],
+           "timeout_message": r0["timeout"]["message"]
+           if r0["timeout"] else None,
+           "restore_wall_s": recover_s, "restore_stages_s": restore_stages,
+           "mesh_step_wall_ms": r0["step_wall_ms"],
+           "resumed_step_wall_ms": walls, "captures": captures,
+           "losses": {"mesh": r0["losses"], "resumed": losses,
+                      "never_killed": blosses},
+           "max_rel_loss_diff": max(rel), "b2_launches": counts,
+           "mesh_engine": r0["engine"], "mesh_serving_max_abs_err": mesh_err,
+           "dispatch_wall_ms_median": {
+               "mesh": float(np.median(r0["dispatch_wall_ms"])),
+               "one_process": float(np.median(dwalls))},
+           "checks": checks,
+           "phase_wall_s": time.perf_counter() - t_phase,
+           "note": "two gloo ranks on one card: the mesh walls say nothing "
+                   "of NCCL between cards"}
+    log(row)
+    if not all(checks.values()):
+        raise AssertionError(f"33: checks failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return row, counts
+
+
+def elastic_phase(card):
+    """Phase 33 in a directory of its own beside this script, removed
+    afterwards (two 2.05 GB checkpoints' worth of shard files at most)."""
+    root = tempfile.mkdtemp(prefix=".elastic-",
+                            dir=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        return elastic(card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def _entry(name, launches, err, timing):
@@ -5990,11 +6388,16 @@ def main() -> int:
     _free()
     mesh1, mesh1_counts = mesh_one_rank(inputs, labels)
     mesh2, mesh2_refused = mesh_two_ranks(card)
+    # phase 33: the podshard commit, a rank lost at the barrier, the
+    # reshard recovery on one card (B2), serving from the checkpoint and
+    # on the mesh; host I/O-heavy, so last
+    _free()
+    elastic_row, elastic_counts = elastic_phase(card)
     path_counts = (headline_counts, sparse_counts, dense_counts, dot_counts,
                    staged_counts, bag_counts, bf16_counts, bag16_counts,
                    durable_counts, tiered_counts, lazy_counts, soap_counts,
                    tune_counts, apps_counts, hetero_counts, act_counts,
-                   tiered16_counts, mesh1_counts)
+                   tiered16_counts, mesh1_counts, elastic_counts)
     row_launches = sum(c["row_update"] for c in path_counts)
     prep_launches = sum(c["row_update_prep"] for c in path_counts)
     if prep_launches != row_launches:
@@ -6071,6 +6474,18 @@ def main() -> int:
              "exchange_share_of_step", "ring_ms", "one_process_sdpa_ms",
              "max_abs_err")} for k, r in mesh2.items()},
          "mesh_gloo_refused": mesh2_refused,
+         "elastic": {
+             "save_wall_s": elastic_row["save_wall_s"],
+             "bytes_per_rank": elastic_row["bytes_per_rank"],
+             "barrier_timeout_wall_s":
+                 elastic_row["barrier_timeout_wall_s"],
+             "restore_wall_s": elastic_row["restore_wall_s"],
+             "resumed_step_wall_ms": elastic_row["resumed_step_wall_ms"],
+             "max_rel_loss_diff": elastic_row["max_rel_loss_diff"],
+             "b2_launches": elastic_row["b2_launches"]["row_update"],
+             "dispatch_wall_ms_median":
+                 elastic_row["dispatch_wall_ms_median"],
+             "phase_wall_s": elastic_row["phase_wall_s"]},
          "note": "walls include each path's eager step and capture"})
     log({"kernels": [
         _entry("fused_interact_fwd",

@@ -19,7 +19,9 @@ the global batch, :func:`make_global_array` wraps it as a
 and :class:`HostShardLoader` yields such batches from any loader, so each
 process keeps only its share; ``FFModel.train_step`` takes them as it
 takes a global batch.  :func:`launch` starts a group of rank processes
-with a deadline (the tests and ``chip_smoke.py`` use it).
+with a deadline (the tests and ``chip_smoke.py`` use it), and
+:func:`shutdown` leaves a group under a deadline (``elastic/recovery.py``
+joins a smaller one after it).
 """
 
 from __future__ import annotations
@@ -41,6 +43,9 @@ import torch
 #: many seconds instead of hanging them
 DEFAULT_TIMEOUT_S = 120.0
 
+#: the deadline of :func:`shutdown`'s teardown of a group
+SHUTDOWN_TIMEOUT_S = 30.0
+
 
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
@@ -54,9 +59,11 @@ def initialize(coordinator_address: Optional[str] = None,
     ``WORLD_SIZE`` / ``RANK``).  ``device`` None means the card: the rank
     takes ``cuda:<rank % cards>`` and NCCL; ``device="cpu"`` takes gloo.
     ``backend`` overrides the choice (gloo on the card, two ranks on one
-    card).  With one process and no address nothing is initialized.
-    Returns the topology and emits one ``distributed`` ``phase="init"``
-    event."""
+    card).  With one process and no address nothing is initialized.  A
+    group already up is kept when its world size is ``num_processes``,
+    and raises otherwise (a survivor whose old group never tore down
+    must not run in it).  Returns the topology and emits one
+    ``distributed`` ``phase="init"`` event."""
     env = os.environ
     if num_processes is None:
         num_processes = int(env.get("NUM_PROCESSES",
@@ -76,8 +83,14 @@ def initialize(coordinator_address: Optional[str] = None,
                 "no CUDA device: distributed.initialize runs on the card "
                 "unless the caller passes device='cpu'")
         torch.cuda.set_device(int(process_id) % torch.cuda.device_count())
-    if (num_processes > 1 or coordinator_address is not None) \
-            and not dist.is_initialized():
+    if dist.is_available() and dist.is_initialized():
+        if dist.get_world_size() != int(num_processes):
+            raise RuntimeError(
+                f"distributed.initialize: a process group of "
+                f"{dist.get_world_size()} ranks is still up, and "
+                f"{int(num_processes)} were asked for; leave it first "
+                f"(distributed.shutdown)")
+    elif num_processes > 1 or coordinator_address is not None:
         url = coordinator_address or "tcp://127.0.0.1:29500"
         if "://" not in url:
             url = f"tcp://{url}"
@@ -89,6 +102,34 @@ def initialize(coordinator_address: Optional[str] = None,
     from .telemetry import emit
     emit("distributed", phase="init", **info)
     return info
+
+
+def shutdown(timeout_s: float = SHUTDOWN_TIMEOUT_S) -> bool:
+    """Leave the process group (the counterpart of
+    ``jax.distributed.shutdown``): ``destroy_process_group`` under a
+    deadline, best effort.  A group whose peer died mid-collective may
+    hang in its teardown, or abort it, so the teardown runs on a daemon
+    thread and its errors are swallowed.  Returns True when no group is
+    left (none was up, or it was destroyed within ``timeout_s``); False
+    when the teardown is still blocked, and then the process cannot join
+    another group."""
+    import threading
+
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()):
+        return True
+
+    def teardown():
+        try:
+            dist.destroy_process_group()
+        except Exception:  # noqa: BLE001 — a dead peer's group, best effort
+            pass
+
+    t = threading.Thread(target=teardown, name="ff-pg-shutdown",
+                         daemon=True)
+    t.start()
+    t.join(float(timeout_s))
+    return not dist.is_initialized()
 
 
 def _identity():

@@ -557,6 +557,14 @@ class FFModel:
         if self._spmd is not None:
             return self._spmd.apply(params, input_values, training=training,
                                     rng=rng, bn_state=bn_state)
+        return self._apply_plain(params, input_values, training=training,
+                                 rng=rng, bn_state=bn_state)
+
+    def _apply_plain(self, params, input_values, *, training: bool = False,
+                     rng=None, bn_state=None):
+        """``_apply``'s one-device program on whole parameters and the
+        whole batch, under a mesh too (a replicated serving engine runs
+        it on every rank)."""
         values: Dict[int, torch.Tensor] = {}
         for t in self._inputs:
             if t.name in input_values:
@@ -712,7 +720,7 @@ class FFModel:
                 raise NotImplementedError(
                     "host-placed tables (the hetero strategy) under a mesh "
                     "of more than one rank are not ported (ROADMAP.md "
-                    "item 8, part 2)")
+                    "item 8, part 2, item 8)")
             self._spmd = SpmdPlan(self, self.mesh)
 
         def forward(params, inputs, bn_state=None):

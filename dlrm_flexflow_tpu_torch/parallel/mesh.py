@@ -403,12 +403,39 @@ def match_partition_rule(rules: PartitionRules, path: str) -> PartitionSpec:
     raise ValueError(f"no partition rule matches {path!r}")
 
 
+def rule_spec(rules: PartitionRules, path: str, shape: Sequence[int],
+              mesh: Mesh) -> PartitionSpec:
+    """The spec a leaf of global ``shape`` at ``path`` is placed under:
+    its first matching rule's, one entry per dim, or replicated when a
+    sharded axis does not divide its dim (the JAX package's fallback)."""
+    spec = match_partition_rule(rules, path)
+    ndim = len(shape)
+    entries = tuple(spec) + (None,) * (ndim - len(tuple(spec)))
+    ok = all(ax is None
+             or (i < ndim and shape[i] % mesh.axis_size(entry_axes(ax)) == 0)
+             for i, ax in enumerate(entries))
+    return PartitionSpec(*entries[:ndim]) if ok else PartitionSpec()
+
+
+def to_device(t, dev, copy: bool = False):
+    """Tensor ``t`` on ``dev``, keeping a mesh block's layout
+    (``_ff_layout``): a copy with ``copy=True``, else ``t`` itself when
+    it is already there."""
+    out = t.to(dev, copy=copy)
+    layout = getattr(t, "_ff_layout", None)
+    if layout is not None and out is not t:
+        out._ff_layout = layout
+    return out
+
+
 def apply_partition_rules(rules: PartitionRules, tree: Dict[str, dict],
                           mesh: Mesh) -> Dict[str, dict]:
     """This rank's shard of every leaf of a ``{op: {param: global
     tensor}}`` tree under the spec its first matching rule names.  A
     sharded rule whose axis does not divide the leaf's dim falls back to
-    replicated, as in the JAX package."""
+    replicated, as in the JAX package.  A block sharded over axes of more
+    than one rank remembers its layout (``_ff_layout``, as
+    ``FFModel._shard_params`` marks it), which the gathers read."""
     import torch
 
     from .collectives import local_block
@@ -416,16 +443,13 @@ def apply_partition_rules(rules: PartitionRules, tree: Dict[str, dict],
     for op_name, by_param in tree.items():
         placed = {}
         for param_name, leaf in by_param.items():
-            spec = match_partition_rule(rules, f"{op_name}/{param_name}")
             if not isinstance(leaf, torch.Tensor):
                 leaf = torch.from_numpy(np.asarray(leaf))
-            ndim = leaf.dim()
-            entries = tuple(spec) + (None,) * (ndim - len(tuple(spec)))
-            ok = all(ax is None
-                     or (i < ndim and leaf.shape[i]
-                         % mesh.axis_size(entry_axes(ax)) == 0)
-                     for i, ax in enumerate(entries))
-            spec = PartitionSpec(*entries[:ndim]) if ok else PartitionSpec()
-            placed[param_name] = local_block(leaf, spec, mesh)
+            spec = rule_spec(rules, f"{op_name}/{param_name}",
+                             tuple(leaf.shape), mesh)
+            blk = local_block(leaf, spec, mesh)
+            if any(mesh.axes_key(entry_axes(e)) for e in spec):
+                blk._ff_layout = (mesh, spec)
+            placed[param_name] = blk
         out[op_name] = placed
     return out

@@ -8,7 +8,9 @@ bit for bit, and a NaN batch cannot silently destroy the run.
   rename), per-file SHA-256 manifests verified on restore, ``keep_n``
   retention + GC of killed-save debris, retry-with-backoff on transient
   I/O errors; a failed save logs telemetry and never aborts the run.
-  Its directories and the JAX package's are interchangeable.
+  Under more than one rank, the pod commit (every rank's shard files,
+  rank 0's manifest, deadlined file barriers).  Its directories and the
+  JAX package's are interchangeable.
 * :func:`latest_checkpoint` / :func:`verify_checkpoint` — discovery
   that skips partial and corrupt entries.
 * :class:`NaNSentinel` — per-dispatch NaN/Inf detection with rollback +
@@ -24,11 +26,13 @@ bit for bit, and a NaN batch cannot silently destroy the run.
 * :mod:`.watchdog` — :func:`heartbeat_ages` / :class:`HostWatchdog` age
   the shared-filesystem heartbeat files and flag dead peers by name;
   :class:`StallWatchdog` turns a silent training stall into a flight
-  dump + loud abort; :class:`FleetBarrierTimeout` is the multi-host
-  barrier's death (that barrier comes with ROADMAP.md item 8, part 2).
+  dump + loud abort; :class:`FleetBarrierTimeout` is the pod commit
+  barrier's death, after which the survivors resume through
+  ``elastic.recover_and_resume``.
 
 Wired through ``FFModel.fit(checkpoint_manager=..., resume=True,
-checkpoint_every_n_steps=..., sentinel=NaNSentinel(...))``; recovery
+checkpoint_every_n_steps=..., sentinel=NaNSentinel(...))`` (a checkpoint
+of another topology resumes through ``elastic.reshard_restore``); recovery
 actions emit ``checkpoint`` / ``anomaly`` / ``fault`` telemetry events.
 """
 

@@ -105,9 +105,9 @@ _POINTS = ("step", "save", "restore", "barrier")
 def parse_mesh_shape(spec: str) -> Dict[str, int]:
     """``"DxM"`` -> ``{"data": D, "model": M}`` (the two named axes of the
     JAX package's parallel/mesh.py; a trailing ``x1`` may be omitted:
-    ``"2"`` means data=2).  The port parses reshape specs; a launcher that
-    catches :class:`Reshape` has no mesh to resume under until ROADMAP.md
-    Queue A item 8."""
+    ``"2"`` means data=2).  A launcher that catches :class:`Reshape`
+    compiles its model under ``make_mesh(e.mesh_shape)`` and resumes:
+    ``resilient_fit`` reshards the checkpoint onto it."""
     parts = [p.strip() for p in spec.lower().split("x")]
     if not (1 <= len(parts) <= 2) or not all(p.isdigit() for p in parts):
         raise ValueError(

@@ -14,7 +14,10 @@ rejected, or resumed mid-epoch.  When any resilience option is active,
   params + optimizer state + PRNG key + step come from the TrainState
   and the dataloader replays the exact batch sequence from its restored
   cursor, so a killed run continues bit for bit as the run that never
-  died;
+  died; a checkpoint of another topology (a ``preempt+reshape`` kill,
+  relaunched under ``make_mesh(e.mesh_shape)``) resumes through
+  ``elastic.reshard_restore``, to the tolerance of the new reduction
+  order;
 * arms a :class:`..resilience.NaNSentinel` at lag 1: each step's loss is
   read on the host while the NEXT step is already in flight.  An
   anomalous step is rejected one step late — the pre-dispatch state is
@@ -54,8 +57,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..checkpoint import (_ITEM8, CheckpointError, mesh_topology,
-                          same_topology, saved_topology)
+from ..checkpoint import mesh_topology, same_topology, saved_topology
 from ..data.prefetch import PrefetchLoader
 from ..metrics import MetricsAccumulator
 from ..telemetry import active_log, sample_memory
@@ -151,16 +153,19 @@ def resilient_fit(model, state, dataloader, epochs: int, verbose: bool,
     if resume and manager is not None and manager.latest() is not None:
         push_span(fit_span)  # parents the manager's ckpt.restore span
         try:
-            # a checkpoint saved on another topology needs the reshard
-            # restore, which the port does not have yet
+            # elastic recovery: when the newest checkpoint was saved on
+            # another topology than this model runs (the fleet reshaped
+            # across the kill — preempt+reshape), route through
+            # reshard_restore: the saved leaves, reassembled to
+            # host-logical arrays, re-placed under THIS model's partition
+            # rules.  Same-topology resumes keep the plain restore
             saved = saved_topology(manager.latest())
             if saved is not None and not same_topology(
                     saved, mesh_topology(getattr(model, "mesh", None))):
-                raise CheckpointError(
-                    f"{manager.latest()!r} was saved on another mesh "
-                    f"topology ({saved}); resuming across topologies is "
-                    f"not ported: {_ITEM8}")
-            state, extra, _path = manager.restore_latest(model=model)
+                from ..elastic.reshard import reshard_restore
+                state, extra, _path = reshard_restore(manager, model)
+            else:
+                state, extra, _path = manager.restore_latest(model=model)
         except BaseException as e:
             # a failed resume dies with its last events on record too
             dump_flight_record(e)

@@ -27,9 +27,27 @@ per-file SHA-256 table), so either package's :func:`verify_checkpoint`
 accepts the other's directories, and either package resumes from them.
 
 Single-writer per directory: concurrent managers on one directory are
-not coordinated.  The multi-host pod commit (every process writing its
-shard files under cross-host barriers) is not ported: ``multihost=True``
-raises ``NotImplementedError`` naming ROADMAP.md item 8, part 2.
+not coordinated.
+
+**Ranks** (``multihost``; None: on when the process group has more than
+one rank, as JAX reads ``process_count() > 1``).  The pod commit is the
+JAX package's protocol with a rank for a process: every rank writes its
+``shard-pNNN`` pair (``checkpoint.save_pod_shards``) into one shared
+``tmp-<step>-mh/``, rank 0 writes the manifest over ALL files and
+publishes with the one atomic rename, and three fenced phases keep the
+manifest from hashing a shard still being written and every rank from
+returning before the commit is visible.  The fences are file barriers in
+the shared directory (``.barrier-<tag>/pN`` markers), never a
+collective: after a peer dies gloo and NCCL may be wedged.  Each barrier
+has a deadline (``barrier_timeout_s``): past it the save raises
+:class:`~.watchdog.FleetBarrierTimeout` naming the absent ``pN``, after a
+``recovery`` ``phase="barrier_timeout"`` event and a flight record, and
+never retries.  A pod save is a single attempt; a non-pod save under
+more than one rank gathers the state once on every rank (a collective)
+and rank 0 alone writes it, with its retries.  A pod save's stages are
+spans under its ``ckpt.save``: ``ckpt.d2h``, ``ckpt.write``,
+``ckpt.fsync``, ``ckpt.sha256`` (rank 0) and each ``ckpt.barrier``
+wait (its ``phase`` attribute names the fence).
 """
 
 from __future__ import annotations
@@ -42,12 +60,15 @@ import shutil
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
-from ..checkpoint import (_ITEM8, CheckpointError, restore_checkpoint,
+from ..checkpoint import (CheckpointError, restore_checkpoint,
                           save_checkpoint)
+from ..distributed import _identity
 from ..telemetry import emit
 from ..telemetry import metrics as _tmetrics
-from ..telemetry.trace import start_span
+from ..telemetry.fleet import dump_flight_record
+from ..telemetry.trace import pop_span, push_span, span, start_span
 from . import faultinject
+from .watchdog import FleetBarrierTimeout
 
 _CKPT_RE = re.compile(r"^ckpt-(\d+)$")
 MANIFEST = "manifest.json"
@@ -186,15 +207,22 @@ class CheckpointManager:
                 "False)")
         self.use_orbax = use_orbax
         self.fsync = fsync
-        # the podshard barrier's deadline (kept for the JAX signature;
-        # the multi-host commit is not ported)
+        # deadline on every podshard commit barrier: past it the save
+        # raises FleetBarrierTimeout (BaseException — see _barrier)
+        # naming the absent ranks, instead of parking this rank forever
+        # behind a dead peer
         self.barrier_timeout_s = float(barrier_timeout_s)
-        # multi-host pod mode: not ported (ROADMAP.md item 8, part 2).
-        # None means one process, which the port always is
+        # pod mode: every rank writes its own shard files into one
+        # shared directory, rank 0 commits the one manifest.  None =
+        # on when the process group has more than one rank.  Pod saves
+        # are single-attempt: the write is fenced by barriers, and a
+        # per-rank retry loop would deadlock the peers parked at them
         self.multihost = multihost
 
     def _is_multihost(self) -> bool:
-        return bool(self.multihost)
+        if self.multihost is not None:
+            return bool(self.multihost)
+        return _identity()[1] > 1
 
     # ------------------------------------------------------------------ save
     def save(self, state, model=None, extra: Optional[Dict[str, Any]] = None,
@@ -202,9 +230,13 @@ class CheckpointManager:
         """Atomically write one checkpoint; returns the committed path or
         None when every attempt failed.  NEVER raises on I/O failure —
         a failed save logs a ``checkpoint`` telemetry event and the
-        training run continues.  Only the BaseException family escapes
-        (:class:`faultinject.Preemption`, a simulated or real kill), and
-        the ``NotImplementedError`` of a multi-host manager."""
+        training run continues.  Only the BaseException family escapes:
+        :class:`faultinject.Preemption` (a simulated or real kill) and
+        :class:`FleetBarrierTimeout` (a pod commit barrier whose peers
+        never arrived: a dead fleet must abort loudly, not log "save
+        failed" and park at the next collective).  A non-pod save under
+        more than one rank returns None on every rank but 0, which alone
+        writes."""
         if step is None:
             step = int(state.step)
         t0 = time.perf_counter()
@@ -217,8 +249,10 @@ class CheckpointManager:
 
         # one success and one failure epilogue, so the save telemetry
         # (event, counter, span) cannot drift between paths
-        def committed(final: str, attempt: int) -> str:
-            self.gc()
+        def committed(final: str, attempt: int,
+                      sweep: bool = True) -> str:
+            if sweep:
+                self.gc()
             emit("checkpoint", action="save", step=step, path=final,
                  duration_s=time.perf_counter() - t0, attempt=attempt,
                  files=len(_walk_files(final)))
@@ -239,11 +273,30 @@ class CheckpointManager:
                   f"without it: {err!r}", file=sys.stderr)
             return None
 
+        rank, world = _identity()
         if self._is_multihost():
-            # not ported: its NotImplementedError is no I/O failure to
-            # log and continue past
-            return committed(self._write_and_commit_multihost(
-                state, model, extra, step), 0)
+            # one attempt, barrier-fenced (see __init__) — a failure
+            # logs and returns None like an exhausted retry; its stage
+            # spans parent to ckpt.save
+            push_span(sspan)
+            try:
+                final = self._write_and_commit_multihost(state, model,
+                                                         extra, step)
+            except Exception as e:  # noqa: BLE001 — never abort the run
+                return failed(e, 0, "multihost")
+            finally:
+                pop_span(sspan)
+            # one sweeper (rank 0): concurrent rmtree would race
+            return committed(final, 0, sweep=rank == 0)
+        if world > 1:
+            # the gathered save: every rank joins the gather ONCE, outside
+            # rank 0's retry loop (a retry must not re-enter a
+            # collective the other ranks have left)
+            from ..elastic.reshard import gather_state
+            state = gather_state(state)
+            if rank != 0:
+                sspan.end()
+                return None
         for attempt in range(self.retries + 1):
             if attempt:
                 emit("checkpoint", action="retry", step=step,
@@ -311,41 +364,167 @@ class CheckpointManager:
 
     def _barrier(self, tag: str, pidx: int, nproc: int,
                  timeout_s: Optional[float] = None) -> None:
-        """The JAX package's shared-filesystem commit barrier, with its
-        deadline (``FleetBarrierTimeout``): not ported."""
-        raise NotImplementedError(
-            f"the multi-host checkpoint barrier is not ported: {_ITEM8}")
+        """Shared-filesystem barrier: each rank drops a marker file
+        ``p<rank>`` under ``.barrier-<tag>/`` and waits until all
+        ``nproc`` are present.  Every rank creates its marker BEFORE
+        polling, so once anyone counts ``nproc`` the set is complete — a
+        later sweep of the directory (gc, or the next save) therefore
+        reads as "barrier passed" to stragglers still polling.
+        File-based, never a collective: the checkpoint directory is
+        already assumed shared, and after a peer dies the process group
+        (gloo or NCCL) may be wedged.
+
+        Deadlined: past ``timeout_s`` (default ``barrier_timeout_s``)
+        the wait raises :class:`FleetBarrierTimeout` NAMING the absent
+        ranks (``pN``), after emitting a ``recovery`` event and dumping a
+        flight record — a peer that will never arrive must end this
+        save loudly, not park the survivor forever.  BaseException by
+        the Preemption precedent: ``save()``'s never-abort ``except
+        Exception`` must not turn a dead fleet into "save failed,
+        continuing".  Single-attempt semantics hold — the timeout
+        aborts, it NEVER retries (a retry would re-fence survivors at
+        a barrier the dead can't fill)."""
+        faultinject.maybe_host_fault("barrier")  # the peer that hangs
+        if timeout_s is None:
+            timeout_s = self.barrier_timeout_s
+        bdir = os.path.join(self.directory, f".barrier-{tag}")
+        os.makedirs(bdir, exist_ok=True)
+        with open(os.path.join(bdir, f"p{pidx}"), "w"):
+            pass
+        deadline = time.monotonic() + timeout_s
+        while True:
+            try:
+                present = set(os.listdir(bdir))
+            except FileNotFoundError:
+                return  # swept by a process that counted everyone
+            if len(present) >= nproc:
+                return
+            if time.monotonic() > deadline:
+                missing = sorted(
+                    {f"p{i}" for i in range(nproc)} - present,
+                    key=lambda s: int(s[1:]))
+                err = FleetBarrierTimeout(tag, missing, timeout_s,
+                                          arrived=len(present),
+                                          expected=nproc)
+                emit("recovery", phase="barrier_timeout", tag=tag,
+                     missing=list(missing), arrived=len(present),
+                     expected=nproc, deadline_s=float(timeout_s))
+                dump_flight_record(err)  # best-effort (None w/o a log)
+                raise err
+            time.sleep(0.01)
 
     def _write_and_commit_multihost(self, state, model, extra,
                                     step: int) -> str:
-        """The JAX package's pod commit protocol (every process writes
-        its shard files, process 0 commits the manifest): not ported."""
-        raise NotImplementedError(
-            f"the multi-host checkpoint commit is not ported: {_ITEM8}")
+        """The pod commit protocol: every rank writes its own
+        ``shard-pNNN`` pair into ONE shared tmp dir (the directory must
+        be a shared filesystem), then rank 0 alone writes the manifest
+        over ALL files and publishes with the one atomic rename.
+        Barriers fence the three phases so the manifest can never hash
+        a shard still being written and no rank returns before the
+        commit is visible.  ``save`` is a COLLECTIVE call (of files, not
+        of the process group): every rank must call it for the same
+        step, in the same order."""
+        pidx, nproc = _identity()
+
+        def fence(phase: str) -> None:
+            with span("ckpt.barrier", attrs={"phase": phase}):
+                self._barrier(f"{tag}-{phase}", pidx, nproc)
+
+        self._mh_saves = getattr(self, "_mh_saves", 0) + 1
+        tag = f"{step}-{self._mh_saves}"
+        os.makedirs(self.directory, exist_ok=True)
+        tmp = os.path.join(self.directory, f"tmp-{step}-mh")
+        final = os.path.join(self.directory, f"ckpt-{step}")
+        if pidx == 0:
+            # sweep fences of PAST saves only (tag-mismatched): this
+            # save's -tmp fence may already hold a fast peer's marker
+            for name in os.listdir(self.directory):
+                if name.startswith(".barrier-") \
+                        and not name.startswith(f".barrier-{tag}-"):
+                    shutil.rmtree(os.path.join(self.directory, name),
+                                  ignore_errors=True)
+            if os.path.isdir(tmp):
+                shutil.rmtree(tmp)
+            os.makedirs(tmp)
+        fence("tmp")
+        save_checkpoint(tmp, state, step=step, model=model,
+                        multihost=True)
+        # the same injection window as the single-host path: a kill
+        # here leaves tmp debris the (rank-0) gc sweeps
+        faultinject.maybe_io_error("save", step=step)
+        faultinject.maybe_preempt("save", step=step)
+        if self.fsync:
+            with span("ckpt.fsync"):
+                for name in os.listdir(tmp):
+                    if name.startswith(f"shard-p{pidx:03d}") \
+                            or (pidx == 0
+                                and not name.startswith("shard-")):
+                        _fsync_file(os.path.join(tmp, name))
+        fence("written")
+        if pidx == 0:
+            if extra is not None:
+                with open(os.path.join(tmp, EXTRA), "w") as f:
+                    json.dump(extra, f)
+            files = _walk_files(tmp)
+            with span("ckpt.sha256"):
+                manifest = {"step": step,
+                            "files": {rel: _sha256(os.path.join(tmp, rel))
+                                      for rel in files}}
+            with open(os.path.join(tmp, MANIFEST), "w") as f:
+                json.dump(manifest, f, indent=1, sort_keys=True)
+            if self.fsync:
+                for rel in [EXTRA] * bool(extra is not None) + [MANIFEST]:
+                    _fsync_file(os.path.join(tmp, rel))
+                _fsync_dir(tmp)
+            if os.path.isdir(final):
+                # same never-un-publish rule as the single-host commit
+                if not verify_checkpoint(final):
+                    shutil.rmtree(tmp)
+                else:
+                    shutil.rmtree(final)
+            if os.path.isdir(tmp):
+                os.rename(tmp, final)  # THE commit
+            if self.fsync:
+                _fsync_dir(self.directory)
+        fence("commit")
+        if pidx == 0:
+            # sweep THIS save's fences: safe once everyone reached the
+            # commit barrier (a straggler still polling reads a missing
+            # dir as "passed"), and the next save's fences carry a
+            # different tag — so the LAST save of a run leaves no
+            # .barrier-* debris behind (the prologue sweep above only
+            # covers runs that save again)
+            for phase in ("tmp", "written", "commit"):
+                shutil.rmtree(
+                    os.path.join(self.directory,
+                                 f".barrier-{tag}-{phase}"),
+                    ignore_errors=True)
+        return final
 
     # --------------------------------------------------------------- restore
     def latest(self) -> Optional[str]:
         return latest_checkpoint(self.directory)
 
     def restore_latest(self, model=None, inference_only: bool = False,
-                       on_mesh_change: str = "error"
+                       on_mesh_change: str = "error", *, device=None
                        ) -> Tuple[Any, Dict[str, Any], str]:
         """(state, extra, path) from the newest VALID checkpoint.
         ``inference_only=True`` loads params without optimizer slots
         (the serving engine's restore — checkpoint.py);
-        ``on_mesh_change`` is checked by
-        ``checkpoint.restore_checkpoint`` (a changed topology raises).
-        Raises :class:`CheckpointError` when the directory holds
-        none."""
+        ``on_mesh_change="reshard"`` is the elastic cross-topology
+        restore; ``device`` goes to ``checkpoint.restore_checkpoint``,
+        whose stage spans parent to ``ckpt.restore``.  Raises
+        :class:`CheckpointError` when the directory holds none."""
         path = self.latest()
         if path is None:
             raise CheckpointError(
                 f"no valid checkpoint under {self.directory!r}")
         t0 = time.perf_counter()
-        with start_span("ckpt.restore", attrs={"path": path}):
+        with span("ckpt.restore", attrs={"path": path}):
             state = restore_checkpoint(path, model=model,
                                        inference_only=inference_only,
-                                       on_mesh_change=on_mesh_change)
+                                       on_mesh_change=on_mesh_change,
+                                       device=device)
             extra: Dict[str, Any] = {}
             epath = os.path.join(path, EXTRA)
             if os.path.isfile(epath):
@@ -377,11 +556,16 @@ class CheckpointManager:
             names = os.listdir(self.directory)
         except (FileNotFoundError, NotADirectoryError):
             names = []
-        # .barrier-* dirs are the JAX package's multihost commit fences
-        # (debris in a directory it wrote); the port never makes them
+        # .barrier-* dirs are the pod commit fences.  Sweeping them here
+        # is safe only when no pod save can be in flight (a peer may have
+        # pre-created the NEXT save's fence; deleting a fence that has
+        # not collected every marker would let a straggler read "missing
+        # = passed" early) — in pod mode the save prologue sweeps stale
+        # fences by tag
+        sweep_barriers = not self._is_multihost()
         for name in names:
             if name.startswith("tmp-") or name.endswith(".old") \
-                    or name.startswith(".barrier-"):
+                    or (sweep_barriers and name.startswith(".barrier-")):
                 shutil.rmtree(os.path.join(self.directory, name),
                               ignore_errors=True)
                 removed_tmp += 1

@@ -3,10 +3,10 @@
 
 A crashed or hung peer leaves every survivor parked forever in a
 collective or a file barrier.  This module is the detection half of
-failure-domain hardening; recovery (the JAX package's
-``elastic/recovery.py``) and the multi-host barrier come with the
-scale-out slice (ROADMAP.md item 8, part 2).  In the port the heartbeat
-protocol and the stall watchdog run as they do in JAX:
+failure-domain hardening; recovery is ``elastic/recovery.py``
+(``recover_and_resume``) and the deadlined pod commit barrier is
+``CheckpointManager._barrier``.  In the port the heartbeat protocol and
+the stall watchdog run as they do in JAX:
 
 * **heartbeat protocol** — every process touches ``heartbeat-pNNN`` in
   a shared directory on a cadence (:func:`beat`: atomic ``.tmp`` +
@@ -17,9 +17,9 @@ protocol and the stall watchdog run as they do in JAX:
   ``recovery`` ``phase="dead_peer"`` event each and the stalest age
   lands on the ``dlrm_host_heartbeat_age_s`` gauge every sweep.
 * :class:`FleetBarrierTimeout` — the error the podshard commit barrier
-  raises instead of hanging when peers never arrive (the JAX package's
-  ``CheckpointManager._barrier``); named here because it is the
-  fleet-death signal recovery code catches.
+  (``CheckpointManager._barrier``) raises instead of hanging when peers
+  never arrive; named here because it is the fleet-death signal
+  recovery code catches.
 * :class:`StallWatchdog` — the step-level watchdog ``resilient_fit``
   arms (``FFConfig.stall_abort_multiple`` / ``FF_STALL_MULTIPLE``): no
   adopted step progress within ``multiple`` x the recent step wall

@@ -43,9 +43,36 @@ the caller's span, the ``serve.pad`` and ``serve.engine_forward`` spans
 engine's per-bucket dispatch counts are scraped by ``/metrics``
 (``telemetry.metrics.track_engine``).
 
-Not ported yet: mesh-native serving (ROADMAP.md item 8, part 2): an
-engine over a model compiled under a mesh of more than one rank
-raises.
+**Under a mesh** the engine is mesh-native.  ``partition_rules`` (the
+rules the training placement uses) is kept on the engine; a parameter
+sharded by them makes a SHARDED engine (``_mesh_sharded``), a fully
+replicated tree a REPLICA.  A sharded engine on a data+model mesh rounds
+its buckets up to multiples of the data size, as the JAX package does.
+A mesh whose axes are all of size 1 runs the no-mesh program (graphs
+included).  Over more than one rank the port has one process per rank
+where JAX has one controller, so every rank must run the same bucket in
+the same order for the collectives to meet:
+
+* rank 0, the **leader**, owns the batcher (and the router, if any);
+  before each forward it broadcasts the padded bucket over the world
+  group, and the results are returned on rank 0;
+* every other rank runs :meth:`InferenceEngine.follow` (a **follower**)
+  until the leader's :meth:`close` (or the error path of a failed
+  dispatch) broadcasts the stop; a follower waits for the next bucket
+  under the same deadline as a collective, so a dead leader cannot park
+  it forever;
+* each rank holds its blocks of the parameters (a state trained on the
+  mesh is taken as it is; global values are cut by the rules);
+* dispatch is eager, as the mesh step is (gloo cannot be captured): a
+  sharded engine runs the mesh's forward (its outputs tolerance-pinned
+  against one device: the collectives reorder reductions); a replica
+  runs the one-device program on the whole bucket on every rank, bit
+  for bit the one-device engine.
+
+Under a mesh of more than one rank no kernel launches (as JAX keeps
+Pallas off under SPMD), tiered storage is refused as in JAX (every table
+left resident with the reason), and quantized tables raise (ROADMAP.md
+item 8, part 2, item 9).
 """
 
 from __future__ import annotations
@@ -60,6 +87,7 @@ import torch
 from ..device import resolve_device
 from ..graphs import GraphRunner, run_eager
 from ..ops.quantized import QUANT_MODES, quantize_embedding_params
+from ..parallel.mesh import to_device
 from ..telemetry import active_log, emit
 from ..telemetry import metrics as _metrics
 from ..telemetry.torch_hooks import record_compile
@@ -118,11 +146,6 @@ class InferenceEngine:
             raise ValueError(
                 "model must be compile()d before building an "
                 "InferenceEngine (no forward exists yet)")
-        if getattr(model, "_spmd", None) is not None:
-            raise NotImplementedError(
-                "mesh-native serving (an engine over a model compiled under "
-                "a mesh of more than one rank) is not ported: ROADMAP.md "
-                "item 8, part 2")
         if params_or_state is None:
             raise ValueError(
                 "InferenceEngine needs parameters: pass a TrainState or "
@@ -148,10 +171,21 @@ class InferenceEngine:
         if buckets is None:
             buckets = getattr(model.config, "serve_buckets", None)
         self.buckets = parse_buckets(buckets)
+        # across the ranks of a mesh: eager (gloo cannot be captured)
+        self._spmd = getattr(model, "_spmd", None) is not None
+        if self._spmd and quantize != "off":
+            raise NotImplementedError(
+                "quantized tables under a mesh of more than one rank are not "
+                "ported (ROADMAP.md item 8, part 2, item 9)")
         self._aot = (not getattr(model, "_hetero_ops", None)
-                     if aot is None else bool(aot))
+                     if aot is None else bool(aot)) and not self._spmd
         self._params = dict(getattr(params_or_state, "params",
                                     params_or_state))
+        self.partition_rules = None
+        self._mesh_sharded = False
+        self._stopped = False
+        if model.mesh is not None:
+            self._place_on_mesh()
         # tiered storage, built before the params move to the card (a
         # tiered table never lands there whole) and before warmup (every
         # bucket's graph captures against the hot tiers)
@@ -159,7 +193,8 @@ class InferenceEngine:
         self._tiered: Dict[str, Any] = {}  # input name -> (op, store)
         if storage == "tiered":
             self._build_tiered()
-        self._params = {op: {k: v.to(self.device) for k, v in d.items()}
+        self._params = {op: {k: to_device(v, self.device)
+                             for k, v in d.items()}
                         for op, d in self._params.items()}
         # batch norm's running statistics (the JAX engine's): bare params
         # would serve on batch statistics, rows leaking into each other
@@ -189,6 +224,162 @@ class InferenceEngine:
         _metrics.track_engine(self)
         if warmup:
             self.warmup()
+
+    # ---------------------------------------------------------------- mesh
+    def _place_on_mesh(self) -> None:
+        """The JAX engine's mesh placement: ``partition_rules`` kept on
+        the engine, ``_mesh_sharded`` when any parameter's rule shards it
+        (a fully replicated tree is a replica), a sharded engine's
+        buckets rounded up to the data size.  Across ranks each leaf
+        becomes the rank's block: one already a mesh block (a state
+        trained or restored on this mesh) is kept, a global value is cut
+        by its rule."""
+        from ..parallel.mesh import (DATA_AXIS, apply_partition_rules,
+                                     partition_rules, rule_spec)
+        model, mesh = self.model, self.model.mesh
+        self.partition_rules = partition_rules(model)
+        shapes = {op.name: {p.param_name: tuple(p.shape)
+                            for p in op.param_specs()}
+                  for op in model.layers}
+        sharded = False
+        placed = {}
+        for op_name, d in self._params.items():
+            placed[op_name] = {}
+            for k, v in d.items():
+                layout = getattr(v, "_ff_layout", None)
+                if layout is not None:
+                    spec = layout[1]
+                else:
+                    spec = rule_spec(self.partition_rules, f"{op_name}/{k}",
+                                     shapes.get(op_name, {}).get(
+                                         k, tuple(v.shape)), mesh)
+                    if self._spmd:
+                        v = apply_partition_rules(
+                            self.partition_rules, {op_name: {k: v}},
+                            mesh)[op_name][k]
+                sharded = sharded or any(ax is not None for ax in spec)
+                placed[op_name][k] = v
+        self._params = placed
+        self._mesh_sharded = sharded
+        dsize = mesh.shape.get(DATA_AXIS, 1)
+        if self._mesh_sharded and dsize > 1:
+            # a sharded engine on a data+model mesh runs data-divisible
+            # buckets only, as the JAX engine compiles them (predict
+            # pads the same way)
+            self.buckets = sorted({-(-b // dsize) * dsize
+                                   for b in self.buckets})
+
+    @property
+    def is_leader(self) -> bool:
+        """Whether this rank owns the batcher and returns the results
+        (rank 0; always, off a mesh of more than one rank)."""
+        if not self._spmd:
+            return True
+        import torch.distributed as dist
+        return dist.get_rank() == 0
+
+    def _comm_device(self) -> torch.device:
+        import torch.distributed as dist
+        return (self.device if dist.get_backend() == "nccl"
+                else torch.device("cpu"))
+
+    def _mesh_forward(self, inputs: Dict[str, torch.Tensor]
+                      ) -> torch.Tensor:
+        """One padded bucket's forward on this rank: the mesh's forward
+        (a sharded engine: the rank's rows, the output gathered on every
+        rank) or, for a replica, the one-device program on the whole
+        bucket."""
+        model = self.model
+        with torch.inference_mode():
+            if not self._mesh_sharded:
+                x = {k: v.to(self.device, self._dtypes[k])
+                     for k, v in inputs.items()}
+                values, _ = model._apply_plain(self._params, x,
+                                               bn_state=self._bn)
+                out = model.final_tensor
+                return values[out.uid].to(out.dtype)
+            placed = model._place_inputs(inputs, self.device)
+            return model._forward_fn(self._params, placed, self._bn)
+
+    def _broadcast_bucket(self, cmd: int, b: int,
+                          padded: Optional[Dict[str, torch.Tensor]] = None
+                          ) -> None:
+        """The leader's half of one step of the protocol: the header
+        ``[cmd, b]`` (cmd 1: a bucket follows, 0: stop), then each input
+        of the padded bucket, in the model's input order."""
+        import torch.distributed as dist
+        dev = self._comm_device()
+        dist.broadcast(torch.tensor([cmd, b], dtype=torch.int64,
+                                    device=dev), src=0)
+        for name in (self._in_specs if cmd else ()):
+            dist.broadcast(padded[name].to(dev).contiguous(), src=0)
+
+    def _stop_followers(self) -> None:
+        """Send the stop once (the leader's close and error path)."""
+        if self._spmd and self.is_leader and not self._stopped:
+            self._stopped = True
+            self._broadcast_bucket(0, 0)
+
+    def follow(self) -> int:
+        """A follower rank's loop (every rank but 0 under a mesh of more
+        than one rank): receive each bucket the leader broadcasts, run
+        its forward with the leader, until the leader's stop.  Returns
+        the buckets served.  Each wait for the next bucket is bounded by
+        the process group's collective deadline and raises past it: a
+        dead leader must not park a follower forever."""
+        import torch.distributed as dist
+        if self.is_leader:
+            raise ValueError("follow() runs on the ranks other than 0 of a "
+                             "mesh of more than one rank; rank 0 serves")
+        dev = self._comm_device()
+        served = 0
+        while True:
+            head = torch.zeros(2, dtype=torch.int64, device=dev)
+            dist.broadcast(head, src=0)
+            cmd, b = (int(x) for x in head.tolist())
+            if cmd == 0:
+                self._stopped = True
+                return served
+            inputs = {}
+            for name, (shape, _) in self._in_specs.items():
+                t = torch.empty((b,) + shape, dtype=self._dtypes[name],
+                                device=dev)
+                dist.broadcast(t, src=0)
+                inputs[name] = t
+            with self._lock:
+                self._mesh_forward(inputs)
+            served += 1
+
+    def close(self) -> None:
+        """Release the followers (the leader of a mesh of more than one
+        rank broadcasts the stop); a no-op elsewhere, and when called
+        again."""
+        with self._lock:
+            self._stop_followers()
+
+    def _mesh_dispatch(self, padded: Dict[str, np.ndarray], b: int
+                       ) -> torch.Tensor:
+        """The leader's padded bucket through the protocol, under the
+        engine's lock: broadcast, then the forward on every rank.  A
+        failure after the broadcast sends the stop (the followers may be
+        inside the collective the leader left) and re-raises."""
+        if not self.is_leader:
+            raise ValueError("a follower rank serves through follow(); "
+                             "rank 0 takes the requests")
+        if self._stopped:
+            raise RuntimeError("this mesh engine is closed: its followers "
+                               "have stopped")
+        tensors = {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+            self._dtypes[k]) for k, v in padded.items()}
+        try:
+            self._broadcast_bucket(1, b, tensors)
+            return self._mesh_forward(tensors)
+        except BaseException:
+            try:
+                self._stop_followers()
+            except Exception:  # noqa: BLE001 — the group may be broken
+                pass
+            raise
 
     # ------------------------------------------------------------ construction
     @classmethod
@@ -254,17 +445,21 @@ class InferenceEngine:
                 rows = [op.num_entries] * op.num_tables
             else:
                 rows = list(op.row_counts)
-            # The JAX package also refuses mesh-native serving, host-
-            # placed tables, lane-packed storage and live table exchange
-            # here; the port's ops have none of them (no mesh, no
-            # placement, storage_pack or exchange_mode attribute), so
-            # those reasons cannot arise.  What remains is the budget.
+            # structural eligibility, JAX's reasons: tiering remaps ids
+            # against ONE plain per-table row space on the device — a mesh
+            # (a sharded row space; the live table exchange runs only
+            # under one) and a host-placed table are out (the port has no
+            # lane-packed storage)
             ishape = op.inputs[0].shape  # includes the batch dim
             bag = ishape[-1] if len(ishape) >= (
                 3 if kind != "Embedding" else 2) else 1
             hot_per = [min(hot_budget, r) for r in rows]
             reason = None
-            if min(hot_per) < top * bag:
+            if self.model.mesh is not None:
+                reason = "mesh-native serving (sharded row space)"
+            elif getattr(op, "placement", "tpu") == "cpu":
+                reason = "host-placed table (already off-device)"
+            elif min(hot_per) < top * bag:
                 reason = (f"hot tier ({min(hot_per)} slots) below "
                           f"one bucket's worst-case working set "
                           f"({top}x{bag} ids)")
@@ -331,7 +526,22 @@ class InferenceEngine:
     def warmup(self) -> None:
         """Build every bucket's graph outside the serving path, so
         steady-state traffic never waits on a kernel build, a capture or
-        a first allocation."""
+        a first allocation.  Across ranks the leader runs each bucket
+        once through the protocol (the followers join it in
+        :meth:`follow`), a follower does nothing."""
+        if self._spmd:
+            if not self.is_leader:
+                return
+            for b in self.buckets:
+                zeros = {name: np.zeros((b,) + shape, dtype=dtype)
+                         for name, (shape, dtype) in self._in_specs.items()}
+                t0 = time.perf_counter()
+                with self._lock:
+                    self._mesh_dispatch(zeros, b)
+                record_compile("aot", time.perf_counter() - t0,
+                               fn=f"serve[bucket={b}]", donated_args=0,
+                               backend=self.device.type)
+            return
         for b in self.buckets:
             self._ensure(b)
 
@@ -450,7 +660,7 @@ class InferenceEngine:
         are emitted after the fence, outside the lock, under the caller's
         current span (the batcher's ``serve.dispatch``)."""
         b = self.bucket_for(m)
-        runner = self._ensure(b)
+        runner = None if self._spmd else self._ensure(b)
         notes = []
         with self._lock:
             t_remap = time.perf_counter()
@@ -463,7 +673,10 @@ class InferenceEngine:
             t_pad = time.perf_counter()
             padded = {k: self._pad(v, m, b) for k, v in chunk.items()}
             t0 = time.perf_counter()
-            out = runner.run_locked(padded, self._params)[:m]
+            if runner is None:
+                out = self._mesh_dispatch(padded, b)[:m]
+            else:
+                out = runner.run_locked(padded, self._params)[:m]
         out = out.cpu().numpy()  # the device-to-host copy is the fence
         t1 = time.perf_counter()
         for store, info in notes:

@@ -20,10 +20,11 @@ produce (``track_router`` / ``retire_router`` keep the router's shed
 count monotone the same way), the durability families (checkpoint saves
 and age, sentinel rollbacks, the host watchdog's heartbeat age) and the
 tiered store's two gauges, the fleet identity and skew, the closed
-tuning loop's calibration error and strategy version and age, and the SLO
-monitor's budget and burn rows.  ``dlrm_elastic_reshard_total`` comes
-with ``elastic/`` (ROADMAP.md).  The registry is process-wide, as the
-JAX package's is; ``reset`` clears its live and retained state (tests).
+tuning loop's calibration error and strategy version and age, the SLO
+monitor's budget and burn rows, and the restores across a topology
+change (``dlrm_elastic_reshard_total``, ``elastic/``).  The registry is
+process-wide, as the JAX package's is; ``reset`` clears its live and
+retained state (tests).
 """
 
 from __future__ import annotations
@@ -79,6 +80,9 @@ FAMILIES: Dict[str, Tuple[str, str]] = {
     "dlrm_serve_replicas": (
         "gauge", "live serving replicas across all ReplicaRouters "
                  "(moves with scale_to/rebuild — docs/elastic.md)"),
+    "dlrm_elastic_reshard_total": (
+        "counter", "checkpoints restored across a topology change "
+                   "(elastic.reshard_restore — docs/elastic.md)"),
     "dlrm_train_steps_total": (
         "counter",
         'training dispatches adopted (global steps)'),
@@ -834,6 +838,8 @@ SERVE_ROUTER_SHED = REGISTRY.register(
     Gauge("dlrm_serve_router_shed_total", fn=_router_shed_total))
 SERVE_REPLICAS = REGISTRY.register(
     Gauge("dlrm_serve_replicas", fn=_serve_replicas))
+ELASTIC_RESHARDS = REGISTRY.register(
+    Counter("dlrm_elastic_reshard_total"))
 PROCESS_INDEX = REGISTRY.register(
     Gauge("dlrm_process_index", fn=_process_index))
 PROCESS_COUNT = REGISTRY.register(
@@ -916,7 +922,7 @@ def reset() -> None:
     _last_ckpt_ts = None
     _strategy_promoted_ts = None
     for c in (TRAIN_STEPS, CHECKPOINT_SAVES, SENTINEL_ROLLBACKS,
-              REPLICA_EJECTED):
+              REPLICA_EJECTED, ELASTIC_RESHARDS):
         with c._lock:
             c._v = 0.0
     for g in (TRAIN_SAMPLES_PER_S, DATA_STALL_PCT, EXPOSED_COMM_PCT,

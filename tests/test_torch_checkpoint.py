@@ -190,18 +190,23 @@ def test_restore_of_a_model_never_placed_asks_for_the_card(tmp_path):
 
 
 def test_restore_across_topologies_raises_naming_item_8(tmp_path):
-    """The JAX package's mesh restore and reshard have no counterpart
-    until ROADMAP.md Queue A item 8: a checkpoint saved on another
-    topology raises in either on_mesh_change mode."""
+    """A checkpoint saved on another topology raises in "error" mode with
+    the JAX package's text (both topologies, the way across), and
+    restores in "reshard" mode (ROADMAP.md item 8, part 2 ported its
+    reshard restore): the values bit for bit, on the restoring model."""
     pm, state, _ = _port_model_state("mlp")
     path = save_checkpoint(str(tmp_path / "c"), state, model=pm)
     meta = json.loads((tmp_path / "c" / "meta.json").read_text())
     assert meta == {"step": 1, "format": "npz", "mesh": {}}
     meta["mesh"] = {"data": 4, "model": 2}
     (tmp_path / "c" / "meta.json").write_text(json.dumps(meta))
-    for mode in ("error", "reshard"):
-        with pytest.raises(CheckpointError, match="item 8"):
-            restore_checkpoint(path, pm, on_mesh_change=mode)
+    with pytest.raises(CheckpointError,
+                       match=r"data=4,model=2.*single.*reshard_restore"):
+        restore_checkpoint(path, pm, on_mesh_change="error")
+    got = restore_checkpoint(path, pm, on_mesh_change="reshard",
+                             device="cpu")
+    _assert_tree_bits(got.params, {op: {k: v.numpy() for k, v in d.items()}
+                                   for op, d in state.params.items()})
     with pytest.raises(ValueError, match="on_mesh_change"):
         restore_checkpoint(path, pm, on_mesh_change="nope")
     # size-1 axes replicate: the same as no mesh
@@ -339,17 +344,36 @@ def test_orbax_checkpoint_raises_naming_the_npz_way_out(tmp_path):
 
 
 def test_podshard_checkpoint_raises_naming_item_8(tmp_path):
+    """The podshard format (ROADMAP.md item 8, part 2): a directory whose
+    meta says podshard but holds no shard file raises naming what is
+    missing; one process's pod save (every leaf a plain key of
+    shard-p000, rank 0's) restores bit for bit."""
     d = tmp_path / "pod"
     d.mkdir()
     (d / "meta.json").write_text(json.dumps(
         {"step": 4, "format": "podshard", "process_count": 2}))
-    with pytest.raises(CheckpointError, match="item 8"):
+    with pytest.raises(CheckpointError, match="no shard-p"):
         restore_checkpoint(str(d))
+    pm, st, _ = _port_model_state("dlrm")
+    p = save_checkpoint(str(tmp_path / "p1"), st, model=pm, multihost=True)
+    assert sorted(os.listdir(p)) == ["meta.json", "shard-p000.json",
+                                     "shard-p000.npz"]
+    assert json.loads(open(os.path.join(p, "meta.json")).read()) == {
+        "step": 1, "format": "podshard", "process_count": 1, "mesh": {}}
+    got = restore_checkpoint(p, pm, device="cpu")
+    for f in ("params", "opt_state", "rng", "step"):
+        _assert_tree_bits(getattr(got, f), state_to_numpy(st)[f])
 
 
 @pytest.mark.parametrize("kw", [{"multihost": True}, {"use_orbax": True}])
 def test_unported_save_formats_raise(tmp_path, kw):
+    """orbax raises; the pod format (multihost=True), ported with ROADMAP
+    item 8, part 2, writes its shard files."""
     _, st, _ = _port_model_state("mlp")
+    if kw.get("multihost"):
+        p = save_checkpoint(str(tmp_path / "c"), st, **kw)
+        assert "shard-p000.npz" in os.listdir(p)
+        return
     with pytest.raises(NotImplementedError):
         save_checkpoint(str(tmp_path / "c"), st, **kw)
 

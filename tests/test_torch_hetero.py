@@ -552,6 +552,27 @@ def test_c2_the_jax_root_names_are_on_the_port_root():
                                                           Exception)
 
 
+def test_c6_tiered_engine_leaves_host_tables_resident():
+    """C6: a tiered engine over a hetero model raised ``KeyError:
+    'embedding'`` in the port (a host-placed op's params hold only its
+    handle); JAX (``serving/engine.py::_build_tiered``) leaves each
+    host-placed table resident with its reason and serves.  Both now
+    record the same fallbacks, and the port answers as ``predict``."""
+    from dlrm_flexflow_tpu.serving import InferenceEngine as JaxEngine
+
+    from dlrm_flexflow_tpu_torch.serving import InferenceEngine
+    jm = _jax_model()
+    js = jm.init(seed=0)
+    pm, ps = _port_from_jax(jm, js)
+    want = JaxEngine(jm, js, "8", storage="tiered").storage
+    engine = InferenceEngine(pm, ps, "8", device="cpu", storage="tiered")
+    assert engine.storage == want
+    assert set(want["fallbacks"]) == {op.name for op in pm._hetero_ops}
+    x, _ = _batches(1, seed=12)[0]
+    np.testing.assert_array_equal(engine.predict(x),
+                                  pm.predict(ps, x).numpy())
+
+
 def test_c3_cpu_entry_on_an_op_without_placement_is_ignored(tmp_path):
     """The generator's hetero strategy on the stacked graph: both packages
     compile it with no host op (a "cpu" config on an op without a

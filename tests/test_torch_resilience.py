@@ -249,17 +249,35 @@ class TestCheckpointManager:
 
     def test_multihost_commit_and_barrier_raise_naming_item_8(self,
                                                                tmp_path):
+        """The pod commit and its deadlined barrier (ROADMAP.md item 8,
+        part 2): one rank's pod save commits a verified checkpoint with
+        no fence left behind, and a barrier whose peer never arrives
+        raises FleetBarrierTimeout naming it; orbax still raises."""
         m = make_model()
         st = init(m)
         mgr = CheckpointManager(str(tmp_path), multihost=True)
-        with pytest.raises(NotImplementedError, match="item 8"):
-            mgr.save(st, step=1)
-        with pytest.raises(NotImplementedError, match="item 8"):
-            mgr._barrier("3-1", pidx=0, nproc=2)
+        with event_log() as log:
+            p = mgr.save(st, model=m, step=1)
+        assert verify_checkpoint(p) == []
+        assert sorted(os.listdir(p)) == ["manifest.json", "meta.json",
+                                         "shard-p000.json", "shard-p000.npz"]
+        assert not [n for n in os.listdir(tmp_path)
+                    if n.startswith(".barrier-")]
+        spans = [e for e in log.events() if e["type"] == "span"]
+        save = [e for e in spans if e["name"] == "ckpt.save"]
+        stages = [e for e in spans if e["name"] != "ckpt.save"]
+        assert len(save) == 1 and all(
+            e["parent_id"] == save[0]["span_id"] for e in stages)
+        assert sorted(e["name"] + ":" + e["attrs"]["phase"]
+                      if e.get("attrs") else e["name"]
+                      for e in stages) == [
+            "ckpt.barrier:commit", "ckpt.barrier:tmp",
+            "ckpt.barrier:written", "ckpt.d2h", "ckpt.fsync",
+            "ckpt.sha256", "ckpt.write"]
+        with pytest.raises(FleetBarrierTimeout, match="p1"):
+            mgr._barrier("3-1", pidx=0, nproc=2, timeout_s=0.05)
         with pytest.raises(NotImplementedError, match="npz"):
             CheckpointManager(str(tmp_path), use_orbax=True)
-        assert not [n for n in os.listdir(tmp_path)
-                    if n.startswith("ckpt-")]
 
     def test_restore_latest_returns_state_extra_and_path(self, tmp_path):
         m = make_model()
