@@ -300,7 +300,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
      ranks.  The save's walls by stage (D2H, npz write, SHA-256, fsync,
      the barriers), bytes per rank, the barrier timeout's wall, the
      restore's (read, reassemble, H2D), the resumed step walls, B2's
-     launches and the dispatch walls, mesh and one process, are printed.
+     launches and the dispatch walls, mesh and one process, are printed;
+ 34. scale-out on the one card, in a directory beside this script,
+     removed at its end: (a) phase 28's all-host Kaggle DLRM (26 tables,
+     412 MB in host memory, B = 256) on {"data": 2} over two gloo ranks,
+     8 steps: rank 0 alone holds the tables and runs the native lookups
+     and deposits over the global batch; the losses within rtol 1e-5,
+     the host tables and handles within 1e-6 (the largest differences
+     printed) of the same model in one process on the card from the
+     same weights and batches, no kernel launch in the ranks; a
+     podshard save whose rank-1 shard holds no table, restored on one
+     card bit for bit; 3 more steps split by part (id gather, lookup,
+     rows' scatter, cotangent gather, deposit, host update, H2D, D2H);
+     (b) the table-parallel run_random.sh DLRM (f32 compute) on {"data":
+     1, "model": 2} served int8 then bf16 through a mesh engine quantized
+     at load (codes of 4 tables a rank, the int8 scale column whole on
+     each), 32 requests of 1-256 rows each, within 1e-6 of the one-card
+     engine of the same mode, dispatch walls of both; (c)
+     tools/search_tune.py --pod 2x4 --bench sim (its ``_2x4pod``
+     pointer) and --pod auto (one card: the flat pointer), both exit 0.
+     No kernel launches in the ranks (kernels are off under a mesh of
+     more than one rank).
 The phases that train epochs of the run_random.sh model ask for the
 epoch row cache ("on"): "auto" is off on the card.
 Profile lines carry the graph replays in their window, the graph pool's
@@ -4792,14 +4812,15 @@ HETERO_STEPS = 8
 HETERO_BIG_ROWS = 1_000_000
 
 
-def _kaggle(host_tables):
+def _kaggle(host_tables, mesh=None):
     """The Criteo-Kaggle DLRM (``criteo_kaggle_config``, one ``Embedding``
     per table, batch 256) compiled with the CLI's SGD at FFConfig's rate
     without weight decay (``--wd 0``: plain SGD, so tables on the card
     take the row-sparse path), MSE loss, accuracy and MSE metrics, and a
     strategy placing tables ``host_tables`` on the host: every table is
     the reference generator's ``dlrm_strategy(26, 1,
-    hetero_cpu_embeddings=True, stacked=False)``."""
+    hetero_cpu_embeddings=True, stacked=False)``; under ``mesh`` when
+    given (phase 34)."""
     cfg = criteo_kaggle_config()
     t = len(cfg.embedding_size)
     model = build_dlrm(cfg, FFConfig(batch_size=BATCH),
@@ -4811,12 +4832,21 @@ def _kaggle(host_tables):
     model.compile(optimizer=SGDOptimizer(lr=FFConfig().learning_rate),
                   loss_type="mean_squared_error",
                   metrics=("accuracy", "mean_squared_error"),
-                  strategy=strategy)
+                  strategy=strategy, mesh=mesh)
     return model
 
 
+def _kaggle_loader():
+    """Phase 28's and 34's Kaggle batches: HETERO_STEPS batches of 256,
+    zipf-1.05 ids (seed 0)."""
+    return ZipfDLRMLoader(HETERO_STEPS * BATCH, 13, KAGGLE_TABLES, 1,
+                          BATCH, stacked=False, a=ZIPF_ALPHA, seed=0)
+
+
 def _host_tables(model):
-    return {op.name: op.host_table.array for op in model._hetero_ops}
+    """The host tables this process holds (across ranks, the owner's)."""
+    return {op.name: op.host_table.array for op in model._hetero_ops
+            if getattr(op, "host_table", None) is not None}
 
 
 def _fit_losses(model, state, loader):
@@ -5008,8 +5038,7 @@ def hetero_phase(card):
          "build_or_load_s": time.perf_counter() - tb})
     if "dlrm_flexflow_tpu_torch/_build/ffruntime-" not in lib:
         raise AssertionError(f"unexpected native library {lib}")
-    loader = ZipfDLRMLoader(HETERO_STEPS * BATCH, 13, KAGGLE_TABLES, 1,
-                            BATCH, stacked=False, a=ZIPF_ALPHA, seed=0)
+    loader = _kaggle_loader()
     root = tempfile.mkdtemp(prefix=".hetero-",
                             dir=os.path.dirname(os.path.abspath(__file__)))
     rows, total = {}, None
@@ -6275,6 +6304,334 @@ def elastic_phase(card):
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
+# --------------------------------------------------------------- phase 34
+#: 34(a): steps timed by part after the commit; 34(b): requests a mode
+HETERO_MESH_TIMED = 3
+QUANT_MESH_REQUESTS = 32
+#: 34(c): the tool's search budget and device count
+POD_BUDGET, POD_DEVICES = 50, 8
+
+
+def _sha(a) -> str:
+    import hashlib
+    return hashlib.sha256(np.ascontiguousarray(a).data).hexdigest()
+
+
+def hetero_mesh_rank(root):
+    """34(a)'s rank body (two gloo ranks on the one card): phase 28's
+    all-host Kaggle DLRM on {"data": 2}, HETERO_STEPS global batches of
+    256, the native lookups and deposits on rank 0 (the owner) only;
+    a podshard save; HETERO_MESH_TIMED more steps under hetero.timing()
+    (each part waits for the card first)."""
+    import torch.distributed as dist
+
+    from dlrm_flexflow_tpu_torch.parallel import make_mesh
+    rank = dist.get_rank()
+    t0 = time.perf_counter()
+    model = _kaggle(range(len(KAGGLE_TABLES)), make_mesh({"data": 2}))
+    state = model.init(seed=0)
+    out = {"rank": rank, "init_s": time.perf_counter() - t0,
+           "held_bytes": sum(int(a.nbytes)
+                             for a in _host_tables(model).values())}
+    batches = list(_kaggle_loader())
+    reset_counts()
+    losses, walls = [], []
+    with _numpy_branch_off():
+        for x, y in batches:
+            t0 = time.perf_counter()
+            state, mets = model.train_step(state, x, y)
+            losses.append(float(mets["loss"]))
+            walls.append((time.perf_counter() - t0) * 1e3)
+    out["launches"] = read_counts()
+    out["losses"], out["step_wall_ms"] = losses, walls
+    out["handles"] = {op.name: float(state.params[op.name]["handle"])
+                      for op in model._hetero_ops}
+    out["digests"] = {k: _sha(v) for k, v in _host_tables(model).items()}
+    path = os.path.join(root, "pod")
+    if rank == 0:
+        os.makedirs(path, exist_ok=True)
+    dist.barrier()
+    t0 = time.perf_counter()
+    save_checkpoint(path, state, model=model, multihost=True)
+    out["save_s"] = time.perf_counter() - t0
+    dist.barrier()
+    out["shard_bytes"] = os.path.getsize(
+        os.path.join(path, f"shard-p{rank:03d}.npz"))
+    with _numpy_branch_off(), hetero_module.timing() as parts:
+        t0 = time.perf_counter()
+        for x, y in batches[:HETERO_MESH_TIMED]:
+            state, mets = model.train_step(state, x, y)
+        float(mets["loss"])
+        wall = (time.perf_counter() - t0) * 1e3 / HETERO_MESH_TIMED
+    out["split_ms"] = {k: v * 1e3 / HETERO_MESH_TIMED
+                       for k, v in parts.items()}
+    out["split_ms"]["rest"] = wall - sum(out["split_ms"].values())
+    out["timed_step_ms"] = wall
+    with open(os.path.join(root, f"hetero{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def hetero_mesh(card, root):
+    """34(a): hetero_mesh_rank in two processes, held against the same
+    model in this process on the one card from the same weights and
+    batches (losses rtol 1e-5, the owner's host tables and the handles
+    within 1e-6), no launch in the ranks, the host tables on rank 0
+    only; the podshard restored on one card bit for bit the owner's
+    tables, with rank 1's shard file holding none."""
+    from dlrm_flexflow_tpu_torch import distributed as fdist
+    t0 = time.perf_counter()
+    fdist.launch("chip_smoke:hetero_mesh_rank", 2, kwargs={"root": root},
+                 backend="gloo", timeout_s=420, threads=4)
+    group_s = time.perf_counter() - t0
+    r0, r1 = (json.load(open(os.path.join(root, f"hetero{r}.json")))
+              for r in range(2))
+    model = _kaggle(range(len(KAGGLE_TABLES)))
+    state = model.init(seed=0)
+    host_bytes = sum(4 * op.num_entries * op.out_dim
+                     for op in model._hetero_ops)
+    losses = []
+    with _numpy_branch_off():
+        for x, y in _kaggle_loader():
+            state, mets = model.train_step(state, x, y)
+            losses.append(float(mets["loss"]))
+    want = _host_tables(model)  # rebound by each step: a snapshot
+    handles = {op.name: float(state.params[op.name]["handle"])
+               for op in model._hetero_ops}
+    t0 = time.perf_counter()
+    back = restore_checkpoint(os.path.join(root, "pod"), model,
+                              on_mesh_change="reshard")
+    restore_s = time.perf_counter() - t0
+    got = _host_tables(model)
+    table_err = max(float(np.abs(got[k] - want[k]).max()) for k in want)
+    handle_err = max(abs(float(back.params[k]["handle"]) - handles[k])
+                     for k in handles)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"],
+                                                       losses))
+    with np.load(os.path.join(root, "pod", "shard-p001.npz")) as f:
+        p1_host = [k for k in f.files if k.startswith("host_tables/")]
+    checks = {
+        "losses_rtol_1e-5": loss_err <= 1e-5,
+        "ranks_agree": r0["losses"] == r1["losses"],
+        "tables_1e-6": table_err <= 1e-6,
+        "handles_1e-6": handle_err <= 1e-6
+        and max(abs(r0["handles"][k] - handles[k]) for k in handles)
+        <= 1e-6,
+        "no_launch_in_ranks": not any(any(x["launches"].values())
+                                      for x in (r0, r1)),
+        "tables_on_rank0_only": r0["held_bytes"] == host_bytes
+        and r1["held_bytes"] == 0 and r1["digests"] == {},
+        "restore_bit_for_bit": {k: _sha(v) for k, v in got.items()}
+        == r0["digests"] and int(back.step) == HETERO_STEPS,
+        "rank1_shard_holds_no_table": p1_host == [],
+        "finite": bool(np.all(np.isfinite(r0["losses"]))),
+    }
+    row = {"phase": "hetero_mesh", "card": card, "mesh": {"data": 2},
+           "backend": "gloo", "group_wall_s": group_s,
+           "init_s": [r0["init_s"], r1["init_s"]],
+           "losses": {"mesh": r0["losses"], "one_process": losses},
+           "max_rel_loss_diff": loss_err,
+           "max_abs_table_diff": table_err, "max_abs_handle_diff":
+               handle_err, "held_bytes": [r0["held_bytes"],
+                                          r1["held_bytes"]],
+           "shard_bytes": [r0["shard_bytes"], r1["shard_bytes"]],
+           "save_s": [r0["save_s"], r1["save_s"]], "restore_s": restore_s,
+           "step_wall_ms_median": [float(np.median(x["step_wall_ms"]))
+                                   for x in (r0, r1)],
+           "timed_step_ms": [r0["timed_step_ms"], r1["timed_step_ms"]],
+           "split_ms": {"rank0": r0["split_ms"], "rank1": r1["split_ms"]},
+           "launches": [r0["launches"], r1["launches"]], "checks": checks,
+           "note": "two gloo ranks on one card and one host: the gathers "
+                   "and scatters say nothing of a network between hosts"}
+    log(row)
+    del model, state, back, want, got
+    _free()
+    if not all(checks.values()):
+        raise AssertionError(f"34(a): checks failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return row
+
+
+def _quant_mesh_requests():
+    """34(b)'s QUANT_MESH_REQUESTS requests of 1-256 rows (seed 34)."""
+    rng = np.random.default_rng(34)
+    return [{"dense": rng.standard_normal((int(n), BOT)).astype(np.float32),
+             "sparse": rng.integers(0, ROWS, size=(int(n), TABLES, 1))}
+            for n in rng.integers(1, BATCH + 1, size=QUANT_MESH_REQUESTS)]
+
+
+def _serve_all(engine, requests):
+    outs, walls = [], []
+    for r in requests:
+        t0 = time.perf_counter()
+        outs.append(engine.predict(r))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return np.concatenate(outs), walls
+
+
+def quant_mesh_rank(root):
+    """34(b)'s rank body (two gloo ranks on the one card): the
+    table-parallel run_random.sh DLRM at full width (f32 compute) on
+    {"data": 1, "model": 2}, served int8 then bf16 through a mesh engine
+    quantized at load (the global tables gathered, quantized and placed
+    under the rules): rank 0 serves the requests, rank 1 follows."""
+    import torch.distributed as dist
+
+    from dlrm_flexflow_tpu_torch.parallel import make_mesh
+    rank = dist.get_rank()
+    model, state, _ = _mesh_dlrm(make_mesh({"data": 1, "model": 2}),
+                                 "float32", table_parallel=True)
+    out = {"rank": rank}
+    for mode in ("int8", "bf16"):
+        reset_counts()
+        t0 = time.perf_counter()
+        engine = InferenceEngine(model, state, quantize=mode)
+        row = {"build_s": time.perf_counter() - t0,
+               "bytes_after": engine.quantization["bytes_after"],
+               "buckets": engine.buckets, "sharded": engine._mesh_sharded,
+               "codes_block": list(engine._params["emb"]["embedding"].shape),
+               "scale_rows": (list(engine._params["emb"]["qscale__"].shape)
+                              if mode == "int8" else None)}
+        if engine.is_leader:
+            outs, walls = _serve_all(engine, _quant_mesh_requests())
+            engine.close()
+            np.save(os.path.join(root, f"quant_{mode}.npy"), outs)
+            row["dispatch_wall_ms"] = walls
+        else:
+            row["followed"] = engine.follow()
+        row["launches"] = read_counts()
+        out[mode] = row
+        del engine
+        _free()
+    with open(os.path.join(root, f"quant{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def quant_mesh(card, root):
+    """34(b): quant_mesh_rank in two processes, each mode's answers held
+    against the one-card engine of the same mode over the same requests
+    (max abs error 1e-6), the codes a rank holds its 4 tables', the int8
+    scale column whole on each rank, no launch in the ranks."""
+    from dlrm_flexflow_tpu_torch import distributed as fdist
+    t0 = time.perf_counter()
+    fdist.launch("chip_smoke:quant_mesh_rank", 2, kwargs={"root": root},
+                 backend="gloo", timeout_s=420, threads=4)
+    group_s = time.perf_counter() - t0
+    r0, r1 = (json.load(open(os.path.join(root, f"quant{r}.json")))
+              for r in range(2))
+    model, state, _ = _mesh_dlrm(False, "float32", table_parallel=True)
+    requests = _quant_mesh_requests()
+    rows, checks = {}, {}
+    for mode in ("int8", "bf16"):
+        engine = InferenceEngine(model, state, quantize=mode)
+        outs, walls = _serve_all(engine, requests)
+        mesh_out = np.load(os.path.join(root, f"quant_{mode}.npy"))
+        err = float(np.abs(mesh_out - outs).max())
+        a, b = r0[mode], r1[mode]
+        n_dispatch = len(a["buckets"]) + sum(
+            -(-int(r["dense"].shape[0]) // a["buckets"][-1])
+            for r in requests)
+        checks[mode] = {
+            "answers_1e-6": err <= 1e-6 and mesh_out.shape == outs.shape,
+            "bytes_as_one_card": a["bytes_after"]
+            == engine.quantization["bytes_after"],
+            "codes_block": a["codes_block"] == b["codes_block"]
+            == [TABLES // 2, ROWS, DIM],
+            "scale_whole": mode != "int8"
+            or a["scale_rows"] == [TABLES * ROWS, 1],
+            "sharded": a["sharded"] and a["buckets"] == list(BUCKETS),
+            "followed": b["followed"] == n_dispatch,
+            "no_launch_in_ranks": not any(a["launches"].values())
+            and not any(b["launches"].values())}
+        rows[mode] = {"max_abs_err": err,
+                      "bytes_after": a["bytes_after"],
+                      "engine_build_s": [a["build_s"], b["build_s"]],
+                      "dispatch_wall_ms_median": {
+                          "mesh": float(np.median(a["dispatch_wall_ms"])),
+                          "one_card": float(np.median(walls))}}
+        del engine
+        _free()
+    row = {"phase": "quant_mesh", "card": card,
+           "mesh": {"data": 1, "model": 2}, "backend": "gloo",
+           "group_wall_s": group_s, **rows, "checks": checks,
+           "note": "mesh dispatches are eager with a gloo broadcast; the "
+                   "one-card engine replays a CUDA graph per bucket"}
+    log(row)
+    del model, state
+    _free()
+    bad = [f"{m}.{k}" for m, c in checks.items() for k, v in c.items()
+           if not v]
+    if bad:
+        raise AssertionError(f"34(b): checks failed: {bad}")
+    return row
+
+
+def pod_tool(card, root):
+    """34(c): tools/search_tune.py --pod 2x4 --bench sim and --pod auto on
+    the card machine, over op_time telemetry drawn for the tool's model
+    (seed 34): both exit 0 with one JSON line, the first promotes into
+    the ``_2x4pod`` pointer, the second (one process, one card: one flat
+    node) into the flat one."""
+    tool = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "dlrm_flexflow_tpu_torch", "tools", "search_tune.py")
+    _, m = tune_tool.build_model(tune_tool.parse_args(["--telemetry", "x"]))
+    rng = np.random.default_rng(34)
+    tel = os.path.join(root, "op_time.jsonl")
+    with open(tel, "w") as f:
+        for i, op in enumerate(m.layers):
+            sf, sb = (float(x) for x in rng.uniform(1e-6, 1e-3, size=2))
+            f.write(json.dumps({"type": "op_time", "ts": float(i),
+                                "op": op.name, "forward_s": 3 * sf,
+                                "backward_s": 2 * sb, "sim_forward_s": sf,
+                                "sim_backward_s": sb}) + "\n")
+    del m
+    art = os.path.join(root, "artifacts")
+    runs, checks = {}, {}
+    for pod, name in (
+            ("2x4", f"strategy_incumbent_dlrm_{POD_DEVICES}dev_2x4pod.json"),
+            ("auto", f"strategy_incumbent_dlrm_{POD_DEVICES}dev.json")):
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, tool, "--telemetry", tel, "--artifacts", art,
+             "--devices", str(POD_DEVICES), "--budget", str(POD_BUDGET),
+             "--bench", "sim", "--pod", pod], capture_output=True,
+            text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        lines = r.stdout.strip().splitlines()
+        result = json.loads(lines[-1]) if r.returncode == 0 and lines \
+            else None
+        runs[pod] = {"rc": r.returncode, "wall_s": wall, "result": result,
+                     "stderr_tail": r.stderr[-400:] if r.returncode else ""}
+        checks[pod] = (r.returncode == 0 and len(lines) == 1
+                       and os.path.isfile(os.path.join(art, name)))
+    checks["pod_pointer_only_for_2x4"] = sorted(
+        n for n in os.listdir(art) if n.startswith("strategy_incumbent")) \
+        == sorted([f"strategy_incumbent_dlrm_{POD_DEVICES}dev.json",
+                   f"strategy_incumbent_dlrm_{POD_DEVICES}dev_2x4pod.json"])
+    row = {"phase": "pod_tool", "card": card, "runs": runs,
+           "checks": checks}
+    log(row)
+    if not all(checks.values()):
+        raise AssertionError(f"34(c): checks failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return row
+
+
+def scaleout_phase(card):
+    """Phase 34 in a directory of its own beside this script, removed
+    afterwards (the hetero podshard holds the 412 MB of host tables)."""
+    root = tempfile.mkdtemp(prefix=".scaleout-",
+                            dir=os.path.dirname(os.path.abspath(__file__)))
+    t0 = time.perf_counter()
+    try:
+        rows = {"hetero": hetero_mesh(card, root),
+                "quant": quant_mesh(card, root),
+                "pod": pod_tool(card, root)}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rows["wall_s"] = time.perf_counter() - t0
+    log({"phase": "wall", "name": "scaleout", "wall_s": rows["wall_s"]})
+    return rows
+
 
 def _entry(name, launches, err, timing):
     source, replaces, _ = KERNELS[name]
@@ -6393,6 +6750,10 @@ def main() -> int:
     # on the mesh; host I/O-heavy, so last
     _free()
     elastic_row, elastic_counts = elastic_phase(card)
+    # phase 34: the hetero Kaggle DLRM and quantized serving across two
+    # gloo ranks on the card (no kernel runs there), search_tune --pod
+    _free()
+    scaleout = scaleout_phase(card)
     path_counts = (headline_counts, sparse_counts, dense_counts, dot_counts,
                    staged_counts, bag_counts, bf16_counts, bag16_counts,
                    durable_counts, tiered_counts, lazy_counts, soap_counts,
@@ -6486,6 +6847,19 @@ def main() -> int:
              "dispatch_wall_ms_median":
                  elastic_row["dispatch_wall_ms_median"],
              "phase_wall_s": elastic_row["phase_wall_s"]},
+         "scaleout": {
+             "hetero_step_wall_ms_median":
+                 scaleout["hetero"]["step_wall_ms_median"],
+             "hetero_split_ms_rank0": scaleout["hetero"]["split_ms"][
+                 "rank0"],
+             "hetero_max_abs_table_diff":
+                 scaleout["hetero"]["max_abs_table_diff"],
+             "quant_max_abs_err": {m: scaleout["quant"][m]["max_abs_err"]
+                                   for m in ("int8", "bf16")},
+             "quant_dispatch_wall_ms_median": {
+                 m: scaleout["quant"][m]["dispatch_wall_ms_median"]
+                 for m in ("int8", "bf16")},
+             "phase_wall_s": scaleout["wall_s"]},
          "note": "walls include each path's eager step and capture"})
     log({"kernels": [
         _entry("fused_interact_fwd",

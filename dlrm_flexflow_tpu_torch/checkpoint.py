@@ -50,7 +50,10 @@ Host-placed tables (the hetero strategy, ``ops/hetero.py``) live outside
 the state: ``save_checkpoint(..., model=)`` writes each as
 ``host_tables/<op name>`` beside the state, as the JAX package does, and
 ``restore_checkpoint(..., model=)`` puts each back into its op's live
-table, warning about any that has no such op to land in.
+table, warning about any that has no such op to land in.  Across the
+ranks of a mesh the owner rank (rank 0) alone holds them, so it alone
+writes them (a plain leaf of its shard file, or of the gathered npz)
+and it alone takes them back, on any mesh the restoring model runs.
 
 bf16 leaves: the JAX package's ``np.asarray`` of a bf16 array is an
 ``ml_dtypes.bfloat16`` array, which ``np.savez`` stores as raw 2-byte
@@ -629,12 +632,16 @@ def restore_checkpoint(path: str, model=None, inference_only: bool = False,
             f"training resume (the optimizer would silently restart "
             f"from scratch).  Pass inference_only=True to load params "
             f"for serving")
-    # host-placed tables go back into the model's live ones
+    # host-placed tables go back into the model's live ones: on the
+    # owner rank of the model's mesh, or the one process
     host_tables = {_unesc(k): v for k, v in groups["host_tables"].items()}
     restored = set()
     for op in getattr(model, "_hetero_ops", ()):
-        if op.name in host_tables and getattr(op, "host_table",
-                                              None) is not None:
+        if op.name not in host_tables:
+            continue
+        if not op.host_owner:
+            restored.add(op.name)  # held by the owner rank alone
+        elif getattr(op, "host_table", None) is not None:
             op.host_table.array = host_tables[op.name]
             restored.add(op.name)
     dropped = set(host_tables) - restored

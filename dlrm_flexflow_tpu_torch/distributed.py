@@ -46,6 +46,11 @@ DEFAULT_TIMEOUT_S = 120.0
 #: the deadline of :func:`shutdown`'s teardown of a group
 SHUTDOWN_TIMEOUT_S = 30.0
 
+#: the collective deadline of the group that ``initialize`` made last
+_timeout_s = DEFAULT_TIMEOUT_S
+#: the gloo groups :func:`host_group` made for host tensors, by ranks
+_host_groups: dict = {}
+
 
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
@@ -91,6 +96,7 @@ def initialize(coordinator_address: Optional[str] = None,
                 f"{int(num_processes)} were asked for; leave it first "
                 f"(distributed.shutdown)")
     elif num_processes > 1 or coordinator_address is not None:
+        _set_timeout(timeout_s)
         url = coordinator_address or "tcp://127.0.0.1:29500"
         if "://" not in url:
             url = f"tcp://{url}"
@@ -125,11 +131,38 @@ def shutdown(timeout_s: float = SHUTDOWN_TIMEOUT_S) -> bool:
         except Exception:  # noqa: BLE001 — a dead peer's group, best effort
             pass
 
+    _host_groups.clear()
     t = threading.Thread(target=teardown, name="ff-pg-shutdown",
                          daemon=True)
     t.start()
     t.join(float(timeout_s))
     return not dist.is_initialized()
+
+
+def _set_timeout(timeout_s: float) -> None:
+    global _timeout_s
+    _timeout_s = float(timeout_s)
+
+
+def host_group(ranks: Sequence[int], group=None):
+    """A gloo process group over ``ranks`` for host (CPU) tensors: the
+    collectives of host-placed tables (``ops/hetero.py``) run on the host
+    whatever device the ranks compute on.  Under a gloo default group it
+    is ``group`` (the caller's group over exactly those ranks; None: the
+    world); under NCCL a gloo group of its own, made once per set of
+    ranks with the default group's deadline, so a rank that misses a
+    collective fails the others after it instead of parking them.  A
+    collective: every rank of the default group calls it alike (each
+    compile of a model with host tables does)."""
+    import torch.distributed as dist
+    if dist.get_backend() == "gloo":
+        return group
+    key = tuple(sorted(int(r) for r in ranks))
+    if key not in _host_groups:
+        _host_groups[key] = dist.new_group(
+            list(key), backend="gloo",
+            timeout=datetime.timedelta(seconds=_timeout_s))
+    return _host_groups[key]
 
 
 def _identity():

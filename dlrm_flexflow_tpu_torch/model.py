@@ -56,8 +56,12 @@ a host round trip cannot sit inside a CUDA graph, and after each step
 applies the host SGD step to its tables at ``optimizer.lr``
 (``apply_host_sgd``, whatever optimizer the device parameters take, as
 in the JAX package).  The ids that feed those tables alone stay in host
-memory.  Such a model takes no staged epoch, epoch cache or ladder:
-``fit`` runs batch by batch, as the JAX package's does, and
+memory.  Under a mesh of more than one rank the owner rank (the mesh's
+device 0) alone holds, looks up, updates and saves each host table, over
+the global batch (``ops/hetero.py::HostComm``); a mixed placement keeps
+its card tables on the mesh's layouts.  Such a model takes no staged
+epoch, epoch cache or ladder: ``fit`` runs batch by batch, as the JAX
+package's does, and
 ``train_epoch(s)`` steps batch by batch with the host update after each
 step (the JAX scanned epoch never applies it: ROADMAP.md Queue C).
 
@@ -716,12 +720,8 @@ class FFModel:
         self._spmd = None
         if self._spmd_mesh():
             from .parallel.spmd import SpmdPlan
-            if self._hetero_ops:
-                raise NotImplementedError(
-                    "host-placed tables (the hetero strategy) under a mesh "
-                    "of more than one rank are not ported (ROADMAP.md "
-                    "item 8, part 2, item 8)")
             self._spmd = SpmdPlan(self, self.mesh)
+        self._place_host_tables()
 
         def forward(params, inputs, bn_state=None):
             with torch.inference_mode():
@@ -744,6 +744,23 @@ class FFModel:
         self._step_seen.clear()
         self._drop_pool_if_empty()
         return self
+
+    def _place_host_tables(self) -> None:
+        """The host tables' owner across the ranks of a mesh (JAX runs
+        the host callback on mesh device 0's process): every host-placed
+        op gets the leader protocol (``ops/hetero.py::HostComm``, whose
+        gloo group every rank builds here), and a rank other than the
+        owner drops any table it holds, so only the owner looks up,
+        updates and saves it.  Off such a mesh each op keeps its own."""
+        from .ops.hetero import HostComm, HostEmbeddingTable
+        comm = (HostComm(self.mesh) if self._hetero_ops
+                and self._spmd_mesh() else None)
+        for op in self._hetero_ops:
+            op._host_comm = comm
+            table = getattr(op, "host_table", None)
+            if table is not None and not op.host_owner:
+                HostEmbeddingTable.drop(table.key)
+                op.host_table = None
 
     def _spmd_mesh(self) -> bool:
         """Whether the model runs across more than one rank."""
@@ -1007,9 +1024,15 @@ class FFModel:
         ``host_tables`` (``{op name: (R, d) array}``, for example
         ``bridge.host_tables_from_jax`` of a JAX hetero model) become the
         host-placed ops' tables, copied; a host-placed op that gets none
-        keeps the table it has, and one without a table raises."""
+        keeps the table it has, and one without a table raises.  Across
+        the ranks of a mesh only the owner rank installs them (the others
+        ignore them)."""
         host_tables = dict(host_tables or {})
         for op in self._hetero_ops:
+            if not op.host_owner:
+                # across ranks the owner alone holds the table
+                host_tables.pop(op.name, None)
+                continue
             if op.name in host_tables:
                 arr = np.asarray(host_tables.pop(op.name))
                 if arr.shape != (op.num_entries, op.out_dim):
@@ -1259,9 +1282,10 @@ class FFModel:
         else:
             packed = self._step_body(batch, carried)
         if self._hetero_ops:
+            # the owner's tables only, across the ranks of a mesh
             lr = getattr(self.optimizer, "lr", 0.01)
             for op in self._hetero_ops:
-                if hasattr(op, "host_table"):
+                if getattr(op, "host_table", None) is not None:
                     apply_host_sgd(op.host_table, lr)
         return (TrainState(state.params, state.opt_state, state.bn_state,
                            state.rng, step),

@@ -31,7 +31,11 @@ An ``Embedding`` placed on the host (``placement == "cpu"``, set by
 strategy) keeps its table in host memory (``ops/hetero.py``): its
 params hold only the scalar ``handle``, ``init_params`` draws the table
 on the host, and the forward pools bagged ``(B, bag)`` ids through
-``host_embedding_bag``.
+``host_embedding_bag``.  Across the ranks of a mesh (``_host_comm``, set
+by ``compile``) only the owner rank holds the table (``host_owner``);
+the forward called outside the mesh executor (a replica engine's whole
+bucket on every rank) takes the leader's bag with every rank holding
+the whole batch.
 
 Tables are stored in ``table_dtype``, f32 or bf16
 (``FFConfig.embedding_dtype``).  The forward follows the JAX package's
@@ -198,11 +202,18 @@ class Embedding(Op):
         its f32 table on the host, from a CPU generator seeded as
         ``generator`` was, so the table is the same whatever device the
         params go to, and evicts it from the store when the op dies."""
-        if self.placement == "cpu":
+        if self.placement == "cpu" and self.host_owner:
             host = torch.Generator().manual_seed(generator.initial_seed())
             self.set_host_table(self.kernel_initializer(
                 host, (self.num_entries, self.out_dim)).numpy())
         return super().init_params(generator)
+
+    @property
+    def host_owner(self) -> bool:
+        """Whether this process holds the op's host table: always off a
+        mesh of more than one rank, else on the owner rank alone."""
+        comm = getattr(self, "_host_comm", None)
+        return comm is None or comm.is_owner
 
     def set_host_table(self, array) -> None:
         """Install ``array`` as this host-placed op's table: a new store
@@ -226,8 +237,11 @@ class Embedding(Op):
                 raise ValueError(f"{self.name}: a host-placed table takes "
                                  f"bagged (B, bag) ids, got {tuple(idx.shape)}")
             aggr = self.aggr if self.aggr != "none" else "sum"
+            table = getattr(self, "host_table", None)
             out = host_embedding_bag(idx, params["handle"],
-                                     self.host_table.key, self.out_dim, aggr)
+                                     table.key if table else None,
+                                     self.out_dim, aggr,
+                                     comm=getattr(self, "_host_comm", None))
             return [out.to(self.outputs[0].dtype)]
         rows = params.get("rows__")
         qscale = params.get(QSCALE_KEY)

@@ -19,10 +19,29 @@ Each native call has its plain numpy version beside it
 which sum in the native kernels' order) and takes it when the library
 cannot be built.
 
+**Across the ranks of a mesh** (:class:`HostComm`) the JAX package's
+host callback runs once, on the process of mesh device 0, over the whole
+global batch; the port keeps that contract with a leader.  Rank
+``owner`` (the mesh's device 0, rank 0) alone holds each host table,
+looks the global batch up and deposits its gradient, in global batch
+order, and alone applies the host SGD step and saves the table; no
+other rank keeps a copy.  :class:`HostBagMeshFn` is the bag across the
+ranks: the ids of each batch block are gathered to the owner once (from
+the first rank that holds the block), the owner's pooled rows go back to
+every rank holding their block, and the backward gathers every rank's
+share of the rows' cotangent (the step scales each rank's loss by one
+over the ranks holding its rows), sums the shares of each block in rank
+order and deposits the dense gradient of the global batch, exactly as
+one process does.  These collectives carry host tensors over a gloo
+group (``distributed.host_group``: the world's under gloo, a gloo group
+of its own under NCCL), under the group's deadline.
+
 ``timing()`` turns on a wall-time split of the host side by part
 (``PARTS``): the lookup, the host-to-device and device-to-host copies,
-the gradient deposit and the update.  While it is on, each part first
-waits for the card, so that the card's work lands outside the parts.
+the gradient deposit and the update, and across ranks the ids' gather,
+the rows' scatter and the cotangents' gather.  While it is on, each part
+first waits for the card, so that the card's work lands outside the
+parts.
 """
 
 from __future__ import annotations
@@ -37,7 +56,8 @@ import torch
 from ..data import native as _native
 
 #: the host-side parts ``timing()`` splits the wall into
-PARTS = ("lookup", "h2d", "d2h", "host_grad", "host_update")
+PARTS = ("lookup", "h2d", "d2h", "host_grad", "host_update", "id_gather",
+         "rows_scatter", "grad_gather")
 _times: Optional[Dict[str, float]] = None
 
 
@@ -174,11 +194,147 @@ class HostBagFn(torch.autograd.Function):
         return None, d_handle, None, None, None
 
 
-def host_embedding_bag(ids, handle, table_key: str, dim: int,
-                       mode: str = "sum"):
+class HostComm:
+    """The leader protocol of a mesh's host tables (module docstring):
+    ``owner`` is the rank of the mesh's device 0, ``group`` the gloo
+    group over the mesh's ranks (``distributed.host_group``; a
+    collective to build: every rank builds it at ``compile``).  A batch
+    block's index over axes is the row-major index of a rank's
+    coordinates on them, as ``collectives.local_block`` cuts."""
+
+    def __init__(self, mesh):
+        from ..distributed import host_group
+        self.mesh = mesh
+        self.ranks = sorted(int(r) for r in mesh.devices.reshape(-1))
+        self.owner = int(mesh.devices.reshape(-1)[0])
+        self.is_owner = mesh.rank == self.owner
+        big = tuple(a for a in mesh.axis_names if mesh.shape[a] > 1)
+        self.group = host_group(self.ranks, mesh.group(big)[0])
+
+    def block(self, rank: int, axes) -> int:
+        """The index of ``rank``'s batch block over ``axes``."""
+        mesh = self.mesh
+        where = np.argwhere(mesh.devices == rank)[0]
+        idx = 0
+        for a in axes:
+            idx = idx * mesh.shape[a] + int(where[mesh.axis_names.index(a)])
+        return idx
+
+    def gather(self, t: torch.Tensor):
+        """Every rank's host tensor ``t`` on the owner, ``{rank: t}``;
+        None on the other ranks."""
+        import torch.distributed as dist
+        t = t.contiguous()
+        bufs = ([torch.empty_like(t) for _ in self.ranks] if self.is_owner
+                else None)
+        dist.gather(t, bufs, dst=self.owner, group=self.group)
+        return dict(zip(self.ranks, bufs)) if self.is_owner else None
+
+    def scatter(self, parts, shape, dtype=torch.float32) -> torch.Tensor:
+        """Each rank's ``parts[rank]`` (given on the owner) on that rank."""
+        import torch.distributed as dist
+        out = torch.empty(shape, dtype=dtype)
+        dist.scatter(out, [parts[r] for r in self.ranks] if self.is_owner
+                     else None, src=self.owner, group=self.group)
+        return out
+
+    def first_holders(self, got, axes) -> torch.Tensor:
+        """The global batch from the gathered blocks: each block once,
+        from the first rank holding it, in block order."""
+        first: Dict[int, int] = {}
+        for r in self.ranks:
+            first.setdefault(self.block(r, axes), r)
+        return torch.cat([got[first[k]] for k in range(len(first))])
+
+    def summed(self, got, axes) -> torch.Tensor:
+        """The global batch of gathered shares: the shares of the ranks
+        holding each block summed in rank order, in block order."""
+        sums: Dict[int, torch.Tensor] = {}
+        for r in self.ranks:
+            k = self.block(r, axes)
+            sums[k] = got[r] if k not in sums else sums[k] + got[r]
+        return torch.cat([sums[k] for k in range(len(sums))])
+
+    def split(self, rows: torch.Tensor, axes) -> Dict[int, torch.Tensor]:
+        """Each rank's block of the global ``rows`` over ``axes``."""
+        n = rows.shape[0] // self.mesh.axis_size(axes)
+        return {r: rows[self.block(r, axes) * n:
+                        (self.block(r, axes) + 1) * n].contiguous()
+                for r in self.ranks}
+
+
+class HostBagMeshFn(torch.autograd.Function):
+    """:class:`HostBagFn` across the ranks of a mesh (module docstring):
+    ``ids`` are the rank's block over ``ids_axes``, the output its block
+    over ``out_axes`` (either may be empty: every rank holds the whole
+    batch).  Only the owner reads the table and holds the global ids;
+    ``handle``'s gradient is the rank's own ``sum(g * out) / handle``,
+    which the step sums over the ranks as any replicated parameter's."""
+
+    @staticmethod
+    def forward(ctx, ids, handle, table_key, dim, mode, comm, ids_axes,
+                out_axes):
+        dev = handle.device
+        t = _mark(dev)
+        ids_cpu = ids.detach().to("cpu", torch.int64)
+        t = _add("d2h", t, dev) if ids.device.type != "cpu" else t
+        got = comm.gather(ids_cpu)
+        t = _add("id_gather", t, dev)
+        mesh = comm.mesh
+        n_out = (ids.shape[0] * mesh.axis_size(ids_axes)
+                 // mesh.axis_size(out_axes))
+        ids_all = parts = None
+        if comm.is_owner:
+            ids_all = np.ascontiguousarray(
+                comm.first_holders(got, ids_axes).numpy())
+            pooled = host_bag(HostEmbeddingTable._tables[table_key],
+                              ids_all, mode)
+            t = _add("lookup", t, dev)
+            parts = comm.split(torch.from_numpy(
+                np.ascontiguousarray(pooled, np.float32)), out_axes)
+        raw = comm.scatter(parts, (n_out, dim))
+        t = _add("rows_scatter", t, dev)
+        raw = raw.to(dev)
+        _add("h2d", t, dev)
+        out = raw * handle
+        ctx.save_for_backward(handle, out)
+        ctx.host = (ids_all, table_key, mode, comm, out_axes)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        handle, out = ctx.saved_tensors
+        ids_all, table_key, mode, comm, out_axes = ctx.host
+        dev = g.device
+        t = _mark(dev)
+        share = g.detach().to("cpu", torch.float32)
+        t = _add("d2h", t, dev)
+        got = comm.gather(share)
+        t = _add("grad_gather", t, dev)
+        if comm.is_owner:
+            g_np = (comm.summed(got, out_axes)
+                    * handle.detach().cpu()).numpy()
+            table = HostEmbeddingTable._tables[table_key]
+            HostEmbeddingTable._tables[table_key + "/grad"] = host_bag_grad(
+                table, ids_all, g_np, mode)
+            _add("host_grad", t, dev)
+        d_handle = ((g * out).double().sum().float()
+                    / torch.where(handle != 0, handle, torch.ones_like(handle)))
+        return None, d_handle, None, None, None, None, None, None
+
+
+def host_embedding_bag(ids, handle, table_key: Optional[str], dim: int,
+                       mode: str = "sum", *, comm: Optional[HostComm] = None,
+                       ids_axes=(), out_axes=()):
     """``(B, bag)`` int ids -> ``(B, dim)`` f32 on ``handle``'s device,
     through the host table stored under ``table_key``, times the scalar
-    parameter ``handle``."""
+    parameter ``handle``.  With ``comm`` (a mesh of more than one rank),
+    the leader's bag across the ranks (:class:`HostBagMeshFn`): ``ids``
+    the rank's block over ``ids_axes``, the result its block over
+    ``out_axes``; ``table_key`` is read on the owner only."""
+    if comm is not None:
+        return HostBagMeshFn.apply(ids, handle, table_key, dim, mode, comm,
+                                   tuple(ids_axes), tuple(out_axes))
     return HostBagFn.apply(ids, handle, table_key, dim, mode)
 
 

@@ -9,9 +9,13 @@ rank's blocks:
 * **Natively sharded ops** compute on their own shards: a channel-parallel
   ``Linear`` (its weight's columns), a table-sharded ``StackedEmbedding``
   (its T/mp tables, the pooled rows gathered over ``"model"`` as the op's
-  layout asks), an exchange-mode ``StackedEmbedding`` or
-  ``OverlappedEmbedBottom`` (``parallel/table_exchange.py``,
-  ``parallel/overlap.py``), a ``MixtureOfExperts`` whose experts are
+  layout asks; an int8 serving table reads its T/mp tables' rows of the
+  replicated scale column), a host-placed ``Embedding`` (the hetero
+  strategy: the owner rank's lookup over the global batch,
+  ``ops/hetero.py::HostBagMeshFn``), an exchange-mode
+  ``StackedEmbedding`` or ``OverlappedEmbedBottom``
+  (``parallel/table_exchange.py``, ``parallel/overlap.py``), a
+  ``MixtureOfExperts`` whose experts are
   sharded (its experts, the combined output summed over ``"model"``), and
   a ``MultiHeadAttention(seq_parallel=True)`` over a ``"seq"`` axis (ring
   attention).
@@ -295,6 +299,23 @@ def _linear(plan, op, p, xs, in_specs, out_specs, **_):
     return [relayout(y, PartitionSpec(*held), out_specs[0], mesh)]
 
 
+def _rank_scale(plan, op, p):
+    """``p`` with an int8 table's scale column cut to the rank's tables'
+    rows: the serving engine places the global column replicated, as the
+    JAX package does, and a table sharded over its first dim reads only
+    its T/mp tables (local flat ids)."""
+    from ..ops.quantized import QSCALE_KEY
+    qs = p.get(QSCALE_KEY)
+    if qs is None or not plan.sharded(op, "embedding"):
+        return p
+    table = p["embedding"]
+    axes = plan.mesh.axes_key(normalize(plan.param_spec(op, "embedding"),
+                                        table.dim())[0])
+    n = table.shape[0] * table.shape[1]
+    j = plan.mesh.axis_index(axes)
+    return {**p, QSCALE_KEY: qs[j * n:(j + 1) * n]}
+
+
 def _stacked(plan, op, p, xs, in_specs, out_specs, training=False,
              sparse=None, **_):
     """Exchange mode: the op's forward runs the table exchange on the
@@ -306,7 +327,7 @@ def _stacked(plan, op, p, xs, in_specs, out_specs, training=False,
     if getattr(op, "exchange_mode", None):
         xs = [relayout(x, s, _spec(plan.data_axes, x.dim()), mesh)
               for x, s in zip(xs, in_specs)]
-        return op.forward(p, xs, training=training)
+        return op.forward(_rank_scale(plan, op, p), xs, training=training)
     if type(op).__name__ != "StackedEmbedding" or not plan.sharded(
             op, "embedding"):
         return None
@@ -318,13 +339,39 @@ def _stacked(plan, op, p, xs, in_specs, out_specs, training=False,
     t_loc = table.shape[0]
     j = mesh.axis_index(axes)
     local = ids[:, j * t_loc:(j + 1) * t_loc]
-    q = {"embedding": table}
+    from ..ops.quantized import QSCALE_KEY
+    q = {k: v for k, v in _rank_scale(plan, op, p).items()
+         if k in ("embedding", QSCALE_KEY)}
     if sparse is not None and op.name in sparse.names:
         q["rows__"] = sparse.take(op, table.view(-1, table.shape[-1]),
                                   op.flat_ids(local))
     (out,) = op.forward(q, [local], training=training)
     held = PartitionSpec(spec_entry(b), spec_entry(axes), None)
     return [relayout(out, held, out_specs[0], mesh)]
+
+
+def _host_embedding(plan, op, p, xs, in_specs, out_specs, **_):
+    """A host-placed table (the hetero strategy): the leader's bag
+    (``ops/hetero.py::HostBagMeshFn``) on the ids as the rank holds them,
+    its pooled rows returned in the output's batch sharding.  A table on
+    the card takes the generic path."""
+    if getattr(op, "placement", "tpu") != "cpu":
+        return None
+    from ..ops.hetero import host_embedding_bag
+    mesh = plan.mesh
+    (ids,), (s,) = xs, in_specs
+    if ids.dim() != 2:
+        raise ValueError(f"{op.name}: a host-placed table takes bagged "
+                         f"(B, bag) ids, got {tuple(ids.shape)}")
+    held = mesh.axes_key(entry_axes(tuple(s)[0])) if len(s) else ()
+    b = mesh.axes_key(entry_axes(tuple(out_specs[0])[0]))
+    table = getattr(op, "host_table", None)
+    out = host_embedding_bag(ids, p["handle"], table.key if table else None,
+                             op.out_dim,
+                             op.aggr if op.aggr != "none" else "sum",
+                             comm=op._host_comm, ids_axes=held, out_axes=b)
+    out = out.to(op.outputs[0].dtype)
+    return [relayout(out, _spec(b, out.dim()), out_specs[0], mesh)]
 
 
 def _moe(plan, op, p, xs, in_specs, out_specs, **_):
@@ -370,6 +417,7 @@ def _attention(plan, op, p, xs, in_specs, out_specs, training=False, **_):
 
 _NATIVE = {
     "Linear": _linear,
+    "Embedding": _host_embedding,
     "StackedEmbedding": _stacked,
     "OverlappedEmbedBottom": _stacked,
     "MixtureOfExperts": _moe,

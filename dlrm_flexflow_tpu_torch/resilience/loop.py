@@ -183,7 +183,10 @@ def resilient_fit(model, state, dataloader, epochs: int, verbose: bool,
     # (train_step), so a rejection rolls them back too.  apply_host_sgd
     # rebinds each table's array, so the pre-dispatch snapshot holds
     # references, not copies: restoring a two-step-old snapshot undoes
-    # the rejected step and the discarded in-flight one
+    # the rejected step and the discarded in-flight one.  Across the
+    # ranks of a mesh only the owner rank holds the tables, so only it
+    # snapshots and rolls back (the verdict reads the global loss, the
+    # same on every rank)
     hetero_ops = [op for op in getattr(model, "_hetero_ops", [])
                   if getattr(op, "host_table", None) is not None
                   ] if sentinel else []

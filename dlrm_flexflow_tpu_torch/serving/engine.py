@@ -70,9 +70,16 @@ the same order for the collectives to meet:
   for bit the one-device engine.
 
 Under a mesh of more than one rank no kernel launches (as JAX keeps
-Pallas off under SPMD), tiered storage is refused as in JAX (every table
-left resident with the reason), and quantized tables raise (ROADMAP.md
-item 8, part 2, item 9).
+Pallas off under SPMD), and tiered storage is refused as in JAX (every
+table left resident with the reason).  A quantized engine there
+quantizes the global tables (a mesh block is gathered first), then
+places them under the rules, as the JAX engine does: the codes take
+their table's spec, the int8 scale column is replicated, and a
+table-sharded op reads its T/mp tables' rows of it
+(``parallel/spmd.py::_rank_scale``).  Host-placed tables (the hetero
+strategy) are looked up by the owner rank over each bucket
+(``ops/hetero.py::HostComm``), whether the engine is sharded or a
+replica.
 """
 
 from __future__ import annotations
@@ -173,10 +180,6 @@ class InferenceEngine:
         self.buckets = parse_buckets(buckets)
         # across the ranks of a mesh: eager (gloo cannot be captured)
         self._spmd = getattr(model, "_spmd", None) is not None
-        if self._spmd and quantize != "off":
-            raise NotImplementedError(
-                "quantized tables under a mesh of more than one rank are not "
-                "ported (ROADMAP.md item 8, part 2, item 9)")
         self._aot = (not getattr(model, "_hetero_ops", None)
                      if aot is None else bool(aot)) and not self._spmd
         self._params = dict(getattr(params_or_state, "params",
@@ -184,6 +187,13 @@ class InferenceEngine:
         self.partition_rules = None
         self._mesh_sharded = False
         self._stopped = False
+        self.quantization = None
+        if self._spmd and quantize != "off":
+            # the JAX engine's order: the global tables quantized on a
+            # copy, then placed under the partition rules (the scale
+            # column falls to the replicated catch-all)
+            self._params, self.quantization = quantize_embedding_params(
+                model.layers, self._global_params(), quantize)
         if model.mesh is not None:
             self._place_on_mesh()
         # tiered storage, built before the params move to the card (a
@@ -208,8 +218,9 @@ class InferenceEngine:
         self._bn = {op: {k: v.to(self.device) for k, v in d.items()}
                     for op, d in bn.items()}
         # the tables re-encoded on a copy of the params tree, on the card
-        self._params, self.quantization = quantize_embedding_params(
-            model.layers, self._params, quantize)
+        if self.quantization is None:
+            self._params, self.quantization = quantize_embedding_params(
+                model.layers, self._params, quantize)
         self.stats = stats or LatencyStats()
         self._in_specs = {t.name: (tuple(t.shape[1:]), numpy_dtype(t.dtype))
                           for t in model._inputs}
@@ -226,6 +237,14 @@ class InferenceEngine:
             self.warmup()
 
     # ---------------------------------------------------------------- mesh
+    def _global_params(self) -> Dict[str, dict]:
+        """Every parameter's global value: a mesh block (a state trained
+        or restored on the mesh) gathered, a collective every rank joins
+        in the tree's order; a global value as it is."""
+        from ..parallel.spmd import global_param
+        return {op: {k: global_param(v) for k, v in d.items()}
+                for op, d in self._params.items()}
+
     def _place_on_mesh(self) -> None:
         """The JAX engine's mesh placement: ``partition_rules`` kept on
         the engine, ``_mesh_sharded`` when any parameter's rule shards it

@@ -10,7 +10,8 @@ the incumbent only when the regress gate passes:
     python dlrm_flexflow_tpu_torch/tools/search_tune.py \\
         --telemetry artifacts/telemetry_dlrm.jsonl [--devices 4] \\
         [--budget 300] [--seed 0] [--tolerance 5] [--bench sim|real] \\
-        [--artifacts artifacts] [--tiny] [--device cuda|cpu]
+        [--artifacts artifacts] [--tiny] [--device cuda|cpu] \\
+        [--pod <slices>x<chips>|auto]
 
 Every phase emits ``search``/``calibration`` telemetry into the tune sink
 (default ``<artifacts>/telemetry_tune.jsonl``, appended to, so the report
@@ -25,8 +26,13 @@ the strategy (``compile(strategy=)``), two warm steps (the eager one and
 the capture), then three fenced windows of ``--bench-batches`` graphed
 ``train_step`` replays, the best window's step time.  On one card
 strategies execute alike (a mesh of one rank is the no-mesh program), so
-the two differ there only by noise; the pod form (``--pod``) is ROADMAP.md
-item 8, part 2, item 5.  The tool
+the two differ there only by noise.  ``--pod 2x4`` runs the whole loop
+under the two-level cost model (NVLink within a node, the scale-out
+fabric between nodes) with node-aware placement search, and the
+incumbent pointer's scope key grows the shape
+(``strategy_incumbent_dlrm_8dev_2x4pod.json``); ``--pod auto`` reads
+the running group's shape
+(``distributed.pod_topology``).  The tool
 runs on the CUDA card unless ``--device cpu`` is given; without a card
 it exits with code 2.  ``--fused-interaction on`` selects the fused
 graph, whose ``op_time`` telemetry names the fused op.
@@ -161,6 +167,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "gather-pool-interaction op (on)")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                    help="where --bench real runs (default the card)")
+    p.add_argument("--pod", default="",
+                   help="pod slice shape '<slices>x<chips>' (e.g. "
+                        "'2x4'): run the whole loop under the "
+                        "two-level NVLink/scale-out cost model with "
+                        "node-aware placement search; 'auto' reads the "
+                        "running group's topology.  The incumbent scope "
+                        "key grows the slice shape.")
     p.add_argument("--sink", default=None,
                    help="tune-run telemetry JSONL (default "
                         "<artifacts>/telemetry_tune.jsonl; 'off' "
@@ -178,6 +191,7 @@ def run(args: argparse.Namespace) -> dict:
 
     num_devices = args.devices or (torch.cuda.device_count()
                                    if args.device == "cuda" else 1)
+    topology = pod_topology_arg(args.pod)
     _cfg, model = build_model(args)
     bench_fn = real_step_bench(args) if args.bench == "real" else None
 
@@ -195,7 +209,21 @@ def run(args: argparse.Namespace) -> dict:
             model, num_devices, args.telemetry, args.artifacts,
             app="dlrm", budget=args.budget, seed=args.seed,
             alpha=args.alpha, bench_fn=bench_fn,
-            tolerance_pct=args.tolerance)
+            tolerance_pct=args.tolerance, topology=topology)
+
+
+def pod_topology_arg(spec: str):
+    """``--pod``'s :class:`~dlrm_flexflow_tpu_torch.sim.cost_model.
+    PodTopology`: None for "", the running group's for "auto", else the
+    parsed ``<slices>x<chips>``."""
+    spec = (spec or "").strip().lower()
+    if not spec:
+        return None
+    if spec == "auto":
+        from dlrm_flexflow_tpu_torch.distributed import pod_topology
+        return pod_topology()
+    from dlrm_flexflow_tpu_torch.sim.cost_model import PodTopology
+    return PodTopology.parse(spec)
 
 
 def main(argv=None) -> int:
