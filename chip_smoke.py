@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port (dlrm_flexflow_tpu_torch) on one GPU.
+"""Smoke run of the PyTorch/CUDA port (dlrm_flexflow_tpu_torch) on one GPU,
+and on a machine of four or more, the mesh between four of them.
 
     python3 chip_smoke.py
 
@@ -320,7 +321,45 @@ Phases, each of which fails the run (non-zero exit, no result line):
      tools/search_tune.py --pod 2x4 --bench sim (its ``_2x4pod``
      pointer) and --pod auto (one card: the flat pointer), both exit 0.
      No kernel launches in the ranks (kernels are off under a mesh of
-     more than one rank).
+     more than one rank);
+ 35. the mesh between cards, only when torch sees four or more (else one
+     line, {"phase": "mesh_cards", "ran": false, "cards": n}, and nothing
+     else): four NCCL ranks, one a card (distributed.launch with no
+     backend), through the rank bodies of phases 32-34, in a directory
+     beside this script removed at its end.  Any error of any rank fails
+     the phase (nothing is refused under NCCL), and no rank may launch a
+     kernel.  Each run is held against one process of the port on card 0
+     after the group has left, from the same weights and batches: (a)
+     the run_random.sh DLRM at full width, f32, SGD lr 0.01, global batch
+     1024, MESH_STEPS steps, on {"data": 4} (row-sparse replicas),
+     {"data": 1, "model": 4} (two tables a rank; allgather, all_to_all
+     and the overlapped graph) and {"data": 2, "model": 2} (all_to_all):
+     every rank's losses at rtol 1e-5, its touched rows and MLPs at rtol
+     1e-5 / atol 1e-6, its table sums; the step wall on every rank, one
+     process's, the exchange's wall and share, samples/s across the
+     cards; (b) ring attention and Ulysses (its all-to-all) on {"seq": 4}
+     at RING_SHAPE against sdpa at 2e-5; (c) phase 34(a) on {"data": 4}
+     (rank 0 holds the host tables behind distributed.host_group's gloo
+     group beside NCCL): losses rtol 1e-5, tables and handles 1e-6, the
+     split by part on every rank; (d) phase 34(b) on {"data": 1, "model":
+     4}, the buckets broadcast on the card, ranks 1-3 following, answers
+     within 1e-6 of the one-card engine of each mode, dispatch walls of
+     both; then, under a 15 s collective deadline, the leader leaves the
+     bf16 engine without its stop and every follower must leave with
+     follow()'s "the leader ..." error within 45 s of its last answer;
+     (e) phase 33's elastic_rank on {"data": 1, "model": 4} (allgather,
+     batch 1024): a podshard commit, rank 3 never reaching the second
+     save's barrier (each survivor's FleetBarrierTimeout names p3 within
+     its 20 s deadline), the three survivors recover_and_resume at world
+     3 over NCCL at a new store, resharded onto {"data": 3} at batch 768
+     (four table shards become three replicas), every restore bit for
+     bit the saved blocks, MESH_STEPS more steps at rtol 1e-5 of one
+     process resumed from the same checkpoint; the save's walls by
+     stage, the timeouts and the recoveries printed; (f) the DLRM CLI
+     (CLI_ARGS) under python -m torch.distributed.run
+     --nproc_per_node=4: exit 0, every rank's epoch metrics equal,
+     samples/s of each rank.  The kernels line counts no launch of this
+     phase.
 The phases that train epochs of the run_random.sh model ask for the
 epoch row cache ("on"): "auto" is off on the card.
 Profile lines carry the graph replays in their window, the graph pool's
@@ -1436,11 +1475,12 @@ def _train_model(fused, compute_dtype, sparse="auto", interact="cat",
     return model, state
 
 
-def _epoch_data(batches):
-    """The first ``batches`` batches of SyntheticDLRMLoader(seed=0),
-    stacked as (num_batches, batch, ...) arrays."""
-    loader = SyntheticDLRMLoader(batches * BATCH, BOT, [ROWS] * TABLES, 1,
-                                 BATCH, seed=0)
+def _epoch_data(batches, batch=BATCH, seed=0):
+    """The first ``batches`` batches of ``batch`` rows of
+    SyntheticDLRMLoader(seed=seed), stacked as (num_batches, batch, ...)
+    arrays."""
+    loader = SyntheticDLRMLoader(batches * batch, BOT, [ROWS] * TABLES, 1,
+                                 batch, seed=seed)
     steps = list(loader)
     return ({k: np.stack([s[0][k] for s in steps]) for k in steps[0][0]},
             np.stack([s[1] for s in steps]))
@@ -5620,30 +5660,48 @@ def frontends_phase():
 
 # -------------------------------------------------------------- phase 32
 MESH_STEPS = 4
-#: ring attention on the card: two ranks of (B, H, S/2, D) blocks
+#: sequence-parallel attention on the card: (B, H, S, D), S split over
+#: the ranks of "seq"
 RING_SHAPE = (2, 8, 4096, 64)
+#: 32(b)'s runs: [name, mesh shape, table_parallel, table_exchange,
+#: overlap]
+MESH2_RUNS = [
+    ["allgather", {"data": 1, "model": 2}, True, "allgather", "off"],
+    ["all_to_all", {"data": 1, "model": 2}, True, "all_to_all", "off"],
+    ["overlap_allgather", {"data": 1, "model": 2}, True, "allgather", "on"]]
 
 
-def _mesh_dlrm(mesh, compute_dtype, table_parallel=False,
-               table_exchange="off", overlap="off"):
+def _mesh_model(mesh, compute_dtype, table_parallel=False,
+                table_exchange="off", overlap="off", batch=BATCH):
     """The run_random.sh classic graph (or with ``overlap`` "on" its
-    overlapped graph) at full width, compiled under ``mesh`` (False: no
-    mesh), SGD at lr 0.01, seed 0, on this process's card."""
+    overlapped graph) at full width and global batch ``batch``, compiled
+    under ``mesh`` (False: no mesh), SGD at lr 0.01; and the warnings
+    compile gave."""
     cfg = DLRMConfig(embedding_size=[ROWS] * TABLES,
                      exchange_overlap=overlap)
-    ffc = FFConfig(batch_size=BATCH, compute_dtype=compute_dtype,
+    ffc = FFConfig(batch_size=batch, compute_dtype=compute_dtype,
                    table_exchange=table_exchange)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         model = build_dlrm(cfg, ffc, table_parallel=table_parallel).compile(
             optimizer=SGDOptimizer(lr=0.01), loss_type="mean_squared_error",
             metrics=("accuracy", "mean_squared_error"), mesh=mesh)
-    return model, model.init(seed=0), [str(w.message) for w in caught]
+    return model, [str(w.message) for w in caught]
 
 
-def _mesh_steps(model, state, inputs, labels):
-    """MESH_STEPS donated steps; the losses and the median step wall."""
-    losses, walls = [], []
+def _mesh_dlrm(mesh, compute_dtype, table_parallel=False,
+               table_exchange="off", overlap="off", batch=BATCH):
+    """``_mesh_model`` with its state from seed 0 on this process's
+    card."""
+    model, warned = _mesh_model(mesh, compute_dtype, table_parallel,
+                                table_exchange, overlap, batch)
+    return model, model.init(seed=0), warned
+
+
+def _mesh_steps(model, state, inputs, labels, walls=None):
+    """MESH_STEPS donated steps; the losses and the median step wall
+    (each step's wall appended to ``walls`` when given)."""
+    losses, walls = [], [] if walls is None else walls
     for i in range(MESH_STEPS):
         t0 = time.perf_counter()
         state, mets = model.train_step(
@@ -5738,124 +5796,170 @@ def _gloo_refusal(err):
     return None
 
 
-def mesh_rank(out_dir):
-    """32(b)'s rank body (two processes on the one card over gloo): the
-    table-parallel DLRM on {"data": 1, "model": 2}, 4 tables a rank, in
-    both exchange modes and the overlapped graph, MESH_STEPS steps, with
-    no kernel launch (kernels are off under a mesh of more than one
-    rank); ring attention runs in a group of its own (``ring_rank``).
-    A collective that gloo refuses on CUDA tensors (``_gloo_refusal``)
-    is recorded and the rest runs; any other error raises."""
+def _rank_group(world, backend):
+    """This rank's id, after checking that its group has ``world`` ranks
+    on ``backend``."""
     import torch.distributed as dist
+    if dist.get_world_size() != world or dist.get_backend() != backend:
+        raise AssertionError(f"a rank of {dist.get_world_size()} on "
+                             f"{dist.get_backend()}, not {world} on "
+                             f"{backend}")
+    return dist.get_rank()
 
+
+def _refused(out, backend, run, err):
+    """Record gloo's own refusal of ``run`` (``_gloo_refusal``) in
+    ``out``; re-raise anything else, and under NCCL everything."""
+    kind = _gloo_refusal(err) if backend == "gloo" else None
+    if kind is None:
+        raise err
+    out["refused"].append({"run": run, "rank": out["rank"], "kind": kind,
+                           "error": str(err)[:400]})
+
+
+def mesh_rank(out_dir, world, runs, backend, batch=BATCH):
+    """The mesh DLRM's rank body, 32(b) (two gloo ranks on the one card)
+    and 35(a) (four NCCL ranks, one a card): for each of ``runs``
+    (``[name, mesh shape, table_parallel, table_exchange, overlap]``)
+    the run_random.sh DLRM at full width, f32 compute, global batch
+    ``batch``, MESH_STEPS steps, with no kernel launch (kernels are off
+    under a mesh of more than one rank); then the exchange alone on the
+    first batch (a table-parallel run's lookup and exchange, or the
+    replicas' gather of every rank's ids and row gradients).  Under gloo
+    a collective it refuses on CUDA tensors (``_gloo_refusal``) is
+    recorded and the rest runs; any other error raises, and under NCCL
+    every error."""
     from dlrm_flexflow_tpu_torch.parallel import make_mesh
+    from dlrm_flexflow_tpu_torch.parallel.collectives import gather_cat
     from dlrm_flexflow_tpu_torch.parallel.table_exchange import (
         table_parallel_lookup)
-    rank = dist.get_rank()
-    inputs, labels = _epoch_data(MESH_STEPS)
+    rank = _rank_group(world, backend)
+    inputs, labels = _epoch_data(MESH_STEPS, batch)
     touched = _touched(inputs)
-    mesh = make_mesh({"data": 1, "model": 2})
     out = {"rank": rank, "runs": {}, "refused": []}
-
-    def refused(run, err):
-        kind = _gloo_refusal(err)
-        if kind is None:
-            raise err
-        out["refused"].append({"run": run, "rank": rank, "kind": kind,
-                               "error": str(err)[:400]})
-
-    for name, xmode, overlap in (("allgather", "allgather", "off"),
-                                 ("all_to_all", "all_to_all", "off"),
-                                 ("overlap_allgather", "allgather", "on")):
-        model, state, _ = _mesh_dlrm(mesh, "float32", True, xmode, overlap)
+    for name, shape, tp, xmode, overlap in runs:
+        mesh = make_mesh(shape)
+        model, state, _ = _mesh_dlrm(mesh, "float32", tp, xmode, overlap,
+                                     batch)
         reset_counts()
         try:
             state, losses, wall = _mesh_steps(model, state, inputs, labels)
         except RuntimeError as e:
-            refused(name, e)
+            _refused(out, backend, name, e)
             del model, state
             _free()
             continue
         launches = read_counts()
         if any(launches.values()):
-            raise AssertionError(f"32(b) {name}: kernels launched under a "
-                                 f"mesh of two ranks: {launches}")
+            raise AssertionError(f"{name}: kernels launched under a mesh "
+                                 f"of {world} ranks: {launches}")
         op = model.get_op("emb_bot" if overlap == "on" else "emb")
-        table = state.params[op.name]["embedding"]      # (4, R, d) local
-        ids = torch.from_numpy(inputs["sparse"][0]).cuda()
+        table = state.params[op.name]["embedding"]  # the rank's tables
+        t_loc = table.shape[0]
+        first = mesh.coords.get("model", 0) * t_loc if tp else 0
+        shard = batch // shape.get("data", 1)
+        lo = mesh.coords.get("data", 0) * shard
+        ids = torch.from_numpy(inputs["sparse"][0][lo:lo + shard]).cuda()
+        grads = torch.zeros(ids.numel(), DIM, device="cuda")
         ex = []
         for _ in range(8):  # the exchange alone, on the first batch
             t0 = time.perf_counter()
-            table_parallel_lookup(table, ids, mesh, "sum", xmode)
+            if tp:
+                table_parallel_lookup(table, ids, mesh, "sum", xmode)
+            else:
+                gather_cat(ids.reshape(-1), mesh, ("data",))
+                gather_cat(grads, mesh, ("data",))
             torch.cuda.synchronize()
             ex.append((time.perf_counter() - t0) * 1e3)
-        rows = {}
-        for j in range(table.shape[0]):
-            t = rank * table.shape[0] + j
-            rows[t] = table[j][torch.from_numpy(touched[t]).cuda()].cpu()
+        rows = {first + j: table[j][torch.from_numpy(
+            touched[first + j]).cuda()].cpu() for j in range(t_loc)}
         mlp = {f"{o}/{k}": v.detach().cpu() for o, d in state.params.items()
                for k, v in d.items() if k != "embedding"}
         out["runs"][name] = {
             "losses": losses, "step_wall_ms": wall,
             "exchange_ms": float(np.median(ex)),
             "local_tables": list(table.shape), "launches": launches,
-            "checksums": {int(rank * table.shape[0] + j):
-                          float(table[j].double().sum())
-                          for j in range(table.shape[0])}}
+            "checksums": {first + j: float(table[j].double().sum())
+                          for j in range(t_loc)}}
         torch.save({"rows": rows, "mlp": mlp},
                    os.path.join(out_dir, f"{name}.rank{rank}.pt"))
-        del model, state, table
+        del model, state, table, grads
         _free()
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
 
 
-def ring_rank(out_dir):
-    """32(b)'s second rank body: ring attention at RING_SHAPE on {"seq":
-    2}, in a group of its own, since gloo's TCP transport may refuse a
-    send from device memory on its own thread, which aborts the process
-    (``std::terminate``) where the caller cannot catch it."""
-    import torch.distributed as dist
+def _seq_qkv():
+    """q, k and v at RING_SHAPE from seed 11, on this process's card."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    return tuple(torch.randn(RING_SHAPE, generator=gen, device="cuda")
+                 for _ in range(3))
 
+
+def _seq_attention(out_dir, world, mesh, backend, kind):
+    """Sequence-parallel attention (``kind`` "ring" or "ulysses") at
+    RING_SHAPE on ``mesh``, causal: a warm call, then one timed; rank 0
+    saves the output.  Under gloo a refusal is recorded (``_refused``);
+    any other error raises, and under NCCL every error."""
     from dlrm_flexflow_tpu_torch.parallel import make_mesh
     from dlrm_flexflow_tpu_torch.parallel.ring_attention import (
         ring_attention_sharded)
-    rank = dist.get_rank()
+    from dlrm_flexflow_tpu_torch.parallel.ulysses import (
+        ulysses_attention_sharded)
+    fn = {"ring": ring_attention_sharded,
+          "ulysses": ulysses_attention_sharded}[kind]
+    rank = _rank_group(world, backend)
     out = {"rank": rank, "refused": []}
-    gen = torch.Generator(device="cuda").manual_seed(11)
-    q, k, v = (torch.randn(RING_SHAPE, generator=gen, device="cuda")
-               for _ in range(3))
-    smesh = make_mesh({"seq": 2})
+    q, k, v = _seq_qkv()
+    smesh = make_mesh(mesh)
     try:
-        ring_attention_sharded(q, k, v, smesh, causal=True)  # warm
+        fn(q, k, v, smesh, causal=True)  # warm
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        o = ring_attention_sharded(q, k, v, smesh, causal=True)
+        o = fn(q, k, v, smesh, causal=True)
         torch.cuda.synchronize()
-        out["ring_ms"] = (time.perf_counter() - t0) * 1e3
+        out[f"{kind}_ms"] = (time.perf_counter() - t0) * 1e3
         if rank == 0:
-            torch.save(o.cpu(), os.path.join(out_dir, "ring.pt"))
+            torch.save(o.cpu(), os.path.join(out_dir, f"{kind}.pt"))
     except RuntimeError as e:
-        kind = _gloo_refusal(e)
-        if kind is None:
-            raise
-        out["refused"].append({"run": "ring_attention", "rank": rank,
-                               "kind": kind, "error": str(e)[:400]})
-    with open(os.path.join(out_dir, f"ring{rank}.json"), "w") as f:
+        _refused(out, backend, f"{kind}_attention", e)
+    with open(os.path.join(out_dir, f"{kind}{rank}.json"), "w") as f:
         json.dump(out, f)
 
 
+def ring_rank(out_dir, world, mesh, backend):
+    """Ring attention's rank body (``parallel/ring_attention.py``), 32(b)
+    on {"seq": 2} in a group of its own, since gloo's TCP transport may
+    refuse a send from device memory on its own thread, which aborts the
+    process (``std::terminate``) where the caller cannot catch it; 35(b)
+    on {"seq": 4}."""
+    _seq_attention(out_dir, world, mesh, backend, "ring")
+
+
+def ulysses_rank(out_dir, world, mesh, backend):
+    """Ulysses attention's rank body (``parallel/ulysses.py``, its
+    head/sequence all-to-all), 35(b) on {"seq": 4}."""
+    _seq_attention(out_dir, world, mesh, backend, "ulysses")
+
+
+def seq_rank(out_dir, world, mesh, backend):
+    """35(b)'s group: ``ring_rank`` then ``ulysses_rank``."""
+    ring_rank(out_dir, world, mesh, backend)
+    ulysses_rank(out_dir, world, mesh, backend)
+
+
 def _ring_group(out_dir):
-    """Run ring_rank's group; returns its ranks' records, or, when a rank
-    died of gloo's own refusal (the abort ``ring_rank`` names), a record
-    of that refusal for each such rank.  The abort is accepted only when
-    the other rank shows no fault of its own: its log holds gloo's closed
-    connection, or no traceback and no abort (it was stopped while
-    waiting).  Any other failure raises."""
+    """Run ring_rank's group (32(b)); returns its ranks' records, or, when
+    a rank died of gloo's own refusal (the abort ``ring_rank`` names), a
+    record of that refusal for each such rank.  The abort is accepted
+    only when the other rank shows no fault of its own: its log holds
+    gloo's closed connection, or no traceback and no abort (it was
+    stopped while waiting).  Any other failure raises."""
     from dlrm_flexflow_tpu_torch import distributed as fdist
     try:
-        fdist.launch("chip_smoke:ring_rank", 2, kwargs={"out_dir": out_dir},
-                     backend="gloo", timeout_s=300, threads=4)
+        fdist.launch("chip_smoke:ring_rank", 2, kwargs={
+            "out_dir": out_dir, "world": 2, "mesh": {"seq": 2},
+            "backend": "gloo"}, backend="gloo", timeout_s=300, threads=4)
     except RuntimeError as e:
         kind = _gloo_refusal(e)
         if kind != "cuda_pointer":
@@ -5877,6 +5981,98 @@ def _ring_group(out_dir):
             for r in range(2)]
 
 
+def _check_mesh_runs(tag, out_dir, world, runs, batch, ranks):
+    """Hold each of ``runs`` that every rank completed (``mesh_rank``'s
+    records ``ranks``) against the port's one-process run on this card
+    on the same batches: every rank's losses at rtol 1e-5, its touched
+    rows and MLP parameters at rtol 1e-5 / atol 1e-6, its table sums.
+    Returns each run's walls and errors."""
+    inputs, labels = _epoch_data(MESH_STEPS, batch)
+    touched = _touched(inputs)
+    refs, results = {}, {}
+    for name, shape, tp, xmode, overlap in runs:
+        if name not in ranks[0]["runs"]:
+            continue
+        if overlap not in refs:  # one reference for each graph
+            model, state, _ = _mesh_dlrm(False, "float32", overlap=overlap,
+                                         batch=batch)
+            each = []
+            state, losses, wall = _mesh_steps(model, state, inputs, labels,
+                                              each)
+            op = "emb_bot" if overlap == "on" else "emb"
+            refs[overlap] = (model, state, losses, each,
+                             state.params[op]["embedding"])
+        _, state, losses, each, table = refs[overlap]
+        err = 0.0
+        for r in range(world):
+            got = ranks[r]["runs"][name]
+            np.testing.assert_allclose(got["losses"], losses, rtol=1e-5)
+            saved = torch.load(os.path.join(out_dir, f"{name}.rank{r}.pt"))
+            for t, rows in saved["rows"].items():
+                want = table[t][torch.from_numpy(touched[t]).cuda()].cpu()
+                np.testing.assert_allclose(rows.numpy(), want.numpy(),
+                                           rtol=1e-5, atol=1e-6)
+                err = max(err, float((rows - want).abs().max()))
+            for key, v in saved["mlp"].items():
+                o, k = key.split("/")
+                want = state.params[o][k].detach().cpu()
+                np.testing.assert_allclose(v.numpy(), want.numpy(),
+                                           rtol=1e-5, atol=1e-6)
+                err = max(err, float((v - want).abs().max()))
+            for t, cs in got["checksums"].items():
+                want = float(table[int(t)].double().sum())
+                if abs(cs - want) > 1e-5 * max(abs(want), 1.0):
+                    raise AssertionError(f"{tag} {name}: table {t} sum "
+                                         f"{cs} vs {want} on rank {r}")
+        walls = [x["runs"][name]["step_wall_ms"] for x in ranks]
+        exch = [x["runs"][name]["exchange_ms"] for x in ranks]
+        results[name] = {
+            "mesh": shape, "table_parallel": tp, "exchange": xmode,
+            "overlap": overlap, "losses": ranks[0]["runs"][name]["losses"],
+            "max_abs_err": err,
+            "local_tables": ranks[0]["runs"][name]["local_tables"],
+            "launches": [sum(x["runs"][name]["launches"].values())
+                         for x in ranks],
+            "step_wall_ms": max(walls), "step_wall_ms_by_rank": walls,
+            # one process: its first step eager, the second captured,
+            # then replays; the last step is the graphed one
+            "one_process_step_wall_ms": float(np.median(each)),
+            "one_process_step_walls_ms": each,
+            "exchange_ms": max(exch), "exchange_ms_by_rank": exch,
+            "exchange_share_of_step": max(exch) / max(walls),
+            "samples_per_s": batch / (max(walls) / 1e3),
+            "one_process_graphed_samples_per_s": batch / (each[-1] / 1e3)}
+    del refs
+    _free()
+    return results
+
+
+def _check_seq(tag, out_dir, ranks, kind):
+    """Rank 0's sequence-parallel output (``kind``) against the port's
+    sdpa on this card at 2e-5; None when gloo refused it."""
+    from dlrm_flexflow_tpu_torch.ops.attention import sdpa
+    path = os.path.join(out_dir, f"{kind}.pt")
+    if not os.path.exists(path):
+        return None
+    q, k, v = _seq_qkv()
+    sdpa(q, k, v, causal=True)  # warm, as the ranks' calls are
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = sdpa(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    dense_ms = (time.perf_counter() - t0) * 1e3
+    got = torch.load(path).cuda()
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, rtol=2e-5, atol=2e-5):
+        raise AssertionError(f"{tag} {kind} attention: max err {err}")
+    row = {"shape": list(RING_SHAPE), "max_abs_err": err,
+           f"{kind}_ms": max(x.get(f"{kind}_ms", 0.0) for x in ranks),
+           "one_process_sdpa_ms": dense_ms}
+    del q, k, v, want, got
+    _free()
+    return row
+
+
 def mesh_two_ranks(card):
     """32(b): mesh_rank in two processes on the one card over gloo (NCCL
     refuses two ranks on one device), each run held against the port's
@@ -5885,12 +6081,11 @@ def mesh_two_ranks(card):
     runs must complete on both ranks; a run is left out only for a
     refusal of gloo's own, which is logged with its rank."""
     from dlrm_flexflow_tpu_torch import distributed as fdist
-    from dlrm_flexflow_tpu_torch.ops.attention import sdpa
-    inputs, labels = _epoch_data(MESH_STEPS)  # as mesh_rank makes them
     out_dir = tempfile.mkdtemp(prefix="mesh2-")
     t0 = time.perf_counter()
-    fdist.launch("chip_smoke:mesh_rank", 2, kwargs={"out_dir": out_dir},
-                 backend="gloo", timeout_s=420, threads=4)
+    fdist.launch("chip_smoke:mesh_rank", 2, kwargs={
+        "out_dir": out_dir, "world": 2, "runs": MESH2_RUNS,
+        "backend": "gloo"}, backend="gloo", timeout_s=420, threads=4)
     group_s = time.perf_counter() - t0
     ranks = [json.load(open(os.path.join(out_dir, f"rank{r}.json")))
              for r in range(2)]
@@ -5911,69 +6106,11 @@ def mesh_two_ranks(card):
         if any(name not in x["runs"] for x in ranks):
             raise AssertionError(f"32(b): the {name} run did not complete "
                                  "on both ranks")
-    touched = _touched(inputs)
-    results = {}
-    for name, overlap in (("allgather", "off"), ("all_to_all", "off"),
-                          ("overlap_allgather", "on")):
-        if name not in ranks[0]["runs"]:
-            continue
-        model, state, _ = _mesh_dlrm(False, "float32", overlap=overlap)
-        state, losses, wall = _mesh_steps(model, state, inputs, labels)
-        op = "emb_bot" if overlap == "on" else "emb"
-        table = state.params[op]["embedding"]
-        got = ranks[0]["runs"][name]
-        np.testing.assert_allclose(got["losses"], losses, rtol=1e-5)
-        err = 0.0
-        for r in range(2):
-            saved = torch.load(os.path.join(out_dir, f"{name}.rank{r}.pt"))
-            for t, rows in saved["rows"].items():
-                want = table[t][torch.from_numpy(touched[t]).cuda()].cpu()
-                np.testing.assert_allclose(rows.numpy(), want.numpy(),
-                                           rtol=1e-5, atol=1e-6)
-                err = max(err, float((rows - want).abs().max()))
-            for key, v in saved["mlp"].items():
-                o, k = key.split("/")
-                want = state.params[o][k].detach().cpu()
-                np.testing.assert_allclose(v.numpy(), want.numpy(),
-                                           rtol=1e-5, atol=1e-6)
-                err = max(err, float((v - want).abs().max()))
-            for t, cs in ranks[r]["runs"][name]["checksums"].items():
-                want = float(table[int(t)].double().sum())
-                if abs(cs - want) > 1e-5 * max(abs(want), 1.0):
-                    raise AssertionError(f"32(b) {name}: table {t} sum "
-                                         f"{cs} vs {want}")
-        results[name] = {
-            "losses": got["losses"], "max_abs_err": err,
-            "local_tables": got["local_tables"],
-            "launches": [sum(x["runs"][name]["launches"].values())
-                         for x in ranks],
-            "step_wall_ms": max(x["runs"][name]["step_wall_ms"]
-                                for x in ranks),
-            "one_process_step_wall_ms": wall,
-            "exchange_ms": got["exchange_ms"],
-            "exchange_share_of_step": got["exchange_ms"]
-            / max(x["runs"][name]["step_wall_ms"] for x in ranks)}
-        del model, state, table
-        _free()
-    ring_path = os.path.join(out_dir, "ring.pt")
-    if os.path.exists(ring_path):
-        gen = torch.Generator(device="cuda").manual_seed(11)
-        q, k, v = (torch.randn(RING_SHAPE, generator=gen, device="cuda")
-                   for _ in range(3))
-        t0 = time.perf_counter()
-        want = sdpa(q, k, v, causal=True)
-        torch.cuda.synchronize()
-        dense_ms = (time.perf_counter() - t0) * 1e3
-        got = torch.load(ring_path).cuda()
-        err = float((got - want).abs().max())
-        if not torch.allclose(got, want, rtol=2e-5, atol=2e-5):
-            raise AssertionError(f"32(b) ring attention: max err {err}")
-        results["ring_attention"] = {
-            "shape": list(RING_SHAPE), "max_abs_err": err,
-            "ring_ms": max(x.get("ring_ms", 0.0) for x in rings),
-            "one_process_sdpa_ms": dense_ms}
-        del q, k, v, want, got
-        _free()
+    results = _check_mesh_runs("32(b)", out_dir, 2, MESH2_RUNS, BATCH,
+                               ranks)
+    ring = _check_seq("32(b)", out_dir, rings, "ring")
+    if ring is not None:
+        results["ring_attention"] = ring
     shutil.rmtree(out_dir, ignore_errors=True)
     refused = sorted({x["run"] for x in refused})
     log({"phase": "mesh_two_ranks", "card": card, "backend": "gloo",
@@ -6040,27 +6177,33 @@ def _ckpt_stages(events):
     return stages
 
 
-def elastic_rank(root):
-    """33's rank body (two gloo ranks on the one card): (1) the
-    table-parallel DLRM at full width on {"data": 1, "model": 2} with
-    table_exchange="allgather", MESH_STEPS steps; (2) a podshard commit
-    through CheckpointManager(multihost=None), each rank's walls by stage;
-    (7) the mesh engine over that state serving ELASTIC_REQUESTS requests
-    (rank 0 the leader, rank 1 following); one more step, then (3) a
-    second save at which rank 1 hangs at the barrier (host_hang@barrier):
-    rank 0 must raise FleetBarrierTimeout naming p1.  No kernel may
-    launch."""
+def elastic_rank(root, world, mesh, backend, batch=BATCH, serve=True,
+                 resume=None):
+    """The elastic rank body, 33 (two gloo ranks on the one card) and
+    35(e) (four NCCL ranks, one a card): (1) the table-parallel DLRM at
+    full width on ``mesh`` (``{"data": 1, "model": world}``) with
+    table_exchange="allgather", global batch ``batch``, MESH_STEPS steps;
+    (2) a podshard commit through CheckpointManager(multihost=None), each
+    rank's walls by stage; with ``serve`` (33) (7) the mesh engine over
+    that state serving ELASTIC_REQUESTS requests (rank 0 the leader, the
+    others following); one more step, then (3) a second save at which
+    the last rank hangs at the barrier (host_hang@barrier): every other
+    rank must raise FleetBarrierTimeout naming it.  With ``resume``
+    (35(e): ``{"store", "mesh", "batch"}``) the survivors then
+    recover_and_resume at world - 1 at the new store, the checkpoint
+    resharded onto ``resume["mesh"]`` at its global batch, and take
+    MESH_STEPS steps on ``_resume_data``.  No kernel may launch."""
     import hashlib
 
-    import torch.distributed as dist
-
+    from dlrm_flexflow_tpu_torch.elastic import recover_and_resume
     from dlrm_flexflow_tpu_torch.parallel import make_mesh
     from dlrm_flexflow_tpu_torch.resilience import (FleetBarrierTimeout,
                                                     HostLost)
-    rank = dist.get_rank()
-    inputs, labels = _epoch_data(2 * MESH_STEPS)
-    mesh = make_mesh({"data": 1, "model": 2})
-    model, state, _ = _mesh_dlrm(mesh, "float32", True, "allgather")
+    rank = _rank_group(world, backend)
+    lost = world - 1
+    inputs, labels = _epoch_data(2 * MESH_STEPS, batch)
+    model, state, _ = _mesh_dlrm(make_mesh(mesh), "float32", True,
+                                 "allgather", batch=batch)
     out = {"rank": rank}
     reset_counts()
     walls = []
@@ -6093,29 +6236,29 @@ def elastic_rank(root):
                       f"{(rank + 1) * t_loc}]": h}
     if rank == 0:  # the leaves no mesh shards
         out["digests"].update(_digests(state, blocks=[]))
-    # (7) serving on the mesh, through the leader's broadcast
-    engine = InferenceEngine(model, state)
-    out["engine"] = {"buckets": engine.buckets,
-                     "sharded": engine._mesh_sharded}
-    if engine.is_leader:
-        outs, dwalls = [], []
-        for r in _elastic_requests():
-            t0 = time.perf_counter()
-            outs.append(engine.predict(r))
-            dwalls.append((time.perf_counter() - t0) * 1e3)
-        engine.close()
-        np.save(os.path.join(root, "mesh_outputs.npy"),
-                np.concatenate(outs))
-        out["dispatch_wall_ms"] = dwalls
-    else:
-        out["followed"] = engine.follow()
+    if serve:  # (7) serving on the mesh, through the leader's broadcast
+        engine = InferenceEngine(model, state)
+        out["engine"] = {"buckets": engine.buckets,
+                         "sharded": engine._mesh_sharded}
+        if engine.is_leader:
+            outs, dwalls = [], []
+            for r in _elastic_requests():
+                t0 = time.perf_counter()
+                outs.append(engine.predict(r))
+                dwalls.append((time.perf_counter() - t0) * 1e3)
+            engine.close()
+            np.save(os.path.join(root, "mesh_outputs.npy"),
+                    np.concatenate(outs))
+            out["dispatch_wall_ms"] = dwalls
+        else:
+            out["followed"] = engine.follow()
+        del engine
     out["launches"] = read_counts()  # the mesh launches none
-    del engine
     state, _ = model.train_step(
         state, {k: v[MESH_STEPS] for k, v in inputs.items()},
         labels[MESH_STEPS])
     torch.cuda.synchronize()
-    if rank == 1:  # lost at the next save's barrier
+    if rank == lost:  # lost at the next save's barrier
         os.environ["FF_HANG_S"] = str(ELASTIC_HANG_S)
         faultinject.install("host_hang@barrier")
         try:
@@ -6126,7 +6269,7 @@ def elastic_rank(root):
         finally:
             faultinject.clear()
     else:
-        os.environ["FF_FLIGHT_DIR"] = os.path.join(root, "flight")
+        os.environ["FF_FLIGHT_DIR"] = os.path.join(root, f"flight{rank}")
         t0 = time.perf_counter()
         with tele.event_log() as elog:
             try:
@@ -6139,8 +6282,47 @@ def elastic_rank(root):
             out["recovery_events"] = [
                 e for e in elog.events() if e["type"] == "recovery"]
         out["flight"] = os.listdir(os.environ["FF_FLIGHT_DIR"])
+    if resume is not None and rank != lost:
+        del model, state, table
+        _free()
+        t0 = time.perf_counter()
+        with tele.event_log() as elog:
+            model, state, extra, path = recover_and_resume(
+                os.path.join(root, "ckpt"), lambda: _mesh_model(
+                    make_mesh(resume["mesh"]), "float32",
+                    batch=resume["batch"])[0],
+                coordinator_address=resume["store"],
+                num_processes=world - 1, process_id=rank)
+            torch.cuda.synchronize()
+            out["recover_wall_s"] = time.perf_counter() - t0
+            out["recover_events"] = [(e["type"], e["phase"])
+                                     for e in elog.events()
+                                     if e["type"] in ("elastic", "recovery")]
+            out["restore_stages_s"] = _ckpt_stages(elog.events())
+        out["resumed_from"] = {"path": path, "step": int(state.step),
+                               "extra": extra}
+        out["restored_digests"] = _digests(
+            state, [(r * t_loc, (r + 1) * t_loc) for r in range(world)])
+        rin, rlab = _resume_data(resume["batch"])
+        reset_counts()
+        out["resumed_losses"], out["resumed_step_wall_ms"] = [], []
+        for i in range(MESH_STEPS):
+            t0 = time.perf_counter()
+            state, mets = model.train_step(
+                state, {k: v[i] for k, v in rin.items()}, rlab[i])
+            out["resumed_losses"].append(float(mets["loss"]))
+            out["resumed_step_wall_ms"].append(
+                (time.perf_counter() - t0) * 1e3)
+        out["resumed_launches"] = read_counts()
+        out["resumed_mesh"] = model.mesh.shape
     with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
+
+
+def _resume_data(batch):
+    """35(e)'s batches after the recovery: MESH_STEPS batches of
+    ``batch`` rows (seed 35)."""
+    return _epoch_data(MESH_STEPS, batch, seed=35)
 
 
 def _elastic_model():
@@ -6164,8 +6346,9 @@ def elastic(card, root):
     from dlrm_flexflow_tpu_torch.resilience import latest_checkpoint
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
-    fdist.launch("chip_smoke:elastic_rank", 2, kwargs={"root": root},
-                 backend="gloo", timeout_s=300, threads=4)
+    fdist.launch("chip_smoke:elastic_rank", 2, kwargs={
+        "root": root, "world": 2, "mesh": {"data": 1, "model": 2},
+        "backend": "gloo"}, backend="gloo", timeout_s=300, threads=4)
     group_s = time.perf_counter() - t0
     ranks = [json.load(open(os.path.join(root, f"rank{r}.json")))
              for r in range(2)]
@@ -6317,18 +6500,20 @@ def _sha(a) -> str:
     return hashlib.sha256(np.ascontiguousarray(a).data).hexdigest()
 
 
-def hetero_mesh_rank(root):
-    """34(a)'s rank body (two gloo ranks on the one card): phase 28's
-    all-host Kaggle DLRM on {"data": 2}, HETERO_STEPS global batches of
-    256, the native lookups and deposits on rank 0 (the owner) only;
-    a podshard save; HETERO_MESH_TIMED more steps under hetero.timing()
-    (each part waits for the card first)."""
+def hetero_mesh_rank(root, world, mesh, backend):
+    """The hetero mesh rank body, 34(a) (two gloo ranks on the one card,
+    ``{"data": 2}``) and 35(c) (four NCCL ranks, one a card, ``{"data":
+    4}``; the leader's gathers and scatters on ``distributed.host_group``'s
+    gloo group beside NCCL): phase 28's all-host Kaggle DLRM on ``mesh``,
+    HETERO_STEPS global batches of 256, the native lookups and deposits
+    on rank 0 (the owner) only; a podshard save; HETERO_MESH_TIMED more
+    steps under hetero.timing() (each part waits for the card first)."""
     import torch.distributed as dist
 
     from dlrm_flexflow_tpu_torch.parallel import make_mesh
-    rank = dist.get_rank()
+    rank = _rank_group(world, backend)
     t0 = time.perf_counter()
-    model = _kaggle(range(len(KAGGLE_TABLES)), make_mesh({"data": 2}))
+    model = _kaggle(range(len(KAGGLE_TABLES)), make_mesh(mesh))
     state = model.init(seed=0)
     out = {"rank": rank, "init_s": time.perf_counter() - t0,
            "held_bytes": sum(int(a.nbytes)
@@ -6371,29 +6556,37 @@ def hetero_mesh_rank(root):
         json.dump(out, f)
 
 
-def hetero_mesh(card, root):
-    """34(a): hetero_mesh_rank in two processes, held against the same
-    model in this process on the one card from the same weights and
-    batches (losses rtol 1e-5, the owner's host tables and the handles
-    within 1e-6), no launch in the ranks, the host tables on rank 0
-    only; the podshard restored on one card bit for bit the owner's
-    tables, with rank 1's shard file holding none."""
+def hetero_mesh(card, root, world=2, mesh=None, backend="gloo",
+                tag="34(a)"):
+    """34(a) (35(c) with four NCCL ranks): hetero_mesh_rank in ``world``
+    processes, held against the same model in this process on its card
+    from the same weights and batches (losses rtol 1e-5, the owner's
+    host tables and the handles within 1e-6), no launch in the ranks,
+    the host tables on rank 0 only; the podshard restored on one card
+    bit for bit the owner's tables, with the other ranks' shard files
+    holding none."""
     from dlrm_flexflow_tpu_torch import distributed as fdist
+    mesh = mesh or {"data": world}
     t0 = time.perf_counter()
-    fdist.launch("chip_smoke:hetero_mesh_rank", 2, kwargs={"root": root},
-                 backend="gloo", timeout_s=420, threads=4)
+    fdist.launch("chip_smoke:hetero_mesh_rank", world, kwargs={
+        "root": root, "world": world, "mesh": mesh, "backend": backend},
+        backend=None if backend == "nccl" else backend, timeout_s=420,
+        threads=4)
     group_s = time.perf_counter() - t0
-    r0, r1 = (json.load(open(os.path.join(root, f"hetero{r}.json")))
-              for r in range(2))
+    ranks = [json.load(open(os.path.join(root, f"hetero{r}.json")))
+             for r in range(world)]
+    r0, others = ranks[0], ranks[1:]
     model = _kaggle(range(len(KAGGLE_TABLES)))
     state = model.init(seed=0)
     host_bytes = sum(4 * op.num_entries * op.out_dim
                      for op in model._hetero_ops)
-    losses = []
+    losses, walls = [], []
     with _numpy_branch_off():
         for x, y in _kaggle_loader():
+            t0 = time.perf_counter()
             state, mets = model.train_step(state, x, y)
             losses.append(float(mets["loss"]))
+            walls.append((time.perf_counter() - t0) * 1e3)
     want = _host_tables(model)  # rebound by each step: a snapshot
     handles = {op.name: float(state.params[op.name]["handle"])
                for op in model._hetero_ops}
@@ -6407,46 +6600,55 @@ def hetero_mesh(card, root):
                      for k in handles)
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"],
                                                        losses))
-    with np.load(os.path.join(root, "pod", "shard-p001.npz")) as f:
-        p1_host = [k for k in f.files if k.startswith("host_tables/")]
+    p_host = []
+    for r in range(1, world):
+        with np.load(os.path.join(root, "pod", f"shard-p{r:03d}.npz")) as f:
+            p_host += [k for k in f.files if k.startswith("host_tables/")]
     checks = {
         "losses_rtol_1e-5": loss_err <= 1e-5,
-        "ranks_agree": r0["losses"] == r1["losses"],
+        "ranks_agree": all(x["losses"] == r0["losses"] for x in others),
         "tables_1e-6": table_err <= 1e-6,
         "handles_1e-6": handle_err <= 1e-6
         and max(abs(r0["handles"][k] - handles[k]) for k in handles)
         <= 1e-6,
         "no_launch_in_ranks": not any(any(x["launches"].values())
-                                      for x in (r0, r1)),
+                                      for x in ranks),
         "tables_on_rank0_only": r0["held_bytes"] == host_bytes
-        and r1["held_bytes"] == 0 and r1["digests"] == {},
+        and all(x["held_bytes"] == 0 and x["digests"] == {}
+                for x in others),
         "restore_bit_for_bit": {k: _sha(v) for k, v in got.items()}
         == r0["digests"] and int(back.step) == HETERO_STEPS,
-        "rank1_shard_holds_no_table": p1_host == [],
+        "other_shards_hold_no_table": p_host == [],
         "finite": bool(np.all(np.isfinite(r0["losses"]))),
     }
-    row = {"phase": "hetero_mesh", "card": card, "mesh": {"data": 2},
-           "backend": "gloo", "group_wall_s": group_s,
-           "init_s": [r0["init_s"], r1["init_s"]],
+    row = {"phase": "hetero_mesh" if backend == "gloo" else "cards_hetero",
+           "card": card, "mesh": mesh, "backend": backend,
+           "group_wall_s": group_s,
+           "init_s": [x["init_s"] for x in ranks],
            "losses": {"mesh": r0["losses"], "one_process": losses},
            "max_rel_loss_diff": loss_err,
            "max_abs_table_diff": table_err, "max_abs_handle_diff":
-               handle_err, "held_bytes": [r0["held_bytes"],
-                                          r1["held_bytes"]],
-           "shard_bytes": [r0["shard_bytes"], r1["shard_bytes"]],
-           "save_s": [r0["save_s"], r1["save_s"]], "restore_s": restore_s,
+               handle_err, "held_bytes": [x["held_bytes"] for x in ranks],
+           "shard_bytes": [x["shard_bytes"] for x in ranks],
+           "save_s": [x["save_s"] for x in ranks], "restore_s": restore_s,
            "step_wall_ms_median": [float(np.median(x["step_wall_ms"]))
-                                   for x in (r0, r1)],
-           "timed_step_ms": [r0["timed_step_ms"], r1["timed_step_ms"]],
-           "split_ms": {"rank0": r0["split_ms"], "rank1": r1["split_ms"]},
-           "launches": [r0["launches"], r1["launches"]], "checks": checks,
-           "note": "two gloo ranks on one card and one host: the gathers "
-                   "and scatters say nothing of a network between hosts"}
+                                   for x in ranks],
+           "one_process_step_wall_ms_median": float(np.median(walls)),
+           "timed_step_ms": [x["timed_step_ms"] for x in ranks],
+           "split_ms": {f"rank{r}": x["split_ms"]
+                        for r, x in enumerate(ranks)},
+           "launches": [x["launches"] for x in ranks], "checks": checks,
+           "note": (f"{world} gloo ranks on one card and one host: the "
+                    "gathers and scatters say nothing of a network "
+                    "between hosts") if backend == "gloo" else
+                   (f"{world} NCCL ranks, one a card, on one host: the "
+                    "leader's gathers and scatters run on a gloo group "
+                    "on the host")}
     log(row)
     del model, state, back, want, got
     _free()
     if not all(checks.values()):
-        raise AssertionError(f"34(a): checks failed: "
+        raise AssertionError(f"{tag}: checks failed: "
                              f"{[k for k, v in checks.items() if not v]}")
     return row
 
@@ -6468,20 +6670,30 @@ def _serve_all(engine, requests):
     return np.concatenate(outs), walls
 
 
-def quant_mesh_rank(root):
-    """34(b)'s rank body (two gloo ranks on the one card): the
-    table-parallel run_random.sh DLRM at full width (f32 compute) on
-    {"data": 1, "model": 2}, served int8 then bf16 through a mesh engine
-    quantized at load (the global tables gathered, quantized and placed
-    under the rules): rank 0 serves the requests, rank 1 follows."""
-    import torch.distributed as dist
+#: 35(d): the leader stays this long after its last answer before it
+#: leaves without its stop (its last bucket's collectives end on every
+#: rank first); the group's collective deadline then
+LEADER_LINGER_S, LEAVE_DEADLINE_S = 2.0, 15.0
 
+
+def quant_mesh_rank(root, world, mesh, backend, leave=False):
+    """The quantized mesh engines' rank body, 34(b) (two gloo ranks on the
+    one card, ``{"data": 1, "model": 2}``) and 35(d) (four NCCL ranks,
+    one a card, ``{"data": 1, "model": 4}``, the buckets broadcast on
+    the card): the table-parallel run_random.sh DLRM at full width (f32
+    compute) served int8 then bf16 through a mesh engine quantized at
+    load (the global tables gathered, quantized and placed under the
+    rules): rank 0 serves the requests, the others follow.  With
+    ``leave`` the leader leaves the bf16 engine without its stop
+    (LEADER_LINGER_S after its last answer) and each follower records
+    how its ``follow()`` ended and when."""
     from dlrm_flexflow_tpu_torch.parallel import make_mesh
-    rank = dist.get_rank()
-    model, state, _ = _mesh_dlrm(make_mesh({"data": 1, "model": 2}),
-                                 "float32", table_parallel=True)
+    rank = _rank_group(world, backend)
+    model, state, _ = _mesh_dlrm(make_mesh(mesh), "float32",
+                                 table_parallel=True)
     out = {"rank": rank}
     for mode in ("int8", "bf16"):
+        stop = not (leave and mode == "bf16")
         reset_counts()
         t0 = time.perf_counter()
         engine = InferenceEngine(model, state, quantize=mode)
@@ -6493,11 +6705,23 @@ def quant_mesh_rank(root):
                               if mode == "int8" else None)}
         if engine.is_leader:
             outs, walls = _serve_all(engine, _quant_mesh_requests())
-            engine.close()
+            row["last_answer_at"] = time.time()
+            if stop:
+                engine.close()
+            else:
+                time.sleep(LEADER_LINGER_S)
             np.save(os.path.join(root, f"quant_{mode}.npy"), outs)
             row["dispatch_wall_ms"] = walls
-        else:
+        elif stop:
             row["followed"] = engine.follow()
+        else:
+            try:
+                engine.follow()
+                row["left"] = None
+            except RuntimeError as e:
+                row["left"] = str(e)
+                row["followed"] = int(str(e).split(" after ")[1].split()[0])
+            row["left_at"] = time.time()
         row["launches"] = read_counts()
         out[mode] = row
         del engine
@@ -6506,18 +6730,27 @@ def quant_mesh_rank(root):
         json.dump(out, f)
 
 
-def quant_mesh(card, root):
-    """34(b): quant_mesh_rank in two processes, each mode's answers held
-    against the one-card engine of the same mode over the same requests
-    (max abs error 1e-6), the codes a rank holds its 4 tables', the int8
-    scale column whole on each rank, no launch in the ranks."""
+def quant_mesh(card, root, world=2, mesh=None, backend="gloo", tag="34(b)",
+               leave=False):
+    """34(b) (35(d) with four NCCL ranks): quant_mesh_rank in ``world``
+    processes, each mode's answers held against the one-card engine of
+    the same mode over the same requests (max abs error 1e-6), the codes
+    a rank holds its tables', the int8 scale column whole on each rank,
+    no launch in the ranks.  With ``leave`` (a collective deadline of
+    LEAVE_DEADLINE_S) every follower of the bf16 engine must leave with
+    follow()'s "the leader ..." error within that deadline plus 30 s of
+    the leader's last answer."""
     from dlrm_flexflow_tpu_torch import distributed as fdist
+    mesh = mesh or {"data": 1, "model": world}
     t0 = time.perf_counter()
-    fdist.launch("chip_smoke:quant_mesh_rank", 2, kwargs={"root": root},
-                 backend="gloo", timeout_s=420, threads=4)
+    fdist.launch("chip_smoke:quant_mesh_rank", world, kwargs={
+        "root": root, "world": world, "mesh": mesh, "backend": backend,
+        "leave": leave}, backend=None if backend == "nccl" else backend,
+        timeout_s=420, threads=4,
+        collective_timeout_s=LEAVE_DEADLINE_S if leave else None)
     group_s = time.perf_counter() - t0
-    r0, r1 = (json.load(open(os.path.join(root, f"quant{r}.json")))
-              for r in range(2))
+    ranks = [json.load(open(os.path.join(root, f"quant{r}.json")))
+             for r in range(world)]
     model, state, _ = _mesh_dlrm(False, "float32", table_parallel=True)
     requests = _quant_mesh_requests()
     rows, checks = {}, {}
@@ -6526,7 +6759,7 @@ def quant_mesh(card, root):
         outs, walls = _serve_all(engine, requests)
         mesh_out = np.load(os.path.join(root, f"quant_{mode}.npy"))
         err = float(np.abs(mesh_out - outs).max())
-        a, b = r0[mode], r1[mode]
+        a, rest = ranks[0][mode], [x[mode] for x in ranks[1:]]
         n_dispatch = len(a["buckets"]) + sum(
             -(-int(r["dense"].shape[0]) // a["buckets"][-1])
             for r in requests)
@@ -6534,34 +6767,43 @@ def quant_mesh(card, root):
             "answers_1e-6": err <= 1e-6 and mesh_out.shape == outs.shape,
             "bytes_as_one_card": a["bytes_after"]
             == engine.quantization["bytes_after"],
-            "codes_block": a["codes_block"] == b["codes_block"]
-            == [TABLES // 2, ROWS, DIM],
+            "codes_block": all(x["codes_block"] == [TABLES // world, ROWS,
+                                                    DIM]
+                               for x in [a] + rest),
             "scale_whole": mode != "int8"
             or a["scale_rows"] == [TABLES * ROWS, 1],
             "sharded": a["sharded"] and a["buckets"] == list(BUCKETS),
-            "followed": b["followed"] == n_dispatch,
-            "no_launch_in_ranks": not any(a["launches"].values())
-            and not any(b["launches"].values())}
+            "followed": all(b["followed"] == n_dispatch for b in rest),
+            "no_launch_in_ranks": not any(any(x["launches"].values())
+                                          for x in [a] + rest)}
         rows[mode] = {"max_abs_err": err,
                       "bytes_after": a["bytes_after"],
-                      "engine_build_s": [a["build_s"], b["build_s"]],
+                      "engine_build_s": [x["build_s"] for x in [a] + rest],
                       "dispatch_wall_ms_median": {
                           "mesh": float(np.median(a["dispatch_wall_ms"])),
                           "one_card": float(np.median(walls))}}
+        if leave and mode == "bf16":
+            left = [b["left_at"] - a["last_answer_at"] for b in rest]
+            checks[mode]["followers_left"] = all(
+                (b["left"] or "").startswith("follow(): the leader (rank 0)")
+                for b in rest) and max(left) < LEAVE_DEADLINE_S + 30
+            rows[mode]["followers_left_after_s"] = left
+            rows[mode]["follower_error"] = rest[0]["left"]
         del engine
         _free()
-    row = {"phase": "quant_mesh", "card": card,
-           "mesh": {"data": 1, "model": 2}, "backend": "gloo",
+    row = {"phase": "quant_mesh" if backend == "gloo" else "cards_serving",
+           "card": card, "mesh": mesh, "backend": backend,
            "group_wall_s": group_s, **rows, "checks": checks,
-           "note": "mesh dispatches are eager with a gloo broadcast; the "
-                   "one-card engine replays a CUDA graph per bucket"}
+           "note": f"mesh dispatches are eager with a {backend} broadcast "
+                   "of each bucket; the one-card engine replays a CUDA "
+                   "graph per bucket"}
     log(row)
     del model, state
     _free()
     bad = [f"{m}.{k}" for m, c in checks.items() for k, v in c.items()
            if not v]
     if bad:
-        raise AssertionError(f"34(b): checks failed: {bad}")
+        raise AssertionError(f"{tag}: checks failed: {bad}")
     return row
 
 
@@ -6630,6 +6872,281 @@ def scaleout_phase(card):
         shutil.rmtree(root, ignore_errors=True)
     rows["wall_s"] = time.perf_counter() - t0
     log({"phase": "wall", "name": "scaleout", "wall_s": rows["wall_s"]})
+    return rows
+
+
+# --------------------------------------------------------------- phase 35
+#: phase 35: the cards it needs, one NCCL rank on each; the DLRM's global
+#: batch (256 rows a data rank on {"data": 4}) and the survivors' after
+#: the lost rank of 35(e) (three replicas of 256 rows)
+CARDS = 4
+CARDS_BATCH, RESUME_BATCH = 1024, 768
+#: 35(a)'s runs, as MESH2_RUNS
+MESH4_RUNS = [
+    ["data4", {"data": 4}, False, "off", "off"],
+    ["model4_allgather", {"data": 1, "model": 4}, True, "allgather", "off"],
+    ["model4_all_to_all", {"data": 1, "model": 4}, True, "all_to_all",
+     "off"],
+    ["model4_overlap_allgather", {"data": 1, "model": 4}, True, "allgather",
+     "on"],
+    ["data2_model2_all_to_all", {"data": 2, "model": 2}, True, "all_to_all",
+     "off"]]
+#: 35(f): the DLRM CLI's arguments (run_random.sh's model by default)
+CLI_ARGS = ["-b", str(CARDS_BATCH), "-e", "2", "--wd", "0",
+            "--data-size", str(32 * CARDS_BATCH)]
+
+
+def cards_dlrm(card, root):
+    """35(a): mesh_rank on four NCCL ranks over MESH4_RUNS at global batch
+    CARDS_BATCH, each run held against one process on this card
+    (``_check_mesh_runs``); every run must complete on every rank."""
+    from dlrm_flexflow_tpu_torch import distributed as fdist
+    t0 = time.perf_counter()
+    fdist.launch("chip_smoke:mesh_rank", CARDS, kwargs={
+        "out_dir": root, "world": CARDS, "runs": MESH4_RUNS,
+        "backend": "nccl", "batch": CARDS_BATCH}, timeout_s=420, threads=4)
+    group_s = time.perf_counter() - t0
+    ranks = [json.load(open(os.path.join(root, f"rank{r}.json")))
+             for r in range(CARDS)]
+    missing = [(x["rank"], name) for x in ranks for name, *_ in MESH4_RUNS
+               if name not in x["runs"]]
+    if missing or any(x["refused"] for x in ranks):
+        raise AssertionError(f"35(a): runs missing under NCCL: {missing}")
+    results = _check_mesh_runs("35(a)", root, CARDS, MESH4_RUNS,
+                               CARDS_BATCH, ranks)
+    log({"phase": "cards_dlrm", "card": card, "backend": "nccl",
+         "cards": CARDS, "global_batch": CARDS_BATCH,
+         "group_wall_s": group_s, **results})
+    return results
+
+
+def cards_seq(card, root):
+    """35(b): ring attention and Ulysses on {"seq": 4} (``seq_rank``),
+    each against sdpa on this card at 2e-5."""
+    from dlrm_flexflow_tpu_torch import distributed as fdist
+    t0 = time.perf_counter()
+    fdist.launch("chip_smoke:seq_rank", CARDS, kwargs={
+        "out_dir": root, "world": CARDS, "mesh": {"seq": CARDS},
+        "backend": "nccl"}, timeout_s=300, threads=4)
+    group_s = time.perf_counter() - t0
+    rows = {}
+    for kind in ("ring", "ulysses"):
+        ranks = [json.load(open(os.path.join(root, f"{kind}{r}.json")))
+                 for r in range(CARDS)]
+        rows[kind] = _check_seq("35(b)", root, ranks, kind)
+        if rows[kind] is None or any(x["refused"] for x in ranks):
+            raise AssertionError(f"35(b): {kind} attention did not run")
+    log({"phase": "cards_attention", "card": card, "backend": "nccl",
+         "mesh": {"seq": CARDS}, "group_wall_s": group_s, **rows})
+    return rows
+
+
+def cards_hetero(card, root):
+    """35(c): 34(a) on {"data": 4} over four NCCL ranks."""
+    return hetero_mesh(card, root, CARDS, {"data": CARDS}, "nccl", "35(c)")
+
+
+def cards_serving(card, root):
+    """35(d): 34(b) on {"data": 1, "model": 4} over four NCCL ranks, the
+    leader then leaving the bf16 engine without its stop."""
+    return quant_mesh(card, root, CARDS, {"data": 1, "model": CARDS},
+                      "nccl", "35(d)", leave=True)
+
+
+def cards_elastic(card, root):
+    """35(e): elastic_rank on four NCCL ranks ({"data": 1, "model": 4},
+    allgather, global batch CARDS_BATCH): a podshard commit, rank 3 lost
+    at the next save's barrier, the three survivors recovered at a new
+    store over NCCL onto {"data": 3} at RESUME_BATCH, MESH_STEPS steps
+    on.  Held against one process on this card restored from the same
+    checkpoint on the same batches (losses rtol 1e-5); every restore bit
+    for bit the saved blocks."""
+    from dlrm_flexflow_tpu_torch import distributed as fdist
+    from dlrm_flexflow_tpu_torch.resilience import latest_checkpoint
+    lost = CARDS - 1
+    resume = {"store": f"file://{root}/store3", "mesh": {"data": lost},
+              "batch": RESUME_BATCH}
+    t0 = time.perf_counter()
+    fdist.launch("chip_smoke:elastic_rank", CARDS, kwargs={
+        "root": root, "world": CARDS, "mesh": {"data": 1, "model": CARDS},
+        "backend": "nccl", "batch": CARDS_BATCH, "serve": False,
+        "resume": resume}, timeout_s=420, threads=4)
+    group_s = time.perf_counter() - t0
+    ranks = [json.load(open(os.path.join(root, f"rank{r}.json")))
+             for r in range(CARDS)]
+    survivors = ranks[:lost]
+    ckpt_dir = os.path.join(root, "ckpt")
+    newest = latest_checkpoint(ckpt_dir)
+    saved = {}
+    for x in ranks:
+        saved.update(x["digests"])
+    t_loc = TABLES // CARDS
+    model = _mesh_model(False, "float32", batch=RESUME_BATCH)[0]
+    t0 = time.perf_counter()
+    state = restore_checkpoint(newest, model, on_mesh_change="reshard")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    one_digests = _digests(state, [(r * t_loc, (r + 1) * t_loc)
+                                   for r in range(CARDS)])
+    rin, rlab = _resume_data(RESUME_BATCH)
+    losses, walls = [], []
+    for i in range(MESH_STEPS):
+        t0 = time.perf_counter()
+        state, mets = model.train_step(
+            state, {k: v[i] for k, v in rin.items()}, rlab[i])
+        losses.append(float(mets["loss"]))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    del model, state
+    _free()
+    rel = max(abs(a - b) / abs(b) for x in survivors
+              for a, b in zip(x["resumed_losses"], losses))
+    shards = sorted(n for n in os.listdir(newest) if n.startswith("shard-"))
+    checks = {
+        "commit": all(x["path"] == newest for x in ranks)
+        and os.path.basename(newest) == f"ckpt-{MESH_STEPS}"
+        and not verify_checkpoint(newest),
+        "shards": shards == [f"shard-p{r:03d}.{e}" for r in range(CARDS)
+                             for e in ("json", "npz")],
+        "timeouts_name_p3": all((x["timeout"] or {}).get("missing")
+                                == [f"p{lost}"] for x in survivors),
+        "timeouts_within_deadline": all(
+            ELASTIC_DEADLINE_S <= x["timeout_wall_s"]
+            < ELASTIC_DEADLINE_S + 10 for x in survivors),
+        "recovery_events": all([e["phase"] for e in x["recovery_events"]]
+                               == ["barrier_timeout"] for x in survivors),
+        "flight_records": all(len(x["flight"]) == 1 for x in survivors),
+        "rank3_lost": ranks[lost]["hang"].startswith("injected host hang"),
+        "no_launch_in_ranks": not any(
+            any(x["launches"].values())
+            or any(x.get("resumed_launches", {}).values()) for x in ranks),
+        "recovered": all(
+            x["resumed_from"] == {"path": newest, "step": MESH_STEPS,
+                                  "extra": {"batches_done": MESH_STEPS}}
+            and [tuple(e) for e in x["recover_events"]]
+            == [("elastic", "reshard"), ("recovery", "resume")]
+            and x["resumed_mesh"] == {"data": lost} for x in survivors),
+        "restore_bit_for_bit": all(x["restored_digests"] == saved
+                                   for x in survivors)
+        and one_digests == saved,
+        "resumed_losses_rtol_1e-5": rel <= 1e-5,
+        "survivors_agree": all(x["resumed_losses"]
+                               == survivors[0]["resumed_losses"]
+                               for x in survivors),
+    }
+    row = {"phase": "cards_elastic", "card": card, "backend": "nccl",
+           "mesh": {"data": 1, "model": CARDS}, "resumed_mesh": resume[
+               "mesh"], "group_wall_s": group_s,
+           "step_wall_ms_median": [float(np.median(x["step_wall_ms"]))
+                                   for x in ranks],
+           "save_wall_s": [x["save_wall_s"] for x in ranks],
+           "save_stages_s": [x["save_stages_s"] for x in ranks],
+           "bytes_per_rank": [x["bytes"] for x in ranks],
+           "barrier_timeout_wall_s": [x["timeout_wall_s"]
+                                      for x in survivors],
+           "timeout_message": survivors[0]["timeout"]["message"]
+           if survivors[0]["timeout"] else None,
+           "recover_wall_s": [x["recover_wall_s"] for x in survivors],
+           "restore_stages_s": [x["restore_stages_s"] for x in survivors],
+           "resumed_step_wall_ms": [x["resumed_step_wall_ms"]
+                                    for x in survivors],
+           "one_process_restore_s": restore_s,
+           "one_process_step_wall_ms": walls,
+           "losses": {"resumed": survivors[0]["resumed_losses"],
+                      "one_process": losses},
+           "max_rel_loss_diff": rel, "checks": checks}
+    log(row)
+    if not all(checks.values()):
+        raise AssertionError(f"35(e): checks failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return row
+
+
+def cards_cli(card, root):
+    """35(f): the DLRM CLI (``apps/dlrm.py``, CLI_ARGS) under ``python -m
+    torch.distributed.run --nproc_per_node=4``, each rank's output in its
+    own log: exit 0, every rank's epoch metrics equal and finite, each
+    rank's samples/s."""
+    import glob
+    import re
+    here = os.path.dirname(os.path.abspath(__file__))
+    logs = os.path.join(root, "logs")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [here] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         f"--nproc_per_node={CARDS}", "--log-dir", logs, "--redirects", "3",
+         "-m", "dlrm_flexflow_tpu_torch.apps.dlrm", *CLI_ARGS],
+        capture_output=True, text=True, timeout=420, cwd=here, env=env)
+    wall = time.perf_counter() - t0
+    out = {}
+    for path in glob.glob(os.path.join(logs, "*", "attempt_*", "*",
+                                       "stdout.log")):
+        with open(path, errors="replace") as f:
+            out[int(os.path.basename(os.path.dirname(path)))] = f.read()
+    epochs = {k: [ln for ln in t.splitlines() if ln.startswith("epoch ")]
+              for k, t in out.items()}
+    thpt = {k: [float(x) for x in re.findall(
+        r"THROUGHPUT = ([0-9.]+) samples/s", t)] for k, t in out.items()}
+    nums = [float(x) for lines in epochs.values() for ln in lines
+            for x in re.findall(r"[-+]?\d*\.\d+(?:[eE][-+]?\d+)?", ln)]
+    checks = {
+        "exit_0": r.returncode == 0,
+        "every_rank": sorted(out) == list(range(CARDS)),
+        "metrics_equal": len(epochs.get(0, [])) == 2 and all(
+            v == epochs[0] for v in epochs.values()),
+        "finite": bool(nums) and bool(np.all(np.isfinite(nums))),
+        "throughput": all(len(v) == 1 for v in thpt.values()),
+    }
+    row = {"phase": "cards_cli", "card": card, "args": CLI_ARGS,
+           "rc": r.returncode, "wall_s": wall,
+           "epoch_metrics_rank0": epochs.get(0),
+           "samples_per_s": {k: v[0] for k, v in sorted(thpt.items())
+                             if v},
+           "checks": checks}
+    if not all(checks.values()):
+        row["stderr_tail"] = r.stderr[-2000:]
+        row["rank_tails"] = {k: t[-1500:] for k, t in out.items()}
+    log(row)
+    if not all(checks.values()):
+        raise AssertionError(f"35(f): checks failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    return row
+
+
+#: phase 35's parts, in order
+CARDS_PARTS = (("dlrm", cards_dlrm), ("attention", cards_seq),
+               ("hetero", cards_hetero), ("serving", cards_serving),
+               ("elastic", cards_elastic), ("cli", cards_cli))
+
+
+def cards_phase(card):
+    """Phase 35, each part (CARDS_PARTS) in a directory of its own under
+    one beside this script, removed afterwards; with fewer than CARDS
+    cards, one line saying that it did not run, and None."""
+    n = torch.cuda.device_count()
+    if n < CARDS:
+        log({"phase": "mesh_cards", "ran": False, "cards": n,
+             "note": f"phase 35 needs {CARDS} cards; it did not run"})
+        return None
+    root = tempfile.mkdtemp(prefix=".cards-",
+                            dir=os.path.dirname(os.path.abspath(__file__)))
+    t0 = time.perf_counter()
+    rows = {}
+    try:
+        for name, fn in CARDS_PARTS:
+            sub = os.path.join(root, name)
+            os.makedirs(sub)
+            _free()
+            t1 = time.perf_counter()
+            rows[name] = fn(card, sub)
+            log({"phase": "wall", "name": f"cards_{name}",
+                 "wall_s": time.perf_counter() - t1})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rows["wall_s"] = time.perf_counter() - t0
+    log({"phase": "wall", "name": "mesh_cards", "wall_s": rows["wall_s"]})
     return rows
 
 
@@ -6754,6 +7271,10 @@ def main() -> int:
     # gloo ranks on the card (no kernel runs there), search_tune --pod
     _free()
     scaleout = scaleout_phase(card)
+    # phase 35: the mesh between four cards over NCCL (no kernel runs in
+    # the ranks); one line and nothing else on fewer cards
+    _free()
+    cards = cards_phase(card)
     path_counts = (headline_counts, sparse_counts, dense_counts, dot_counts,
                    staged_counts, bag_counts, bf16_counts, bag16_counts,
                    durable_counts, tiered_counts, lazy_counts, soap_counts,
@@ -6860,6 +7381,22 @@ def main() -> int:
                  m: scaleout["quant"][m]["dispatch_wall_ms_median"]
                  for m in ("int8", "bf16")},
              "phase_wall_s": scaleout["wall_s"]},
+         "mesh_cards": None if cards is None else {
+             "samples_per_s": {k: r["samples_per_s"]
+                               for k, r in cards["dlrm"].items()},
+             "exchange_share_of_step": {
+                 k: r["exchange_share_of_step"]
+                 for k, r in cards["dlrm"].items()},
+             "attention_ms": {k: r[f"{k}_ms"]
+                              for k, r in cards["attention"].items()},
+             "hetero_step_wall_ms_median":
+                 cards["hetero"]["step_wall_ms_median"],
+             "serving_dispatch_wall_ms_median": {
+                 m: cards["serving"][m]["dispatch_wall_ms_median"]
+                 for m in ("int8", "bf16")},
+             "elastic_recover_wall_s": cards["elastic"]["recover_wall_s"],
+             "cli_samples_per_s": cards["cli"]["samples_per_s"],
+             "phase_wall_s": cards["wall_s"]},
          "note": "walls include each path's eager step and capture"})
     log({"kernels": [
         _entry("fused_interact_fwd",

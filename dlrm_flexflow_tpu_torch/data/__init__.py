@@ -2,8 +2,9 @@
 wrapper."""
 
 from .loader import (ArrayDataLoader, SyntheticDLRMLoader, ZipfDLRMLoader,
-                     zipf_ids)
+                     load_criteo_h5, preprocess_criteo_npz, zipf_ids)
 from .prefetch import BatchPlacer, PrefetchLoader
 
 __all__ = ["ArrayDataLoader", "SyntheticDLRMLoader", "ZipfDLRMLoader",
-           "zipf_ids", "BatchPlacer", "PrefetchLoader"]
+           "load_criteo_h5", "preprocess_criteo_npz", "zipf_ids",
+           "BatchPlacer", "PrefetchLoader"]

@@ -112,22 +112,32 @@ def initialize(coordinator_address: Optional[str] = None,
 
 def shutdown(timeout_s: float = SHUTDOWN_TIMEOUT_S) -> bool:
     """Leave the process group (the counterpart of
-    ``jax.distributed.shutdown``): ``destroy_process_group`` under a
-    deadline, best effort.  A group whose peer died mid-collective may
-    hang in its teardown, or abort it, so the teardown runs on a daemon
-    thread and its errors are swallowed.  Returns True when no group is
-    left (none was up, or it was destroyed within ``timeout_s``); False
-    when the teardown is still blocked, and then the process cannot join
-    another group."""
+    ``jax.distributed.shutdown``) under a deadline, best effort: under
+    gloo ``destroy_process_group``; under NCCL torch's own abort of the
+    group (``_abort_process_group``: every communicator aborted, the
+    gloo groups beside them closed), which waits for no peer, where
+    NCCL's destroy first finalizes each communicator and a peer that
+    died or never arrives can hold that forever.  A group whose peer
+    died mid-collective may hang in its teardown, or abort it, so the
+    teardown runs on a daemon thread and its errors are swallowed.
+    Returns True when no group is left (none was up, or it was left
+    within ``timeout_s``); False when the teardown is still blocked, and
+    then the process cannot join another group."""
     import threading
 
     import torch.distributed as dist
     if not (dist.is_available() and dist.is_initialized()):
         return True
+    nccl = dist.get_backend() == "nccl"
 
     def teardown():
         try:
-            dist.destroy_process_group()
+            if nccl:
+                from torch.distributed.distributed_c10d import (
+                    _abort_process_group)
+                _abort_process_group()
+            else:
+                dist.destroy_process_group()
         except Exception:  # noqa: BLE001 — a dead peer's group, best effort
             pass
 
@@ -321,7 +331,8 @@ class HostShardLoader:
 # ------------------------------------------------------------ rank groups
 def _rank_main() -> None:
     """A rank process's body (:func:`launch`): join the group, run the
-    target, leave the group.  A rank whose target returned exits through
+    target, leave the group (:func:`shutdown`: a rank whose peer is gone
+    leaves too).  A rank whose target returned exits through
     ``os._exit(0)`` once its output is flushed: gloo's teardown during
     the interpreter's own exit, after the group is destroyed, sometimes
     aborts the process (``std::terminate``, torch 2.13, about one group
@@ -329,7 +340,6 @@ def _rank_main() -> None:
     done."""
     import importlib
 
-    import torch.distributed as dist
     torch.set_num_threads(int(os.environ.get("FF_RANK_THREADS", "1")))
     mod, fn = os.environ["FF_RANK_TARGET"].split(":")
     kwargs = json.loads(os.environ.get("FF_RANK_ARGS", "{}"))
@@ -340,8 +350,7 @@ def _rank_main() -> None:
     try:
         getattr(importlib.import_module(mod), fn)(**kwargs)
     finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+        shutdown()
     sys.stdout.flush()
     sys.stderr.flush()
     os._exit(0)
@@ -350,14 +359,18 @@ def _rank_main() -> None:
 def launch(target: str, world: int, *, kwargs: Optional[dict] = None,
            device=None, backend: Optional[str] = None,
            timeout_s: float = 300.0, pythonpath: Sequence[str] = (),
-           threads: int = 1) -> List[str]:
+           threads: int = 1,
+           collective_timeout_s: Optional[float] = None) -> List[str]:
     """Run ``target`` (``"module:function"``, called with ``kwargs``) in
     ``world`` rank processes joined by a ``file://`` store, and wait at
     most ``timeout_s``.  Returns each rank's output (stdout and stderr).
     A rank that fails, or a group past its deadline, kills every rank and
     raises ``RuntimeError`` with the ranks' last lines: a group never
-    outlives its deadline.  ``pythonpath`` adds import roots (the repo
-    root always leads)."""
+    outlives its deadline.  The ranks' group (``initialize``) takes
+    ``collective_timeout_s`` as its collective deadline (default the
+    smaller of ``timeout_s`` and ``DEFAULT_TIMEOUT_S``); ``device`` and
+    ``backend`` go to ``initialize`` (both None: NCCL, one rank a card).
+    ``pythonpath`` adds import roots (the repo root always leads)."""
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     tmp = tempfile.mkdtemp(prefix="ffrank-")
     store = os.path.join(tmp, "store")
@@ -370,7 +383,10 @@ def launch(target: str, world: int, *, kwargs: Optional[dict] = None,
                FF_RANK_ARGS=json.dumps(kwargs or {}),
                FF_RANK_DEVICE="" if device is None else str(device),
                FF_RANK_BACKEND=backend or "",
-               FF_RANK_TIMEOUT=str(min(float(timeout_s), DEFAULT_TIMEOUT_S)),
+               FF_RANK_TIMEOUT=str(
+                   min(float(timeout_s), DEFAULT_TIMEOUT_S)
+                   if collective_timeout_s is None
+                   else float(collective_timeout_s)),
                FF_RANK_THREADS=str(int(threads)))
     logs = [os.path.join(tmp, f"rank{i}.log") for i in range(world)]
     procs = []

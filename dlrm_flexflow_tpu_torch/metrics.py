@@ -13,6 +13,10 @@ from typing import Dict, Sequence
 
 import torch
 
+ALL_METRICS = ("accuracy", "categorical_crossentropy",
+               "sparse_categorical_crossentropy", "mean_squared_error",
+               "root_mean_squared_error", "mean_absolute_error")
+
 
 def _class_labels(labels, ndim):
     if labels.dim() == ndim:

@@ -54,13 +54,18 @@ where JAX has one controller, so every rank must run the same bucket in
 the same order for the collectives to meet:
 
 * rank 0, the **leader**, owns the batcher (and the router, if any);
-  before each forward it broadcasts the padded bucket over the world
-  group, and the results are returned on rank 0;
+  before each forward it broadcasts a header (a bucket follows, or
+  stop) over the host group (``distributed.host_group``: the world
+  under gloo, a gloo group of its own under NCCL), then the padded
+  bucket over the world group (on the card under NCCL), and the
+  results are returned on rank 0;
 * every other rank runs :meth:`InferenceEngine.follow` (a **follower**)
   until the leader's :meth:`close` (or the error path of a failed
-  dispatch) broadcasts the stop; a follower waits for the next bucket
-  under the same deadline as a collective, so a dead leader cannot park
-  it forever;
+  dispatch) broadcasts the stop; a follower waits for the next header
+  on the host, where a gloo collective raises past the group's deadline
+  or when the leader's connection closes, so a dead leader cannot park
+  it forever, under NCCL too (an NCCL collective left waiting would be
+  ended by NCCL's watchdog, which takes the whole process down);
 * each rank holds its blocks of the parameters (a state trained on the
   mesh is taken as it is; global values are cut by the rules);
 * dispatch is eager, as the mesh step is (gloo cannot be captured): a
@@ -180,6 +185,14 @@ class InferenceEngine:
         self.buckets = parse_buckets(buckets)
         # across the ranks of a mesh: eager (gloo cannot be captured)
         self._spmd = getattr(model, "_spmd", None) is not None
+        # the leader protocol's headers travel on the host (a collective
+        # to build: every rank of a mesh builds its engine)
+        self._head_group = None
+        if self._spmd:
+            import torch.distributed as dist
+
+            from ..distributed import host_group
+            self._head_group = host_group(range(dist.get_world_size()))
         self._aot = (not getattr(model, "_hetero_ops", None)
                      if aot is None else bool(aot)) and not self._spmd
         self._params = dict(getattr(params_or_state, "params",
@@ -324,12 +337,13 @@ class InferenceEngine:
                           padded: Optional[Dict[str, torch.Tensor]] = None
                           ) -> None:
         """The leader's half of one step of the protocol: the header
-        ``[cmd, b]`` (cmd 1: a bucket follows, 0: stop), then each input
-        of the padded bucket, in the model's input order."""
+        ``[cmd, b]`` (cmd 1: a bucket follows, 0: stop) on the host
+        group, then each input of the padded bucket, in the model's input
+        order, over the world group."""
         import torch.distributed as dist
         dev = self._comm_device()
-        dist.broadcast(torch.tensor([cmd, b], dtype=torch.int64,
-                                    device=dev), src=0)
+        dist.broadcast(torch.tensor([cmd, b], dtype=torch.int64), src=0,
+                       group=self._head_group)
         for name in (self._in_specs if cmd else ()):
             dist.broadcast(padded[name].to(dev).contiguous(), src=0)
 
@@ -343,9 +357,13 @@ class InferenceEngine:
         """A follower rank's loop (every rank but 0 under a mesh of more
         than one rank): receive each bucket the leader broadcasts, run
         its forward with the leader, until the leader's stop.  Returns
-        the buckets served.  Each wait for the next bucket is bounded by
-        the process group's collective deadline and raises past it: a
-        dead leader must not park a follower forever."""
+        the buckets served.  Each wait for the next bucket's header is a
+        gloo collective on the host, under gloo and NCCL alike, bounded
+        by the process group's collective deadline: past it, or as soon
+        as the leader's process is gone and its connection closed, it
+        raises ``RuntimeError`` ("follow(): the leader ..."), chained
+        from gloo's error, so a dead leader never parks a follower and
+        never leaves an NCCL collective for the watchdog to end."""
         import torch.distributed as dist
         if self.is_leader:
             raise ValueError("follow() runs on the ranks other than 0 of a "
@@ -353,8 +371,15 @@ class InferenceEngine:
         dev = self._comm_device()
         served = 0
         while True:
-            head = torch.zeros(2, dtype=torch.int64, device=dev)
-            dist.broadcast(head, src=0)
+            head = torch.zeros(2, dtype=torch.int64)
+            try:
+                dist.broadcast(head, src=0, group=self._head_group)
+            except RuntimeError as e:
+                raise RuntimeError(
+                    f"follow(): the leader (rank 0) sent no bucket and no "
+                    f"stop within the group's collective deadline, or its "
+                    f"connection closed, after {served} buckets: the "
+                    f"leader is gone") from e
             cmd, b = (int(x) for x in head.tolist())
             if cmd == 0:
                 self._stopped = True

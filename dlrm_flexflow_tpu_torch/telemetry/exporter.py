@@ -153,6 +153,12 @@ def start_metrics_server(port: int, host: str = "127.0.0.1",
         return _global_server
 
 
+def global_metrics_server() -> Optional[MetricsServer]:
+    """The process-wide endpoint ``start_metrics_server`` started, or
+    None before the first start."""
+    return _global_server
+
+
 # ----------------------------------------------------------- chrome tracing
 #: synthetic track ids for events that carry no thread identity (small
 #: ints cannot collide with real thread idents, which are pointers/tids)

@@ -523,3 +523,57 @@ def test_layout_fields_change_no_value_and_are_validated(field):
             assert torch.equal(gmets[k], wmets[k]), (field, mode, k)
     with pytest.raises(ValueError, match=f"{field} must be 'auto'"):
         _epoch(**{field: "sideways"})
+
+
+def test_data_exports_the_criteo_readers_as_jax_does():
+    """C7: the port's ``data`` package exports JAX's two Criteo readers in
+    ``__all__``, as the loader's own functions; h5py stays imported only
+    inside them (the card machine has none)."""
+    import ast
+
+    import dlrm_flexflow_tpu.data as jdata
+
+    import dlrm_flexflow_tpu_torch.data as tdata
+    from dlrm_flexflow_tpu_torch.data import loader
+    for name in ("load_criteo_h5", "preprocess_criteo_npz"):
+        assert name in jdata.__all__ and name in tdata.__all__
+        assert getattr(tdata, name) is getattr(loader, name)
+    assert set(jdata.__all__) <= set(tdata.__all__)
+    top = ast.parse(inspect.getsource(loader)).body
+    imported = {a.name.split(".")[0] for n in top
+                if isinstance(n, (ast.Import, ast.ImportFrom))
+                for a in n.names} | {n.module.split(".")[0] for n in top
+                                     if isinstance(n, ast.ImportFrom)
+                                     and n.module}
+    assert "h5py" not in imported
+
+
+def test_all_metrics_is_jax_tuple_in_its_order():
+    """C8: ``metrics.ALL_METRICS`` is the JAX package's tuple, in its
+    order."""
+    from dlrm_flexflow_tpu import metrics as jmetrics
+
+    from dlrm_flexflow_tpu_torch import metrics as tmetrics
+    assert isinstance(tmetrics.ALL_METRICS, tuple)
+    assert tmetrics.ALL_METRICS == jmetrics.ALL_METRICS
+
+
+def test_global_metrics_server_is_none_until_started(monkeypatch):
+    """C9: ``telemetry.exporter.global_metrics_server`` returns None
+    before a start and the running server after, as JAX's does."""
+    from dlrm_flexflow_tpu.telemetry import exporter as jexp
+
+    from dlrm_flexflow_tpu_torch.telemetry import exporter as texp
+    servers = []
+    for mod in (jexp, texp):
+        monkeypatch.setattr(mod, "_global_server", None)
+        assert mod.global_metrics_server() is None
+        srv = mod.start_metrics_server(0)
+        servers.append(srv)
+        try:
+            assert mod.global_metrics_server() is srv
+            assert mod.start_metrics_server(0) is srv
+            assert srv.port > 0
+        finally:
+            srv.stop()
+    assert type(servers[1]).__name__ == type(servers[0]).__name__
