@@ -360,6 +360,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
      --nproc_per_node=4: exit 0, every rank's epoch metrics equal,
      samples/s of each rank.  The kernels line counts no launch of this
      phase.
+  36. the port's ffcheck (dlrm_flexflow_tpu_torch/analysis), on every
+     machine, after the timings: (a) `python -m
+     dlrm_flexflow_tpu_torch.analysis --format json -o` a sink in a
+     temporary directory, as a child: exit 0 (clean or waived, no stale
+     waiver), its wall on this host, its modules and findings by pass,
+     and the telemetry report's == analysis == section of the sink; (b)
+     each spelling trace-purity/trace-staleness flag (VOCAB_CASES) as
+     the one line of a method captured through graphs.GraphRunner on
+     cuda:0, a child per case, all in flight together: the analyzer
+     must give the case its code and the card must refuse the capture
+     (the syncs) or freeze it (clock reads, a Python attribute, a
+     rebound global, os.environ, a Python counter, a print: after the
+     Python change two replays keep the capture-time result, or do not
+     repeat the effect); (c) every function a GraphRunner captured in
+     this run (recorded from the start of main by wrapping the class's
+     capture from here) is a static capture entry of the analyzer or
+     reachable from one.
 The phases that train epochs of the run_random.sh model ask for the
 epoch row cache ("on"): "auto" is off on the card.
 Profile lines carry the graph replays in their window, the graph pool's
@@ -7150,6 +7167,301 @@ def cards_phase(card):
     return rows
 
 
+# --------------------------------------------------------------- phase 36
+#: phase 36(b): each spelling the port's trace-purity/trace-staleness
+#: flag, as the one line of a captured method: (name, line, the code the
+#: analyzer must give it, what the card must do, the Python change made
+#: after the capture).  "refused": the capture raises; "frozen": the
+#: capture succeeds and after the change two replays still give the
+#: capture-time result (or, for a side effect, do not repeat it).
+VOCAB_CASES = (
+    ("item", "y = x * 0 + x.sum().item()", "host-sync-in-trace",
+     "refused", ""),
+    ("tolist", "y = x * len(x.tolist())", "host-sync-in-trace",
+     "refused", ""),
+    ("cpu", "y = x.cpu().to(x.device)", "host-sync-in-trace",
+     "refused", ""),
+    ("numpy", "y = torch.as_tensor(x.numpy(), device=x.device)",
+     "host-sync-in-trace", "refused", ""),
+    ("to_cpu", "y = x.to('cpu').to(x.device)", "host-sync-in-trace",
+     "refused", ""),
+    ("cuda_synchronize", "torch.cuda.synchronize(); y = x * 1",
+     "host-sync-in-trace", "refused", ""),
+    ("stream_synchronize",
+     "torch.cuda.current_stream().synchronize(); y = x * 1",
+     "host-sync-in-trace", "refused", ""),
+    ("event_synchronize",
+     "e = torch.cuda.Event(); e.record(); e.synchronize(); y = x * 1",
+     "host-sync-in-trace", "refused", ""),
+    ("nonzero", "y = x.nonzero().float()", "host-sync-in-trace",
+     "refused", ""),
+    ("unique", "y = x.unique()", "host-sync-in-trace", "refused", ""),
+    ("masked_select", "y = x.masked_select(x > 2)", "host-sync-in-trace",
+     "refused", ""),
+    ("where_one_arg", "y = torch.where(x > 2)[0].float()",
+     "host-sync-in-trace", "refused", ""),
+    ("np_asarray", "y = torch.as_tensor(np.asarray(x), device=x.device)",
+     "host-sync-in-trace", "refused", ""),
+    ("perf_counter", "y = x * 0 + time.perf_counter() % 1000",
+     "host-clock-in-trace", "frozen", "time.sleep(0.05)"),
+    ("time_time", "y = x * 0 + time.time() % 1000",
+     "host-clock-in-trace", "frozen", "time.sleep(0.05)"),
+    ("monotonic", "y = x * 0 + time.monotonic() % 1000",
+     "host-clock-in-trace", "frozen", "time.sleep(0.05)"),
+    ("self_attr", "y = x * self.scale", "stale-attr-read", "frozen",
+     "case.set_scale(2.0)"),
+    ("global", "y = x * SCALE", "stale-global-read", "frozen",
+     "mod.rescale(2.0)"),
+    ("environ", "y = x * float(os.environ.get('FF_CASE_SCALE', '1'))",
+     "env-read-in-trace", "frozen", "os.environ['FF_CASE_SCALE'] = '2'"),
+    ("counter", "bump.n += 1; y = x * 1", "side-effect-in-trace",
+     "frozen", ""),
+    ("print", "print('captured'); y = x * 1", "side-effect-in-trace",
+     "frozen", ""),
+)
+
+#: one case's module: the line inside a method that GraphRunner captures
+VOCAB_MODULE = '''\
+import os
+import time
+
+import numpy as np
+import torch
+
+from dlrm_flexflow_tpu_torch.graphs import GraphRunner
+
+SCALE = 1.0
+
+
+def rescale(s):
+    global SCALE
+    SCALE = s
+
+
+def bump():
+    return bump.n
+
+
+bump.n = 0
+
+
+class Case:
+    def __init__(self):
+        self.scale = 1.0
+
+    def set_scale(self, s):
+        self.scale = s
+
+    def fn(self, static, state):
+        x = static["x"]
+        {line}
+        return y
+
+    def build(self, x):
+        return GraphRunner(self.fn, {{"x": x}})
+'''
+
+#: the child that runs one case on cuda:0 and prints one JSON line
+VOCAB_CHILD = r'''
+import contextlib, importlib.util, io, json, os, sys, time
+import torch
+path, change = sys.argv[1], sys.argv[2]
+spec = importlib.util.spec_from_file_location("case_mod", path)
+mod = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(mod)
+x = torch.arange(1.0, 9.0, device="cuda")
+case = mod.Case()
+out = {}
+buf = io.StringIO()
+try:
+    with contextlib.redirect_stdout(buf):
+        runner = case.build(x)
+    torch.cuda.synchronize()
+except Exception as e:  # noqa: BLE001 - the refusal is the record
+    out["verdict"] = "refused"
+    out["error"] = f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+else:
+    first = runner.run({"x": x})
+    n0, p0 = mod.bump.n, buf.getvalue().count("captured")
+    exec(change, {"case": case, "mod": mod, "os": os, "time": time})
+    replays = io.StringIO()
+    with contextlib.redirect_stdout(replays):
+        a = runner.run({"x": x})
+        b = runner.run({"x": x})
+    torch.cuda.synchronize()
+    quiet = (mod.bump.n == n0
+             and replays.getvalue().count("captured") == 0)
+    live_buf = io.StringIO()
+    with contextlib.redirect_stdout(live_buf):
+        live = case.fn({"x": x}, ())
+    torch.cuda.synchronize()
+    same = bool(torch.equal(a, first) and torch.equal(b, first))
+    moved = not torch.equal(live, first)
+    effect = (mod.bump.n > n0 or live_buf.getvalue().count("captured") > 0)
+    if same and moved:
+        out["verdict"] = "frozen"
+    elif same and quiet and effect:
+        out["verdict"] = "frozen"
+        out["side_effect"] = {"at_capture": max(p0, n0),
+                              "on_replay": 0}
+    else:
+        out["verdict"] = "neither"
+        out["detail"] = {"replays_equal": same, "live_differs": moved,
+                         "replays_quiet": quiet}
+print(json.dumps(out), flush=True)
+'''
+
+
+class _CaptureLog:
+    """The ``__qualname__`` of every function a ``graphs.GraphRunner``
+    captures in this process (phase 36(c)), recorded by wrapping the
+    class's capture from here: the port's code is not changed."""
+
+    def __init__(self):
+        from dlrm_flexflow_tpu_torch import graphs
+        self.names = names = []
+        orig = graphs.GraphRunner._capture
+
+        def _capture(runner, state, pool):
+            fn = runner._fn
+            names.append(getattr(fn, "__qualname__", repr(fn)))
+            return orig(runner, state, pool)
+
+        graphs.GraphRunner._capture = _capture
+
+
+def _analysis_tree_run(root: str) -> dict:
+    """Phase 36(a): the port's ffcheck over the checkout as a child
+    process, its JSON sink under ``root``; the child's wall (interpreter
+    start and imports included) is the analyzer's on this host."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    sink = os.path.join(root, "artifacts", "analysis_1.json")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "dlrm_flexflow_tpu_torch.analysis",
+         "--format", "json", "-o", sink],
+        cwd=here, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(
+            f"36(a): the port's ffcheck exited {r.returncode}:\n"
+            f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    with open(sink) as f:
+        doc = json.load(f)
+    from dlrm_flexflow_tpu_torch.telemetry.report import analysis_summary
+    section = analysis_summary(doc, sink)
+    if not doc["summary"]["ok"] or section[0] != "== analysis ==" \
+            or "ffcheck: OK" not in section[1]:
+        raise AssertionError(f"36(a): the sink does not render clean: "
+                             f"{section}")
+    return {"wall_s": wall, "modules": doc["modules"],
+            "passes": len(doc["passes"]), "summary": doc["summary"],
+            "waived_by_pass": {k: v["waived"]
+                               for k, v in doc["by_pass"].items()
+                               if v["waived"]},
+            "findings_by_pass": {k: v["findings"]
+                                 for k, v in doc["by_pass"].items()},
+            "report": section[:3]}
+
+
+def _vocabulary(root: str) -> list:
+    """Phase 36(b): every case's static code (the port's analyzer over
+    the case modules) and the card's verdict (a child per case, all in
+    flight together)."""
+    from dlrm_flexflow_tpu_torch.analysis import run_analysis
+    here = os.path.dirname(os.path.abspath(__file__))
+    cases = os.path.join(root, "vocab")
+    os.makedirs(cases)
+    for name, line, _code, _verdict, _change in VOCAB_CASES:
+        with open(os.path.join(cases, f"{name}.py"), "w") as f:
+            f.write(VOCAB_MODULE.format(line=line))
+    res = run_analysis(repo=root, roots=["vocab"],
+                       pass_names=["trace-purity", "trace-staleness"])
+    static = {}
+    for f in res.findings:
+        if f.detail == "Case.fn":
+            static.setdefault(f.path.split("/")[-1][:-3], set()).add(f.code)
+    procs = [(name, subprocess.Popen(
+        [sys.executable, "-c", VOCAB_CHILD,
+         os.path.join(cases, f"{name}.py"), change],
+        cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)) for name, _l, _c, _v, change in VOCAB_CASES]
+    rows, bad = [], []
+    for (name, line, code, verdict, _change), (_n, proc) in zip(
+            VOCAB_CASES, procs):
+        try:
+            out, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        got = {}
+        for ln in out.splitlines()[::-1]:
+            if ln.startswith("{"):
+                got = json.loads(ln)
+                break
+        row = {"case": name, "line": line,
+               "static": sorted(static.get(name, ())),
+               "card": got.get("verdict", f"no result (exit "
+                                          f"{proc.returncode})")}
+        for k in ("error", "side_effect", "detail"):
+            if k in got:
+                row[k] = got[k]
+        if not got:
+            row["stderr"] = err[-800:]
+        rows.append(row)
+        if row["static"] != [code] or row["card"] != verdict:
+            bad.append((name, code, verdict, row))
+    if bad:
+        raise AssertionError(f"36(b): vocabulary and card disagree: {bad}")
+    return rows
+
+
+def _coverage(captured) -> dict:
+    """Phase 36(c): every function a GraphRunner captured in this run is
+    a static capture entry of the port's analyzer or reachable from
+    one."""
+    from dlrm_flexflow_tpu_torch.analysis import FunctionIndex, load_modules
+    from dlrm_flexflow_tpu_torch.analysis.passes._entries import (
+        all_capture_entries, capture_reach)
+    here = os.path.dirname(os.path.abspath(__file__))
+    mods = load_modules(repo=here)
+    index = FunctionIndex(mods)
+    entries = {index.owner[n][1] for n in all_capture_entries(mods, index)}
+    reach = {index.owner[n][1] for n in capture_reach(mods, index)}
+    got = sorted(set(captured))
+    missing = [q for q in got if q not in reach]
+    row = {"captured": got, "captures": len(captured),
+           "static_entries": len(entries), "reachable": len(reach),
+           "not_covered": missing}
+    if not got or missing:
+        raise AssertionError(f"36(c): captured functions outside the "
+                             f"static entries: {row}")
+    return row
+
+
+def analysis_phase(card, captured) -> dict:
+    """Phase 36: the port's ffcheck on the card's host — (a) the tree
+    run, (b) its capture vocabulary against the card's capture, (c) its
+    capture entries against what this run captured — in a temporary
+    directory outside the checkout, removed afterwards."""
+    root = tempfile.mkdtemp(prefix="ffcheck-")
+    t0 = time.perf_counter()
+    try:
+        tree = _analysis_tree_run(root)
+        log({"phase": "analysis_tree", "card": card, **tree})
+        vocab = _vocabulary(root)
+        for row in vocab:
+            log({"phase": "analysis_vocab", **row})
+        cover = _coverage(captured)
+        log({"phase": "analysis_captures", **cover})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    log({"phase": "wall", "name": "analysis", "wall_s": wall})
+    return {"tree": tree, "vocab": vocab, "captures": cover,
+            "wall_s": wall}
+
+
 def _entry(name, launches, err, timing):
     source, replaces, _ = KERNELS[name]
     return {"name": name, "route": "cuda", "source": source,
@@ -7167,6 +7479,8 @@ def main() -> int:
     t0 = time.perf_counter()
     card = card_info()
     build_kernels()
+    # phase 36(c) records every capture of the run from here on
+    captures = _CaptureLog()
     # phases 3-5: the serving path
     model, state = build_model()
     table = state.params["emb"]["embedding"]
@@ -7275,6 +7589,9 @@ def main() -> int:
     # the ranks); one line and nothing else on fewer cards
     _free()
     cards = cards_phase(card)
+    # phase 36: the port's ffcheck (a host phase: after the timings)
+    _free()
+    analysis = analysis_phase(card, captures.names)
     path_counts = (headline_counts, sparse_counts, dense_counts, dot_counts,
                    staged_counts, bag_counts, bf16_counts, bag16_counts,
                    durable_counts, tiered_counts, lazy_counts, soap_counts,
@@ -7397,6 +7714,13 @@ def main() -> int:
              "elastic_recover_wall_s": cards["elastic"]["recover_wall_s"],
              "cli_samples_per_s": cards["cli"]["samples_per_s"],
              "phase_wall_s": cards["wall_s"]},
+         "analysis": {
+             "tree_wall_s": analysis["tree"]["wall_s"],
+             "modules": analysis["tree"]["modules"],
+             "vocabulary": {r["case"]: r["card"]
+                            for r in analysis["vocab"]},
+             "captured": analysis["captures"]["captured"],
+             "phase_wall_s": analysis["wall_s"]},
          "note": "walls include each path's eager step and capture"})
     log({"kernels": [
         _entry("fused_interact_fwd",

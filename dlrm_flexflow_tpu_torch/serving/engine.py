@@ -96,6 +96,7 @@ from typing import Any, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from .. import _cuda
 from ..device import resolve_device
 from ..graphs import GraphRunner, run_eager
 from ..ops.quantized import QUANT_MODES, quantize_embedding_params
@@ -570,9 +571,15 @@ class InferenceEngine:
     def warmup(self) -> None:
         """Build every bucket's graph outside the serving path, so
         steady-state traffic never waits on a kernel build, a capture or
-        a first allocation.  Across ranks the leader runs each bucket
-        once through the protocol (the followers join it in
-        :meth:`follow`), a follower does nothing."""
+        a first allocation.  On the card every kernel is built first:
+        the dispatch path reaches kernels no bucket's forward runs (a
+        tiered store's first miss launches the row set), and a kernel's
+        first launch builds it under the engine's lock.  Across ranks
+        the leader runs each bucket once through the protocol (the
+        followers join it in :meth:`follow`), a follower builds the
+        kernels only."""
+        if self.device.type == "cuda":
+            _cuda.build()
         if self._spmd:
             if not self.is_leader:
                 return
