@@ -377,6 +377,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
      this run (recorded from the start of main by wrapping the class's
      capture from here) is a static capture entry of the analyzer or
      reachable from one.
+ 37. the reference-compatible API (dlrm_flexflow_tpu_torch/flexflow)
+     through use_port_flexflow() on the card: (a) the run_random.sh DLRM
+     built only through flexflow.core (8 x embedding(1000000, 64, SUM)
+     on (256, 1) int64 ids, f32, SGD 0.01, MSE), train() over attached
+     arrays (4096 samples through fit's staged branch: 2 epochs, 32
+     steps, then two timed rounds of 8) against the native FFModel
+     built with the same calls from the same weights and arrays,
+     parameters and metric sums bit for bit after each round; (b) 8
+     steps of the imperative verbs
+     (forward, zero_gradients, backward, update) against 8 graphed
+     train_steps of the native model: each parameter within 1e-6 of its
+     largest magnitude, the metrics within 1e-5; B2 from the compat
+     model only (8 calls a step); (c) every examples/compat script
+     unchanged (FF_EXAMPLE_SAMPLES=512, one epoch), in this process:
+     each exits cleanly with every model it places on cuda (the onnx
+     one skipped, with the reason, without the onnx package); (d) the
+     binding's cost on earlier lines: train()'s samples/s against the
+     native fit's (rounds 2-3, in turns), a verb step's wall against a
+     graphed train_step's, each with the card's name and power limit.
 The phases that train epochs of the run_random.sh model ask for the
 epoch row cache ("on"): "auto" is off on the card.
 Profile lines carry the graph replays in their window, the graph pool's
@@ -391,6 +410,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import gc
+import io
 import json
 import os
 import shutil
@@ -420,12 +440,15 @@ from dlrm_flexflow_tpu_torch.checkpoint import (restore_checkpoint,
                                                 save_checkpoint)
 from dlrm_flexflow_tpu_torch.data import native as native_module
 from dlrm_flexflow_tpu_torch.data.loader import ArrayDataLoader, zipf_ids
+from dlrm_flexflow_tpu_torch.flexflow import use_port_flexflow
+from dlrm_flexflow_tpu_torch.flexflow.scope import run_script
 from dlrm_flexflow_tpu_torch.frontends import keras as keras_frontend
 from dlrm_flexflow_tpu_torch.frontends import onnx_model
 from dlrm_flexflow_tpu_torch.frontends.keras_callbacks import (
     Callback, LearningRateScheduler)
 from dlrm_flexflow_tpu_torch.frontends.torch_fx import PyTorchModel
 from dlrm_flexflow_tpu_torch.graphs import flatten
+from dlrm_flexflow_tpu_torch.metrics import MetricsAccumulator
 from dlrm_flexflow_tpu_torch.ops import Embedding, FusedEmbedInteract
 from dlrm_flexflow_tpu_torch.ops import embedding as emb_module
 from dlrm_flexflow_tpu_torch.ops import fused_interact as fused_module
@@ -7462,6 +7485,312 @@ def analysis_phase(card, captured) -> dict:
             "wall_s": wall}
 
 
+# -------------------------------------------------------------- phase 37
+#: train(): 16 batches of 256, 2 epochs (32 steps) in the first round,
+#: 8 (128 steps, about 0.1 s) in each of the two timed rounds; the
+#: verbs: 8 steps
+COMPAT_SAMPLES, COMPAT_VERB_STEPS = 16 * BATCH, 8
+COMPAT_EPOCHS = (2, 8, 8)
+#: the verbs against graphed train_steps: each parameter within 1e-6 of
+#: its largest magnitude, each metric sum within 1e-5 (relative)
+COMPAT_TOL = {"param": 1e-6, "metric": 1e-5}
+#: the example matrix on the card (the scripts' FF_EXAMPLE_* knobs)
+COMPAT_EXAMPLE_ENV = {"FF_EXAMPLE_SAMPLES": "512", "FF_EXAMPLE_EPOCHS": "1"}
+#: the keras examples' shared helper, a module and not a script; the
+#: one script that places no weights (it attaches and reads an array)
+COMPAT_HELPERS = ("keras/accuracy.py",)
+COMPAT_NO_WEIGHTS = ("native/tensor_attach.py",)
+
+
+def _compat_arrays(n=COMPAT_SAMPLES, seed=37):
+    """The dense features, the 8 id columns and the click labels of the
+    run_random.sh DLRM, from a seed."""
+    rng = np.random.default_rng(seed)
+    dense = rng.standard_normal((n, BOT)).astype(np.float32)
+    ids = [rng.integers(0, ROWS, (n, 1)).astype(np.int64)
+           for _ in range(TABLES)]
+    labels = rng.integers(0, 2, (n, 1)).astype(np.float32)
+    return [dense] + ids, labels
+
+
+def _compat_dlrm(fc, arrays, labels):
+    """The run_random.sh DLRM built through ``flexflow.core`` as the
+    reference's dlrm.cc builds it (8 x embedding(1000000, 64, SUM) on
+    (256, 1) ids, bottom 64-512-512-64 ReLU, concat to 576, top
+    576-1024-1024-1024-1 with a final sigmoid, MSE with accuracy and MSE
+    metrics, SGD at 0.01, f32, batch 256), with a SingleDataLoader over
+    each attached array.  Returns the model and its loaders."""
+    cfg = fc.FFConfig()
+    cfg.parse_args(["-b", str(BATCH), "-e", str(COMPAT_EPOCHS[0])])
+    m = fc.FFModel(cfg)
+    relu = fc.ActiMode.AC_MODE_RELU
+    dense_in = m.create_tensor([BATCH, BOT], fc.DataType.DT_FLOAT)
+    id_ins = [m.create_tensor([BATCH, 1], fc.DataType.DT_INT64)
+              for _ in range(TABLES)]
+    embs = [m.embedding(i, ROWS, DIM, fc.AggrMode.AGGR_MODE_SUM)
+            for i in id_ins]
+    t = dense_in
+    for w in (512, 512, DIM):
+        t = m.dense(t, w, relu)
+    t = m.concat([t] + embs, axis=1)
+    for w in (1024, 1024, 1024):
+        t = m.dense(t, w, relu)
+    m.dense(t, 1, fc.ActiMode.AC_MODE_SIGMOID)
+    m.compile(optimizer=fc.SGDOptimizer(m, 0.01),
+              loss_type=fc.LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE,
+              metrics=[fc.MetricsType.METRICS_ACCURACY,
+                       fc.MetricsType.METRICS_MEAN_SQUARED_ERROR])
+    loaders = []
+    for tensor, arr in zip([dense_in] + id_ins + [m.get_label_tensor()],
+                           arrays + [labels]):
+        dt = (fc.DataType.DT_INT64 if arr.dtype == np.int64
+              else fc.DataType.DT_FLOAT)
+        full = m.create_tensor(list(arr.shape), dt)
+        full.attach_numpy_array(cfg, arr)
+        loaders.append(fc.SingleDataLoader(m, tensor, full, arr.shape[0],
+                                           dt))
+    m.init_layers()
+    return m, loaders
+
+
+def _native_dlrm():
+    """The same model through the port's own FFModel: the same calls,
+    so the same op names; returns it and its input names in order."""
+    m = FFModel(FFConfig(batch_size=BATCH))
+    dense_in = m.create_tensor((BATCH, BOT), "float32")
+    id_ins = [m.create_tensor((BATCH, 1), "int64") for _ in range(TABLES)]
+    embs = [m.embedding(i, ROWS, DIM, "sum") for i in id_ins]
+    t = dense_in
+    for w in (512, 512, DIM):
+        t = m.dense(t, w, "relu")
+    t = m.concat([t] + embs, 1)
+    for w in (1024, 1024, 1024):
+        t = m.dense(t, w, "relu")
+    m.dense(t, 1, "sigmoid")
+    m.compile(optimizer=SGDOptimizer(lr=0.01),
+              loss_type="mean_squared_error",
+              metrics=("accuracy", "mean_squared_error"))
+    return m, [dense_in.name] + [i.name for i in id_ins]
+
+
+def _param_gap(a, b):
+    """(every parameter equal, max over parameters of the largest
+    difference over the parameter's largest magnitude)."""
+    same, gap = True, 0.0
+    for op, d in a.params.items():
+        for k, v in d.items():
+            w = b.params[op][k]
+            same = same and torch.equal(v, w)
+            gap = max(gap, _rel(v, w))
+    return same, gap
+
+
+def _wall_s(fn) -> float:
+    """One call's wall in seconds, up to a synchronise."""
+    return _timed(fn, 1) * 1e-6
+
+
+def compat_train(card, fc, arrays, labels):
+    """37(a)-(b): train() against the native model's fit (the same
+    weights and arrays), then the imperative verbs against graphed
+    train_steps; the compat model's B2 launches; the binding's cost."""
+    compat, loaders = _compat_dlrm(fc, arrays, labels)
+    native, names = _native_dlrm()
+    nstate = native.load_params(compat._state.params)
+    loader = ArrayDataLoader(dict(zip(names, arrays)), labels, BATCH)
+    batches = COMPAT_SAMPLES // BATCH
+
+    def native_fit(epochs):
+        nonlocal nstate
+        nstate, _ = native.fit(nstate, loader, epochs=epochs, verbose=True,
+                               warmup=False, show_throughput=False)
+
+    def run_train(epochs):
+        reset_counts()
+        walls["train"].append(_wall_s(
+            lambda: compat.train(loaders, epochs=epochs)))
+        for k, v in read_counts().items():
+            counts[k] = counts.get(k, 0) + v
+
+    # (a) train() and the native fit, three rounds, each held bit for
+    # bit; the first round captures, the other two (both replay their
+    # captured step; in turns: train, fit, fit, train) time them
+    walls = {"train": [], "fit": []}
+    counts = {}
+    for rnd, epochs in enumerate(COMPAT_EPOCHS):
+        if rnd < 2:
+            run_train(epochs)
+        walls["fit"].append(_wall_s(lambda: native_fit(epochs)))
+        if rnd == 2:
+            run_train(epochs)
+        same, gap = _param_gap(compat._state, nstate)
+        mets_same = (compat._acc.totals == native._last_metrics.totals)
+        log({"phase": "compat_train", "round": rnd, "steps": int(
+            compat._state.step), "params_bit_identical": same,
+             "max_param_gap": gap, "metric_sums": compat._acc.totals,
+             "native_metric_sums": native._last_metrics.totals,
+             "metrics_bit_identical": mets_same,
+             "staged_fit": native._last_fit_used_scan,
+             "epoch_cache_engaged": native._epoch_cache_active})
+        if not (same and mets_same and int(compat._state.step)
+                == int(nstate.step)
+                == batches * sum(COMPAT_EPOCHS[:rnd + 1])):
+            raise AssertionError(f"37(a): train() != the native fit in "
+                                 f"round {rnd}: params {same} ({gap}), "
+                                 f"metrics {mets_same}")
+    # (b) the verbs against graphed train_steps, from the same states
+    for d in loaders:
+        d.reset()
+    compat.reset_metrics()
+    reps0 = native.graph_replays
+    acc = MetricsAccumulator(native.metrics)
+    verb_walls, step_walls = [], []
+    reset_counts()
+    for i in range(COMPAT_VERB_STEPS):
+        def verbs():
+            for d in loaders:
+                d.next_batch(compat)
+            compat.forward()
+            compat.zero_gradients()
+            compat.backward()
+            compat.update()
+        verb_walls.append(_wall_s(verbs))
+        sl = slice(i * BATCH, (i + 1) * BATCH)
+        verb_counts = read_counts()
+        batch = {n: a[sl] for n, a in zip(names, arrays)}
+
+        def step():
+            nonlocal nstate
+            nstate, mets = native.train_step(nstate, batch, labels[sl])
+            acc.update({k: v for k, v in mets.items() if k != "loss"})
+        step_walls.append(_wall_s(step))
+        reset_counts()
+        for k, v in verb_counts.items():
+            counts[k] += v
+    same, gap = _param_gap(compat._state, nstate)
+    got = compat._acc.finalized_means()
+    want = acc.finalized_means()
+    met_gap = max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+                  for k in want)
+    replays = native.graph_replays - reps0
+    row = {"phase": "compat_verbs", "card": card,
+           "steps": COMPAT_VERB_STEPS, "params_bit_identical": same,
+           "max_param_gap": gap, "metrics": got, "train_step_metrics": want,
+           "max_metric_rel_gap": met_gap, "train_step_replays": replays,
+           "tolerance": COMPAT_TOL}
+    log(row)
+    if (gap > COMPAT_TOL["param"] or met_gap > COMPAT_TOL["metric"]
+            or got.keys() != want.keys()
+            or replays < COMPAT_VERB_STEPS - 2):
+        raise AssertionError(f"37(b): the verbs against train_step: {row}")
+    timed = batches * BATCH * sum(COMPAT_EPOCHS[1:])
+    # (d) the binding's own cost: train()'s samples/s against the native
+    # fit's (rounds 2-3), a verb step's wall against a graphed step's
+    # (medians of the steps after the first two)
+    timing = {"phase": "compat_timing", "card": card,
+              "train_samples_per_s": timed / sum(walls["train"][1:]),
+              "fit_samples_per_s": timed / sum(walls["fit"][1:]),
+              "train_wall_s": walls["train"], "fit_wall_s": walls["fit"],
+              "verb_step_wall_ms": float(np.median(verb_walls[2:])) * 1e3,
+              "graphed_step_wall_ms": float(np.median(step_walls[2:])) * 1e3,
+              "verb_step_walls_ms": [w * 1e3 for w in verb_walls],
+              "graphed_step_walls_ms": [w * 1e3 for w in step_walls],
+              "note": "one process, one card; walls on the host clock up "
+                      "to a synchronise"}
+    log(timing)
+    want_b2 = TABLES * (batches * sum(COMPAT_EPOCHS) + COMPAT_VERB_STEPS)
+    if counts["row_update"] != want_b2 or counts["row_update_prep"] != want_b2:
+        raise AssertionError(f"37: B2 launched {counts}, expected "
+                             f"{want_b2} row updates")
+    del compat, loaders, native, nstate
+    _free()
+    return timing, counts
+
+
+@contextlib.contextmanager
+def _recorded_inits():
+    """Every state ``FFModel.init`` places while the block runs, as the
+    device of its parameters."""
+    real = model_module.FFModel.init
+    devices = []
+
+    def init(self, *a, **k):
+        state = real(self, *a, **k)
+        devices.append(str(model_module.params_device(state.params)))
+        return state
+
+    model_module.FFModel.init = init
+    try:
+        yield devices
+    finally:
+        model_module.FFModel.init = real
+
+
+def compat_examples(card):
+    """37(c): every examples/compat script unchanged through
+    use_port_flexflow() on the card, in this process: each exits cleanly
+    and every model it builds holds its parameters on cuda.  The onnx
+    script is skipped, with the reason, without the onnx package."""
+    import importlib.util
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", "compat")
+    scripts = sorted(os.path.relpath(os.path.join(d, f), root)
+                     for d, _, fs in os.walk(root) for f in fs
+                     if f.endswith(".py"))
+    saved = {k: os.environ.get(k) for k in COMPAT_EXAMPLE_ENV}
+    os.environ.update(COMPAT_EXAMPLE_ENV)
+    rows = []
+    try:
+        for rel in (r for r in scripts if r not in COMPAT_HELPERS):
+            if (rel.startswith("onnx/")
+                    and importlib.util.find_spec("onnx") is None):
+                rows.append({"script": rel, "ran": False,
+                             "reason": "the onnx package is not installed "
+                                       "on this machine"})
+                continue
+            with _recorded_inits() as devices, \
+                    contextlib.redirect_stdout(io.StringIO()):
+                t0 = time.perf_counter()
+                run_script(os.path.join(root, rel))
+                torch.cuda.synchronize()
+            rows.append({"script": rel, "ran": True, "inits": devices,
+                         "wall_s": time.perf_counter() - t0})
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    bad = [r for r in rows if r["ran"] and (
+        any(not d.startswith("cuda") for d in r["inits"])
+        or not r["inits"] and r["script"] not in COMPAT_NO_WEIGHTS)]
+    log({"phase": "compat_examples", "card": card, "scripts": rows,
+         "models_placed": sum(len(r.get("inits", ())) for r in rows),
+         "env": COMPAT_EXAMPLE_ENV})
+    if bad:
+        raise AssertionError(f"37(c): not on the card: {bad}")
+    _free()
+    return rows
+
+
+def compat_phase(card):
+    """Phase 37: the reference-compatible API (dlrm_flexflow_tpu_torch/
+    flexflow) on the card through use_port_flexflow(); its B2 launches
+    and its walls."""
+    t0 = time.perf_counter()
+    arrays, labels = _compat_arrays()
+    with use_port_flexflow() as ff:
+        timing, counts = compat_train(card, ff.core, arrays, labels)
+    reset_counts()
+    examples = compat_examples(card)
+    for k, v in read_counts().items():
+        counts[k] += v
+    wall = time.perf_counter() - t0
+    log({"phase": "compat", "launches": counts, "wall_s": wall})
+    log({"phase": "wall", "name": "compat", "wall_s": wall})
+    return {"timing": timing, "examples": examples, "wall_s": wall}, counts
+
+
 def _entry(name, launches, err, timing):
     source, replaces, _ = KERNELS[name]
     return {"name": name, "route": "cuda", "source": source,
@@ -7592,11 +7921,15 @@ def main() -> int:
     # phase 36: the port's ffcheck (a host phase: after the timings)
     _free()
     analysis = analysis_phase(card, captures.names)
+    # phase 37: the reference-compatible API on the card (B2)
+    _free()
+    compat, compat_counts = compat_phase(card)
     path_counts = (headline_counts, sparse_counts, dense_counts, dot_counts,
                    staged_counts, bag_counts, bf16_counts, bag16_counts,
                    durable_counts, tiered_counts, lazy_counts, soap_counts,
                    tune_counts, apps_counts, hetero_counts, act_counts,
-                   tiered16_counts, mesh1_counts, elastic_counts)
+                   tiered16_counts, mesh1_counts, elastic_counts,
+                   compat_counts)
     row_launches = sum(c["row_update"] for c in path_counts)
     prep_launches = sum(c["row_update_prep"] for c in path_counts)
     if prep_launches != row_launches:
@@ -7721,6 +8054,10 @@ def main() -> int:
                             for r in analysis["vocab"]},
              "captured": analysis["captures"]["captured"],
              "phase_wall_s": analysis["wall_s"]},
+         "compat": {k: compat["timing"][k] for k in (
+             "train_samples_per_s", "fit_samples_per_s",
+             "verb_step_wall_ms", "graphed_step_wall_ms")} | {
+             "phase_wall_s": compat["wall_s"]},
          "note": "walls include each path's eager step and capture"})
     log({"kernels": [
         _entry("fused_interact_fwd",
@@ -7739,7 +8076,8 @@ def main() -> int:
         _entry("row_set", staged_counts["row_set"] + bf16_counts["row_set"]
                + tiered_counts["row_set"] + lazy_counts["row_set"]
                + apps_counts["row_set"] + act_counts["row_set"]
-               + tiered16_counts["row_set"], set_err, set_time),
+               + tiered16_counts["row_set"] + compat_counts["row_set"],
+               set_err, set_time),
         _entry("embedding_bag", bag_counts["embedding_bag"]
                + bag16_counts["embedding_bag"], bag_err, bag_time)]})
     log({"ok": True, "device": {"platform": "gpu",

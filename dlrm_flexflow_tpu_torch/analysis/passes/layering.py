@@ -69,6 +69,9 @@ LAYERS: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
     # elastic integrates BOTH subsystems, so it sits strictly above them
     ("elastic", ("elastic",)),
     ("apps", ("apps", "frontends")),
+    # the reference-compatible API re-exports the frontends and drives
+    # the model through its imperative verbs
+    ("compat", ("flexflow",)),
     # the A/B and tuning tools build the apps' models
     ("tools", ("tools",)),
     ("package-root", ("__init__",)),

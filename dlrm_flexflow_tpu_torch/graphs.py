@@ -40,6 +40,7 @@ counted kernel during a capture.
 
 from __future__ import annotations
 
+import gc
 import threading
 from typing import Any, Callable, List, Optional, Tuple
 
@@ -152,11 +153,18 @@ class GraphRunner:
     def _capture(self, state, pool) -> None:
         graph = torch.cuda.CUDAGraph()
         before = _launch_counts()
+        # a cyclic collection inside the capture can free a dead owner's
+        # graph, and destroying a graph while this thread captures
+        # invalidates the capture (ROADMAP C11): the collector waits
+        collecting = gc.isenabled()
+        gc.disable()
         try:
             with torch.cuda.graph(graph, pool=pool,
                                   capture_error_mode="thread_local"):
                 self._out = self._fn(self.static, state)
         finally:
+            if collecting:
+                gc.enable()
             # capture ran no kernel: take back what the wrappers counted
             for i, (w, b) in enumerate(zip(COUNTED, before)):
                 self._added[i] = w.launches - b

@@ -1113,10 +1113,16 @@ class FFModel:
         the ids that feed host-placed ops only (``_host_inputs``), which
         stay in host memory: the host lookup reads them there.  Under a
         mesh of more than one rank (and ``shard``) each input is the
-        rank's block of the global batch (``SpmdPlan.place``)."""
+        rank's block of the global batch (``SpmdPlan.place``).  An input
+        that no op reads (a compat script's full-dataset tensor) is
+        neither required nor placed, as the JAX package's forward reads
+        only the inputs its graph consumes."""
         from .distributed import GlobalArray
         placed = {}
+        read = {t.uid for op in self.layers for t in op.inputs}
         for t in self._inputs:
+            if t.uid not in read:
+                continue
             if t.name not in inputs:
                 raise ValueError(f"inputs missing {t.name!r} (model inputs: "
                                  f"{[i.name for i in self._inputs]})")
@@ -1357,7 +1363,29 @@ class FFModel:
         norm's new running statistics are copied into ``bn_state``.
         Nothing here synchronises with the host or reads a value on it.
         Returns the metrics packed into one vector (``_unpack_metrics``),
-        so a replay's result is one small copy."""
+        so a replay's result is one small copy.
+
+        Its two halves, ``_step_grads`` and ``_step_apply``, are also the
+        compat binding's ``backward`` and ``update`` verbs
+        (``flexflow/core/flexflow_binding.py``), which therefore take
+        this step's values."""
+        loss, preds, new_bn, grads = self._step_grads(batch, carried)
+        self._step_apply(batch, carried, new_bn, grads)
+        with torch.no_grad():
+            mets = compute_metrics(preds, batch["labels"], self.metrics,
+                                   self.loss_type)
+            mets["loss"] = loss
+            self._metric_layout = tuple((k, v.dtype) for k, v in mets.items())
+            dtype = functools.reduce(torch.promote_types,
+                                     (v.dtype for v in mets.values()))
+            return torch.stack([v.to(dtype) for v in mets.values()])
+
+    def _step_grads(self, batch, carried):
+        """A step's first half: the training forward, the loss and its
+        gradients; nothing carried changes.  Returns ``(loss, preds,
+        new_bn, grads)``, the first two detached; ``grads`` is ``(dense,
+        rows)``: ``{op: {param: gradient}}`` of the dense parameters and
+        ``{op: (rows read, their gradient)}`` of the row-sparse ops."""
         params, opt_state, step, bn_state, key = carried
         if self.has_stochastic:
             if key is None:
@@ -1389,13 +1417,25 @@ class FFModel:
             # as jax.grad gives it
             grads = torch.autograd.grad(loss, wrt, allow_unused=True,
                                         materialize_grads=True)
+        dgrads: Dict[str, Dict[str, torch.Tensor]] = {}
+        for (op, k), g in zip(flat, grads):
+            dgrads.setdefault(op, {})[k] = g
+        sparse = {op.name: (rows[op.name].detach(), g)
+                  for op, g in zip(self._sparse_ops, grads[len(flat):])}
+        return loss.detach(), preds.detach(), new_bn, (dgrads, sparse)
+
+    def _step_apply(self, batch, carried, new_bn, grads) -> None:
+        """A step's second half, every carried tensor in place: batch
+        norm's new statistics, the optimizer's step on the dense
+        parameters, the row-sparse ops' rows through the row update (or
+        ``_lazy_update``), and the step count."""
+        params, opt_state, step, bn_state, _ = carried
+        inputs, slot_override = batch["inputs"], batch["slots"]
+        dgrads, sparse = grads
         with torch.no_grad():
             for name, new in new_bn.items():
                 for k, v in new.items():
                     bn_state[name][k].copy_(v)
-            dgrads: Dict[str, Dict[str, torch.Tensor]] = {}
-            for (op, k), g in zip(flat, grads):
-                dgrads.setdefault(op, {})[k] = g
             lazy = self._lazy_mode and self._sparse_ops
             if lazy:
                 # the lazy rows step at the step count and rate from
@@ -1405,27 +1445,21 @@ class FFModel:
                        if isinstance(opt_state.get(k), torch.Tensor)}
             self.optimizer.update(params, dgrads, opt_state)
             neg_lr = -opt_state.get("lr", self.optimizer.lr)
-            for op, g in zip(self._sparse_ops, grads[len(flat):]):
+            for op in self._sparse_ops:
+                rows, g = sparse[op.name]
                 table = params[op.name]["embedding"]
                 slots = slot_override.get(op.name)
                 if lazy:
                     ids = (op.flat_ids(inputs[op.inputs[0].name])
                            if slots is None else slots)
-                    self._lazy_update(op, table, ids, rows[op.name].detach(),
-                                      g, opt_state, pre)
+                    self._lazy_update(op, table, ids, rows, g, opt_state,
+                                      pre)
                 elif slots is None:
                     op.scatter_apply(table, inputs[op.inputs[0].name], g,
                                      neg_lr)
                 else:
                     self._row_update(table, slots, g, neg_lr)
-            mets = compute_metrics(preds.detach(), labels, self.metrics,
-                                   self.loss_type)
-            mets["loss"] = loss.detach()
             step.add_(1)
-            self._metric_layout = tuple((k, v.dtype) for k, v in mets.items())
-            dtype = functools.reduce(torch.promote_types,
-                                     (v.dtype for v in mets.values()))
-            return torch.stack([v.to(dtype) for v in mets.values()])
 
     def _lazy_update(self, op, table, ids, w_rows, g_rows, opt_state, pre):
         """The row-lazy optimizer step of one op, in place (JAX
