@@ -396,6 +396,38 @@ Phases, each of which fails the run (non-zero exit, no result line):
      binding's cost on earlier lines: train()'s samples/s against the
      native fit's (rounds 2-3, in turns), a verb step's wall against a
      graphed train_step's, each with the card's name and power limit.
+ 38. the repo's example scripts on the port
+     (dlrm_flexflow_tpu_torch/examples), after the timings: (a) on this
+     card, each module's main() in turn at the JAX script's sizes
+     (dlrm_synthetic: the run_random.sh CLI at 8 x 1M x 64; dlrm_criteo:
+     the Kaggle model, bf16 compute, the Zipf fallback; the hybrid and
+     ragged Kaggle DLRMs and the ring example on a mesh of one rank):
+     every model on the card, every DLRM's epoch numbers finite, B2
+     launched by each DLRM that takes the row-sparse step (all but
+     dlrm_synthetic, whose default --wd 1e-4 takes the dense table
+     gradient) and B5 where dlrm_criteo's epoch cache is active, no
+     other kernel,
+     torch_import within 1e-5 of torch, strategy_search's .json and .pb
+     read back as its best, and the first step of dlrm_kaggle_ragged
+     (f32, d = 16 over the fused ragged row space) and of dlrm_criteo
+     (bf16 compute) through B2 bit for bit the same step on the plain
+     row update; (b) on four or more cards, dlrm_hybrid_strategy,
+     dlrm_kaggle_ragged ({"data": 2, "model": 2}) and
+     long_context_ring_attention ({"data": 2, "seq": 2}: two rings of
+     two ranks) each under python -m torch.distributed.run --standalone
+     --nproc_per_node=4 -m dlrm_flexflow_tpu_torch.examples.<name> on
+     NCCL (each rank runs the module as -m runs it, through
+     chip_smoke.py --example-rank <name> <out>, which also saves its
+     parameters after fit or train_step): exit 0, every rank's log, the
+     ranks' lines equal, the mesh and spec lines, every epoch number (or
+     the ring's loss) at rtol 1e-5 of the same model in one process on
+     card 0 (every mesh axis of size 1, the same seed and batches), and
+     every rank's gathered parameters against that run's: the DLRMs' at
+     rtol 1e-5 / atol 1e-6 (phase 35's tolerance), the ring's Adam
+     first moments within 1e-5 of each tensor's largest magnitude and
+     its parameters at rtol 1e-5 / atol 1e-6 wherever that gradient is
+     resolved; on fewer cards one line {"phase": "examples_cards",
+     "ran": false, "cards": n}.
 The phases that train epochs of the run_random.sh model ask for the
 epoch row cache ("on"): "auto" is off on the card.
 Profile lines carry the graph replays in their window, the graph pool's
@@ -422,6 +454,7 @@ import time
 import urllib.request
 import warnings
 from types import SimpleNamespace
+from unittest import mock
 
 import numpy as np
 import torch
@@ -7791,6 +7824,425 @@ def compat_phase(card):
     return {"timing": timing, "examples": examples, "wall_s": wall}, counts
 
 
+# --------------------------------------------------------------- phase 38
+#: phase 38: the repo's example scripts on the port
+#: (dlrm_flexflow_tpu_torch/examples), smallest first
+EXAMPLES = ("torch_import", "keras_mnist_style", "strategy_search",
+            "long_context_ring_attention", "dlrm_hybrid_strategy",
+            "dlrm_kaggle_ragged", "dlrm_criteo", "dlrm_synthetic")
+#: the ones that train a DLRM
+EXAMPLES_DLRM = ("dlrm_hybrid_strategy", "dlrm_kaggle_ragged", "dlrm_criteo",
+                 "dlrm_synthetic")
+#: 38(b): the ones that build their mesh over the rank group
+EXAMPLES_MESH = ("dlrm_hybrid_strategy", "dlrm_kaggle_ragged",
+                 "long_context_ring_attention")
+#: 38(b): each example's mesh and the spec its table's block records
+EXAMPLES_CARDS_MESH = {
+    "dlrm_hybrid_strategy": ("mesh: {'data': 2, 'model': 2}",
+                             "embedding sharding: PartitionSpec('model', "
+                             "None, None)"),
+    "dlrm_kaggle_ragged": (None, "row-space sharding: "
+                                 "PartitionSpec('model', None)"),
+    "long_context_ring_attention": ("mesh: {'data': 2, 'seq': 2}", None)}
+_NUMBER = r"[-+]?\d[\d,]*\.?\d*(?:[eE][-+]?\d+)?"
+
+
+def _example_module(name):
+    import importlib
+    return importlib.import_module(f"dlrm_flexflow_tpu_torch.examples.{name}")
+
+
+def _set_counts(counts) -> None:
+    for name, (_, _, wrapper) in KERNELS.items():
+        wrapper.launches = counts[name]
+
+
+@contextlib.contextmanager
+def _first_step_vs_plain(method, batch0, out):
+    """Before the first ``FFModel.<method>`` call of the block: one step of
+    the model through the kernels against the same step on the plain row
+    update (``_same_step``, on clones of the state), its launches not
+    counted; the verdict into ``out``."""
+    real = getattr(model_module.FFModel, method)
+
+    def first(self, state, *a, **k):
+        if not out:
+            counts = read_counts()
+            same, err = _same_step(self, state, *batch0(a), emb_module,
+                                   "row_update_cuda", row_update_ref)
+            _set_counts(counts)
+            out.update(bit_identical=same, max_abs_err=err,
+                       row_dim=int(self.get_op("emb").out_dim),
+                       compute_dtype=self.config.compute_dtype)
+        return real(self, state, *a, **k)
+
+    with mock.patch.object(model_module.FFModel, method, first):
+        yield
+
+
+def _epoch_numbers(text) -> list:
+    """Every number of the lines that start with "epoch "."""
+    import re
+    return [float(x.replace(",", "")) for ln in text.splitlines()
+            if ln.startswith("epoch ") for x in re.findall(
+                _NUMBER, ln.split(":", 1)[1])]
+
+
+def examples_one_card(card, root):
+    """38(a): every example module through its main() on this card, one
+    after another, each at the JAX script's sizes: its printed lines,
+    wall and launches, and the checks."""
+    rows, counts_by, steps = {}, {}, {}
+    searched = []
+    stem = os.path.join(root, "dlrm_searched_strategy")
+    real_init = model_module.FFModel.init
+    for name in EXAMPLES:
+        mod = _example_module(name)
+        step, models = {}, []
+
+        def init(self, *a, _models=models, **k):
+            state = real_init(self, *a, **k)
+            _models.append({"device": str(model_module.params_device(
+                state.params)), "row_sparse": bool(self._sparse_ops)})
+            return state
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(mock.patch.object(model_module.FFModel,
+                                                  "init", init))
+            if name == "strategy_search":
+                def search(*a, _real=mod.mcmc_search, **k):
+                    searched.append(_real(*a, **k))
+                    return searched[-1]
+                stack.enter_context(mock.patch.object(mod, "EXPORT_STEM",
+                                                      stem))
+                stack.enter_context(mock.patch.object(mod, "mcmc_search",
+                                                      search))
+            elif name == "dlrm_kaggle_ragged":
+                stack.enter_context(_first_step_vs_plain(
+                    "fit", lambda a: a[0].peek(), step))
+            elif name == "dlrm_criteo":
+                stack.enter_context(_first_step_vs_plain(
+                    "train_epoch", lambda a: ({k: v[0] for k, v in
+                                               a[0].items()}, a[1][0]),
+                    step))
+            buf = io.StringIO()
+            stack.enter_context(contextlib.redirect_stdout(buf))
+            reset_counts()  # the example's main path starts here
+            t0 = time.perf_counter()
+            mod.main()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts_by[name] = read_counts()  # ... and ends here
+        text = buf.getvalue()
+        rows[name] = {"lines": text.splitlines(), "wall_s": wall,
+                      "models": models, "launches": counts_by[name]}
+        if step:
+            steps[name] = step
+        _free()
+    nums = {n: _epoch_numbers("\n".join(rows[n]["lines"]))
+            for n in EXAMPLES_DLRM}
+    imported = [ln for ln in rows["torch_import"]["lines"]
+                if ln.startswith("max |port - torch| = ")]
+    import_err = float(imported[0].split("= ")[1]) if imported else None
+    best = searched[0] if searched else None
+    cache = [ln for ln in rows["dlrm_criteo"]["lines"]
+             if "cache active: " in ln]
+    cache_active = bool(cache) and cache[0].endswith("cache active: True")
+
+    def configs(strategy):
+        return {k: (tuple(v.dims), v.device_type, v.device_ids)
+                for k, v in strategy.configs.items()}
+    checks = {
+        "dlrm_losses_finite": all(
+            nums[n] and np.all(np.isfinite(nums[n])) for n in EXAMPLES_DLRM),
+        "torch_import_within_1e-5": import_err is not None
+        and import_err <= 1e-5,
+        "strategy_round_trip": best is not None
+        and configs(Strategy.load(stem + ".json")) == configs(best)
+        and configs(Strategy.load(stem + ".pb")) == configs(best),
+        "on_the_card": all(m["device"].startswith("cuda")
+                           for r in rows.values() for m in r["models"])
+        and all(rows[n]["models"] for n in EXAMPLES
+                if n != "strategy_search"),
+        # B2 runs on each DLRM whose model takes the row-sparse step
+        # (plain SGD); dlrm_synthetic's default --wd 1e-4 takes the dense
+        # table gradient, in JAX too
+        "b2_on_every_row_sparse_dlrm": all(
+            (counts_by[n]["row_update"] > 0)
+            == any(m["row_sparse"] for m in rows[n]["models"])
+            and counts_by[n]["row_update_prep"] == counts_by[n]["row_update"]
+            for n in EXAMPLES_DLRM)
+        and all(m["row_sparse"] for n in EXAMPLES_DLRM
+                if n != "dlrm_synthetic" for m in rows[n]["models"]),
+        "b5_where_the_cache_is_active": not cache_active
+        or counts_by["dlrm_criteo"]["row_set"] > 0,
+        "first_steps_bit_for_bit": set(steps) == {"dlrm_kaggle_ragged",
+                                                  "dlrm_criteo"}
+        and all(s["bit_identical"] for s in steps.values()),
+        "no_other_kernel": not any(
+            c[k] for c in counts_by.values()
+            for k in ("fused_interact_fwd", "fused_interact_bwd",
+                      "embedding_bag")),
+    }
+    row = {"phase": "examples", "card": card, "examples": rows,
+           "first_step_vs_plain": steps, "cache_active": cache_active,
+           "checks": checks}
+    log(row)
+    if not all(checks.values()):
+        raise AssertionError(f"38(a): checks failed: "
+                             f"{[k for k, v in checks.items() if not v]}")
+    total = {k: sum(c[k] for c in counts_by.values()) for k in KERNELS}
+    return row, total
+
+
+def _example_lines(text) -> list:
+    """The lines two runs of an example must share: all but the
+    throughput line (a wall)."""
+    return [ln for ln in text.splitlines()
+            if ln and not ln.startswith("ELAPSED TIME")]
+
+
+@contextlib.contextmanager
+def _end_state(res):
+    """After each ``FFModel.fit`` or ``train_step`` of the block, the
+    parameters (and Adam's first moments) into ``res`` as CPU tensors
+    under ``p/<op>/<param>`` (``m/<op>/<param>``), each mesh block
+    gathered to its global value (``spmd.global_param``, a collective
+    every rank makes in the same order)."""
+    from dlrm_flexflow_tpu_torch.parallel.spmd import global_param
+    fit, step = model_module.FFModel.fit, model_module.FFModel.train_step
+
+    def record(state):
+        slots = {"p": state.params}
+        if "m" in state.opt_state:
+            slots["m"] = state.opt_state["m"]
+        for tag, tree in slots.items():
+            for op, d in tree.items():
+                for k, v in d.items():
+                    res[f"{tag}/{op}/{k}"] = global_param(v).detach().cpu()
+
+    def fit_and_record(self, state, *a, **k):
+        state, thpt = fit(self, state, *a, **k)
+        record(state)
+        return state, thpt
+
+    def step_and_record(self, state, *a, **k):
+        state, mets = step(self, state, *a, **k)
+        record(state)
+        return state, mets
+
+    with mock.patch.object(model_module.FFModel, "fit", fit_and_record), \
+            mock.patch.object(model_module.FFModel, "train_step",
+                              step_and_record):
+        yield
+
+
+def example_rank(name, out):
+    """38(b)'s rank body, started by ``python -m torch.distributed.run``
+    as ``chip_smoke.py --example-rank <name> <out>``: the example module
+    run as ``python -m dlrm_flexflow_tpu_torch.examples.<name>`` runs it
+    (``runpy``, as ``__main__``, so its own ``__main__`` block calls
+    ``main()`` and joins the launcher's group), its end state
+    (``_end_state``) saved to ``<out>.rank<r>.pt``."""
+    import runpy
+    res = {}
+    sys.argv[1:] = []  # the example's command line: it takes none
+    with _end_state(res):
+        runpy.run_module(f"dlrm_flexflow_tpu_torch.examples.{name}",
+                         run_name="__main__", alter_sys=True)
+    torch.save(res, f"{out}.rank{int(os.environ['RANK'])}.pt")
+
+
+def _example_one_process(name, world):
+    """The example's main in this process on card 0 as one rank of
+    ``world`` would build it, with every mesh axis of size 1: the same
+    model, weights (each rank draws the global values from the same
+    seed) and batches, on one card.  Returns its printed text and its
+    end state (``_end_state``)."""
+    from dlrm_flexflow_tpu_torch.parallel.mesh import make_mesh
+    mod = _example_module(name)
+
+    @contextlib.contextmanager
+    def group(device):
+        yield world
+
+    buf, res = io.StringIO(), {}
+    with mock.patch.object(mod, "rank_group", group), \
+            mock.patch.object(mod, "make_mesh",
+                              lambda shape: make_mesh({k: 1 for k in shape})), \
+            _end_state(res), contextlib.redirect_stdout(buf):
+        mod.main()
+    torch.cuda.synchronize()
+    return buf.getvalue(), res
+
+
+def _end_state_vs(got, want, adam):
+    """A rank's end state ``got`` against the one-process run's ``want``
+    (``_end_state``), on the card: the same keys; without Adam every
+    parameter within rtol 1e-5 / atol 1e-6 (phase 35's tolerance); under
+    Adam each first moment (a tenth of the step's gradient) within 1e-5
+    of its tensor's largest magnitude, and each parameter within rtol
+    1e-5 / atol 1e-6 wherever that gradient is resolved (Adam steps a
+    parameter by about its rate whatever the gradient's size, so one
+    below 1e-5 of the largest may step either way).  Returns (keys
+    equal, within tolerance, largest abs diff, elements left
+    unresolved)."""
+    ok, err, unresolved = True, 0.0, 0
+    if set(got) != set(want):
+        return False, False, None, None
+    for key, w in want.items():
+        tag, rest = key.split("/", 1)
+        w = w.cuda().float()
+        g = got[key].cuda().float()
+        diff = (g - w).abs()
+        err = max(err, float(diff.max()))
+        if tag == "m":
+            ok &= float(diff.max()) <= 1e-5 * float(w.abs().max())
+            continue
+        off = diff > 1e-6 + 1e-5 * w.abs()
+        if adam:
+            m = want[f"m/{rest}"].cuda().float().abs()
+            free = m <= 1e-5 * float(m.max())
+            unresolved += int((off & free).sum())
+            off &= ~free
+        ok &= not bool(off.any())
+    return True, ok, err, unresolved
+
+
+def examples_cards(card, root):
+    """38(b): each of EXAMPLES_MESH under ``python -m torch.distributed.run
+    --standalone --nproc_per_node=4`` on NCCL, one rank a card, each rank
+    running the module as ``-m dlrm_flexflow_tpu_torch.examples.<name>``
+    runs it (``example_rank``), its output in its own log and its end
+    state in a file, held against the same model in one process on card
+    0: the printed numbers, and every gathered parameter (and Adam's
+    first moments) by ``_end_state_vs``; one line and nothing else on
+    fewer than four cards."""
+    import glob
+    import re
+    n = torch.cuda.device_count()
+    if n < CARDS:
+        log({"phase": "examples_cards", "ran": False, "cards": n,
+             "note": f"phase 38(b) needs {CARDS} cards; it did not run"})
+        return None
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [here] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    rows = {}
+    for name in EXAMPLES_MESH:
+        logs = os.path.join(root, name)
+        t0 = time.perf_counter()
+        saved = os.path.join(root, f"{name}.end")
+        r = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             f"--nproc_per_node={CARDS}", "--log-dir", logs, "--redirects",
+             "3", os.path.join(here, "chip_smoke.py"), "--example-rank",
+             name, saved],
+            capture_output=True, text=True, timeout=300, cwd=here, env=env)
+        wall = time.perf_counter() - t0
+        out = {}
+        for path in glob.glob(os.path.join(logs, "*", "attempt_*", "*",
+                                           "stdout.log")):
+            with open(path, errors="replace") as f:
+                out[int(os.path.basename(os.path.dirname(path)))] = f.read()
+        _free()
+        t0 = time.perf_counter()
+        one, one_end = _example_one_process(name, CARDS)
+        one_wall = time.perf_counter() - t0
+        adam = name == "long_context_ring_attention"
+        ends = {}
+        for k in range(CARDS):
+            path = f"{saved}.rank{k}.pt"
+            if os.path.exists(path):
+                ends[k] = _end_state_vs(torch.load(path), one_end, adam)
+                os.remove(path)
+        del one_end
+        _free()
+        lines = {k: _example_lines(t) for k, t in out.items()}
+        mesh_line, spec_line = EXAMPLES_CARDS_MESH[name]
+        if name == "long_context_ring_attention":
+            got = {k: [float(ln.split("loss=")[1]) for ln in v
+                       if "loss=" in ln] for k, v in lines.items()}
+            want = [float(ln.split("loss=")[1])
+                    for ln in one.splitlines() if "loss=" in ln]
+            numbers_ok = bool(want) and all(
+                len(v) == 1 and np.allclose(v, want, rtol=1e-5, atol=0)
+                for v in got.values())
+            shape_ok = all(v[1].startswith("seq 256 over 2 shards: ")
+                           for v in lines.values())
+        else:
+            got = {k: _epoch_numbers("\n".join(v)) for k, v in lines.items()}
+            want = _epoch_numbers(one)
+            numbers_ok = bool(want) and all(
+                len(v) == len(want) and np.allclose(v, want, rtol=1e-5,
+                                                    atol=0)
+                for v in got.values())
+            shape_ok = all(sum(ln.startswith("epoch ") for ln in v) == 2
+                           for v in lines.values())
+        checks = {
+            "exit_0": r.returncode == 0,
+            "every_rank": sorted(out) == list(range(CARDS)),
+            "ranks_agree": bool(lines) and all(
+                v == lines[0] for v in lines.values()),
+            "mesh_line": mesh_line is None or all(
+                mesh_line in v for v in lines.values()),
+            "spec_line": spec_line is None or all(
+                spec_line in v for v in lines.values()),
+            "lines": shape_ok,
+            "numbers_vs_one_process_rtol_1e-5": numbers_ok,
+            "end_state_every_rank": sorted(ends) == list(range(CARDS))
+            and all(e[0] for e in ends.values()),
+            "end_state_vs_one_process": bool(ends) and all(
+                e[1] for e in ends.values()),
+        }
+        thpt = {k: [float(x) for x in re.findall(
+            r"THROUGHPUT = ([0-9.]+) samples/s", t)] for k, t in out.items()}
+        row = {"phase": "examples_cards", "card": card, "example": name,
+               "cards": CARDS, "backend": "nccl", "rc": r.returncode,
+               "wall_s": wall, "one_process_wall_s": one_wall,
+               "samples_per_s": {k: v[0] for k, v in sorted(thpt.items())
+                                 if v},
+               "lines_rank0": lines.get(0),
+               "one_process_lines": _example_lines(one),
+               "end_state_max_abs_err": {k: e[2] for k, e in ends.items()},
+               "end_state_unresolved": {k: e[3] for k, e in ends.items()},
+               "checks": checks}
+        if not all(checks.values()):
+            row["stderr_tail"] = r.stderr[-2000:]
+            row["rank_tails"] = {k: t[-1500:] for k, t in out.items()}
+        log(row)
+        if not all(checks.values()):
+            raise AssertionError(
+                f"38(b) {name}: checks failed: "
+                f"{[k for k, v in checks.items() if not v]}")
+        rows[name] = row
+    return rows
+
+
+def examples_phase(card):
+    """Phase 38 in a directory of its own beside this script, removed
+    afterwards: (a) on this card, then (b) on four; the launches of (a)
+    (no kernel runs under a mesh of more than one rank)."""
+    root = tempfile.mkdtemp(prefix=".examples-",
+                            dir=os.path.dirname(os.path.abspath(__file__)))
+    t0 = time.perf_counter()
+    try:
+        one, counts = examples_one_card(card, root)
+        log({"phase": "wall", "name": "examples_one_card",
+             "wall_s": time.perf_counter() - t0})
+        t1 = time.perf_counter()
+        cards = examples_cards(card, root)
+        if cards is not None:
+            log({"phase": "wall", "name": "examples_cards",
+                 "wall_s": time.perf_counter() - t1})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    log({"phase": "examples", "launches": counts, "wall_s": wall})
+    log({"phase": "wall", "name": "examples", "wall_s": wall})
+    return {"one_card": one, "cards": cards, "wall_s": wall}, counts
+
+
 def _entry(name, launches, err, timing):
     source, replaces, _ = KERNELS[name]
     return {"name": name, "route": "cuda", "source": source,
@@ -7924,12 +8376,16 @@ def main() -> int:
     # phase 37: the reference-compatible API on the card (B2)
     _free()
     compat, compat_counts = compat_phase(card)
+    # phase 38: the example scripts on the port, on this card (B2), then
+    # on four cards under torch.distributed.run (no kernel)
+    _free()
+    examples, examples_counts = examples_phase(card)
     path_counts = (headline_counts, sparse_counts, dense_counts, dot_counts,
                    staged_counts, bag_counts, bf16_counts, bag16_counts,
                    durable_counts, tiered_counts, lazy_counts, soap_counts,
                    tune_counts, apps_counts, hetero_counts, act_counts,
                    tiered16_counts, mesh1_counts, elastic_counts,
-                   compat_counts)
+                   compat_counts, examples_counts)
     row_launches = sum(c["row_update"] for c in path_counts)
     prep_launches = sum(c["row_update_prep"] for c in path_counts)
     if prep_launches != row_launches:
@@ -8058,28 +8514,37 @@ def main() -> int:
              "train_samples_per_s", "fit_samples_per_s",
              "verb_step_wall_ms", "graphed_step_wall_ms")} | {
              "phase_wall_s": compat["wall_s"]},
+         "examples": {
+             "wall_s": {k: r["wall_s"] for k, r in
+                        examples["one_card"]["examples"].items()},
+             "cards_wall_s": None if examples["cards"] is None else {
+                 k: r["wall_s"] for k, r in examples["cards"].items()},
+             "phase_wall_s": examples["wall_s"]},
          "note": "walls include each path's eager step and capture"})
     log({"kernels": [
         _entry("fused_interact_fwd",
                serve_launches + sum(c["fused_interact_fwd"]
                                     for c in (dense_counts, dot_counts,
                                               tiered_counts, soap_counts,
-                                              tune_counts, act_counts)),
+                                              tune_counts, act_counts,
+                                              examples_counts)),
                max(fwd_err, path_err), fwd_time),
         _entry("fused_interact_bwd",
                sum(c["fused_interact_bwd"] for c in (dense_counts,
                                                      dot_counts,
-                                                     tune_counts)),
+                                                     tune_counts,
+                                                     examples_counts)),
                bwd_err, bwd_time),
         _entry("row_update", row_launches, row_err, row_time),
         _entry("row_update_prep", prep_launches, prep_err, prep_time),
         _entry("row_set", staged_counts["row_set"] + bf16_counts["row_set"]
                + tiered_counts["row_set"] + lazy_counts["row_set"]
                + apps_counts["row_set"] + act_counts["row_set"]
-               + tiered16_counts["row_set"] + compat_counts["row_set"],
-               set_err, set_time),
+               + tiered16_counts["row_set"] + compat_counts["row_set"]
+               + examples_counts["row_set"], set_err, set_time),
         _entry("embedding_bag", bag_counts["embedding_bag"]
-               + bag16_counts["embedding_bag"], bag_err, bag_time)]})
+               + bag16_counts["embedding_bag"]
+               + examples_counts["embedding_bag"], bag_err, bag_time)]})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})
@@ -8087,4 +8552,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--example-rank"]:
+        example_rank(*sys.argv[2:4])
+        sys.exit(0)
     sys.exit(main())

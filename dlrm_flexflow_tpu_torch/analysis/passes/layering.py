@@ -72,6 +72,9 @@ LAYERS: Tuple[Tuple[str, Tuple[str, ...]], ...] = (
     # the reference-compatible API re-exports the frontends and drives
     # the model through its imperative verbs
     ("compat", ("flexflow",)),
+    # the example scripts drive the apps, the frontends, the SOAP search
+    # and the mesh through their public entry points
+    ("examples", ("examples",)),
     # the A/B and tuning tools build the apps' models
     ("tools", ("tools",)),
     ("package-root", ("__init__",)),
